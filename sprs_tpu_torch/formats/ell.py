@@ -1,0 +1,115 @@
+"""ELLPACK (padded-row) sparse format, the PyTorch counterpart of
+``sprs_tpu/formats/ell.py``.
+
+Every row is padded to a common ``width`` so that ``data``/``indices``
+are dense ``(rows_pad, width)`` arrays and SpMV is
+``sum(data * x[indices], axis=1)``: one gather and one row reduction.
+Pad slots carry ``indices == 0`` (an always-valid gather address) and
+``data == 0``.  Rows are padded to a multiple of ``row_align``.
+
+Only the plain torch products live here; the ELL kernel (K5 in
+ROADMAP.md) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from ..errors import ShapeError
+from .csmat import CsMat
+from .util import INDEX_DTYPE, round_up
+
+
+@dataclasses.dataclass(frozen=True)
+class EllMat:
+    """Row-major ELLPACK matrix: ``indices`` and ``data`` of shape
+    ``(rows_pad, width)``; rows beyond ``shape[0]`` are all padding."""
+
+    indices: torch.Tensor
+    data: torch.Tensor
+    shape: Tuple[int, int]
+
+    @property
+    def rows(self) -> int:
+        return self.shape[0]
+
+    @property
+    def cols(self) -> int:
+        return self.shape[1]
+
+    @property
+    def rows_pad(self) -> int:
+        return self.indices.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.indices.shape[1]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+    def to_dense(self) -> torch.Tensor:
+        out = torch.zeros(
+            (self.rows_pad, self.cols), dtype=self.dtype, device=self.data.device
+        )
+        rows = torch.arange(self.rows_pad, device=self.data.device)
+        out.index_put_(
+            (rows[:, None].expand(-1, self.width), self.indices.to(torch.int64)),
+            self.data,
+            accumulate=True,
+        )
+        return out[: self.rows]
+
+    def __repr__(self):
+        return (
+            f"EllMat(shape={self.shape}, width={self.width}, "
+            f"rows_pad={self.rows_pad}, dtype={self.dtype})"
+        )
+
+
+def ell_from_csmat(
+    mat: CsMat, *, width: Optional[int] = None, row_align: int = 8
+) -> EllMat:
+    """Convert a CSR matrix to ELL; ``width`` defaults to the max row nnz
+    and entries beyond ``width`` in a row are dropped."""
+    mat = mat.to_csr()
+    if width is None:
+        width = max(mat.max_outer_nnz(), 1)
+    rows_pad = round_up(max(mat.rows, 1), row_align)
+    nnz = mat.nnz
+    outer = mat.outer_ids()[:nnz].to(torch.int64)
+    slot = torch.arange(nnz, device=mat.device) - mat.indptr.to(torch.int64)[outer]
+    keep = slot < width
+    idx = torch.zeros((rows_pad, width), dtype=INDEX_DTYPE, device=mat.device)
+    dat = torch.zeros((rows_pad, width), dtype=mat.dtype, device=mat.device)
+    idx[outer[keep], slot[keep]] = mat.indices[:nnz][keep]
+    dat[outer[keep], slot[keep]] = mat.data[:nnz][keep]
+    return EllMat(idx, dat, mat.shape)
+
+
+def ell_spmv(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x, plain torch (gather + row reduction)."""
+    if x.shape != (ell.cols,):
+        raise ShapeError(f"ell_spmv: A is {ell.shape}, x is {tuple(x.shape)}")
+    return (ell.data * x[ell.indices.to(torch.int64)]).sum(1)[: ell.rows]
+
+
+def ell_spmm(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for dense X of shape (cols, k)."""
+    if x.ndim != 2 or x.shape[0] != ell.cols:
+        raise ShapeError(f"ell_spmm: A is {ell.shape}, X is {tuple(x.shape)}")
+    y = torch.einsum("rw,rwk->rk", ell.data, x[ell.indices.to(torch.int64)])
+    return y[: ell.rows]
+
+
+def ell_overhead(mat: CsMat) -> float:
+    """Padding overhead of converting ``mat`` to ELL: padded slots /
+    live slots.  The dispatch keeps ELL when this is small."""
+    nnz = max(mat.nnz, 1)
+    width = max(mat.max_outer_nnz(), 1)
+    rows_pad = round_up(max(mat.rows, 1), 8)
+    return rows_pad * width / nnz - 1.0

@@ -1,0 +1,129 @@
+"""Sparse×dense products: SpMV and SpMM, and the structure dispatch that
+picks a format per matrix.  The counterpart of ``sprs_tpu/ops/prod.py``.
+
+Both storage orders reduce to two plain torch primitives:
+
+* CSR (gather form):   y = index_add(data * x[indices], row_ids)
+* CSC (scatter form):  y[indices] += data * x[col_ids]
+
+Padding entries carry the row sentinel ``n_outer`` and ``data == 0``;
+torch's ``index_add_`` raises on an out-of-range id where JAX's
+``segment_sum`` drops it, so padding is masked to row 0 with a zero
+contribution.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from ..errors import ShapeError
+from ..formats.csmat import CsMat
+
+# prepare_spmv / prepare_spmm routing, kept identical to the JAX
+# package so that both pick the same format for the same matrix.
+DIA_MAX_DIAGS = 32
+DIA_MAX_DIAGS_DENSE = 64
+DIA_MIN_FILL = 0.25
+ELL_MAX_OVERHEAD = 1.2
+
+
+def _contributions(mat: CsMat, x: torch.Tensor):
+    """(dst ids, contributions) of every stored slot, padding masked."""
+    outer = mat.outer_ids()
+    live = outer < mat.outer_dims
+    outer = torch.where(live, outer, torch.zeros_like(outer)).to(torch.int64)
+    inner = mat.indices.to(torch.int64)
+    src, dst = (inner, outer) if mat.is_csr else (outer, inner)
+    xs = x[src] if x.ndim == 1 else x[src, :]
+    data = mat.data if x.ndim == 1 else mat.data[:, None]
+    live = live if x.ndim == 1 else live[:, None]
+    contrib = data * xs
+    return dst, torch.where(live, contrib, torch.zeros_like(contrib))
+
+
+def spmv(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x for a dense vector x."""
+    if x.shape != (mat.cols,):
+        raise ShapeError(f"spmv: A is {mat.shape}, x is {tuple(x.shape)}")
+    dst, contrib = _contributions(mat, x)
+    y = torch.zeros(mat.rows, dtype=contrib.dtype, device=contrib.device)
+    return y.index_add_(0, dst, contrib)
+
+
+def spmm(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for a dense matrix X of shape (cols, k)."""
+    if x.ndim != 2 or x.shape[0] != mat.cols:
+        raise ShapeError(f"spmm: A is {mat.shape}, X is {tuple(x.shape)}")
+    dst, contrib = _contributions(mat, x)
+    y = torch.zeros(
+        (mat.rows, x.shape[1]), dtype=contrib.dtype, device=contrib.device
+    )
+    return y.index_add_(0, dst, contrib)
+
+
+def _route(mat: CsMat) -> str:
+    """'dia', 'ell' or 'csr' for ``mat`` (host-side, once per matrix).
+
+    DIA when few diagonals are populated (k <= 32, or k <= 64 with fill
+    >= 0.25); else ELL when its padding overhead is below 1.2; else the
+    CSR index-add.
+    """
+    from ..formats.dia import n_diags_of
+    from ..formats.ell import ell_overhead
+
+    k = n_diags_of(mat)
+    dia_fill = mat.nnz / max(k * max(mat.rows, 1), 1)
+    if k <= DIA_MAX_DIAGS or (k <= DIA_MAX_DIAGS_DENSE and dia_fill >= DIA_MIN_FILL):
+        return "dia"
+    if ell_overhead(mat) < ELL_MAX_OVERHEAD:
+        return "ell"
+    return "csr"
+
+
+def prepare_spmv(mat: CsMat) -> Tuple[Callable, object]:
+    """Structure-dispatched SpMV: ``(fn, prepared)`` with
+    ``fn(prepared, x) -> y``.
+
+    * few populated diagonals → :class:`DiaTiledMat` through kernel K1
+      (every band width: the kernel has no window to outgrow),
+    * modest ELL padding overhead → ELL (plain gather; kernel K5 waits),
+    * otherwise → CSR index-add.
+    """
+    route = _route(mat)
+    if route == "dia":
+        from ..formats.dia import dia_from_csmat
+        from .cuda.dia_spmv import dia_tile
+
+        return (lambda m, x: m.spmv(x)), dia_tile(dia_from_csmat(mat))
+    if route == "ell":
+        from ..formats.ell import ell_from_csmat, ell_spmv
+
+        return ell_spmv, ell_from_csmat(mat)
+    return spmv, mat
+
+
+def prepare_spmm(mat: CsMat) -> Tuple[Callable, object]:
+    """Structure-dispatched SpMM: ``(fn, prepared)`` with
+    ``fn(prepared, X) -> Y`` for a dense RHS ``X (cols, k)``.  The DIA
+    branch is the plain ``dia_spmm`` (kernel K2 waits)."""
+    route = _route(mat)
+    if route == "dia":
+        from ..formats.dia import dia_from_csmat, dia_spmm
+
+        return dia_spmm, dia_from_csmat(mat)
+    if route == "ell":
+        from ..formats.ell import ell_from_csmat, ell_spmm
+
+        return ell_spmm, ell_from_csmat(mat)
+    return spmm, mat
+
+
+def dense_matmul_sparse(x: torch.Tensor, mat: CsMat) -> torch.Tensor:
+    """X @ A via the transpose identity X·A = (Aᵀ·Xᵀ)ᵀ."""
+    if x.ndim == 1:
+        return spmv(mat.T, x)
+    if x.shape[-1] != mat.rows:
+        raise ShapeError(f"dense@sparse: X is {tuple(x.shape)}, A is {mat.shape}")
+    return spmm(mat.T, x.T).T
