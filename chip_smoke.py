@@ -6,17 +6,40 @@ and prints no result):
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
-2. build: every CUDA source of the port, compiled from ``csrc/``;
-3. gate: each kernel against its plain torch version on the card, on
-   small, odd and full-size operands in float32 and float64;
-4. timing: K1 at the 4096×4096-grid Laplacian SpMV (n = 16,777,216,
-   float32) and at the 1024×1024 float64 solve size, with CUDA events,
-   beside its bytes bound, its plain version and one library call;
-5. main path: BiCGSTAB on the 1024×1024 grid Laplacian and CG on the
-   1024×1024 Dirichlet Laplacian, float64, tol 1e-8, through
-   ``prepare_spmv`` and K1; checks convergence, the true residual and
-   that K1 was launched exactly 3·iters+2 and iters+2 times;
-6. the kernels line, then the last line
+2. build: every CUDA source of the port, compiled from ``csrc/`` (one
+   ``nvcc`` per source, all started together);
+3. gate: each kernel against its plain torch version on the card —
+   K1 (banded SpMV) and K2 (banded SpMM) on grid Laplacians and a random
+   band in float32 and float64, K2 also on the 1024² Dirichlet Laplacian
+   and the band's transpose, at every RHS width the block main paths and
+   correctness solves give it (4 to 256) and at 1, 48 and 130; K3 and K4
+   (block-sparse SpMM) at block size 8 (odd shapes, an empty block row,
+   padding blocks, unsorted blocks) and 128 in float32, bfloat16 and
+   float64; the backwards of K1, K2 and K3 against torch's autograd of
+   the plain version on the CPU;
+4. timing, with CUDA events, beside each kernel's bound, its plain
+   version and one library call: K1 at the 4096×4096-grid SpMV and the
+   1024² float64 solve size; K2 at the 2048×1024 grid with 128 RHS
+   (float32) and at 1024² float64 with 24, 48 and 256 RHS; K3 at
+   n = 4096, k = 512, bs = 128, block densities 0.125/0.25/0.5 (bfloat16)
+   and at n = 16384 (bfloat16, float32); K4 at the first of those;
+5. main paths, each with the launch counts set to 0 just before and read
+   just after:
+   a. BiCGSTAB and CG at 1024² float64 through ``prepare_spmv`` and K1
+      (3·iters+2 and iters+2 launches), then a profiler window;
+   b. the block solvers through ``prepare_spmm`` and K2: heat diffusion
+      from 256 point sources, ``expm_multiply`` on the 1024² grid
+      Laplacian (float64), held against the same call over the plain
+      version; LOBPCG at 1024² for a fixed 50 iterations (2·50+2
+      launches), with a profiler window; the plain versions' call counts
+      stay at 0;
+   c. block-sparse products ``BsrMat @ X`` (K3) and the grouped product
+      (K4) at n = 4096, k = 512, bs = 128, bfloat16;
+6. correctness solves: BiCGSTAB and CG at 32² against a dense solve;
+   LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
+   2·iters+2 K2 launches) and ``svds(k=4)`` on the random band against
+   ``torch.linalg.svdvals`` (4·iters+5 K2 launches);
+7. the kernels line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -25,6 +48,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -32,11 +56,19 @@ import time
 import numpy as np
 import torch
 
+from sprs_tpu_torch.formats.bsr import BsrMat, bsr_from_dense, bsr_random, bsr_spmm_plain
+from sprs_tpu_torch.formats.dia import dia_to_csmat
 from sprs_tpu_torch.formats.util import round_up
 from sprs_tpu_torch.interop import from_arrays
-from sprs_tpu_torch.linalg import bicgstab, cg
-from sprs_tpu_torch.ops import prepare_spmv
+from sprs_tpu_torch.linalg import bicgstab, cg, expm_multiply, lobpcg, svds
+from sprs_tpu_torch.ops import prepare_spmm, prepare_spmv
 from sprs_tpu_torch.ops.cuda import build
+from sprs_tpu_torch.ops.cuda.bsr_spmm import (
+    bsr_group,
+    bsr_spmm_grouped_kernel,
+    bsr_spmm_kernel,
+)
+from sprs_tpu_torch.ops.cuda.dia_spmm import dia_spmm_kernel, dia_spmm_plain
 from sprs_tpu_torch.ops.cuda.dia_spmv import (
     dia_spmv_kernel,
     dia_spmv_plain,
@@ -44,12 +76,20 @@ from sprs_tpu_torch.ops.cuda.dia_spmv import (
 )
 from sprs_tpu_torch.utils import dirichlet_laplacian, grid_laplacian
 
-# H100 SXM data sheet: HBM3 rate and the non-tensor-core peaks.
+DEVICE = "cuda"
+# H100 SXM data sheet: HBM3 rate; CUDA-core peaks (K1, K2) and the peaks
+# taken for K3's bound (bf16 dense tensor cores, f32 CUDA cores, f64
+# tensor cores).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-# kernel vs plain: the same sum order over the diagonals; only FMA
+BSR_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.float64: 67e12}
+# K1/K2 vs plain: the same sum order over the diagonals; only FMA
 # contraction differs.  Relative to max |y|.
 GATE_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-12}
+# K3/K4 vs plain: both take products and sums in float32 for every type
+# (as the JAX package does), in another order; a bfloat16 output may
+# round to a neighbouring value: one step at the largest magnitude.
+BSR_GATE_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-5, torch.bfloat16: 2.0**-7}
 SOLVE_TOL = 1e-8
 SOLVE_SIDE = 1024
 SPMV_SIDE = 4096
@@ -57,10 +97,31 @@ SPMV_SIDE = 4096
 # 256: BiCGSTAB 464, CG 454), so 1024 needs about 1,900.
 MAX_ITER = 10000
 PROFILE_ITERS = 50
+SPMM_GRID = (2048, 1024)  # the JAX package's measured K2 shape (2M rows)
+# 8 and 24: LOBPCG's X and basis at m = 8; 4 and 12: svds(k=4); 256:
+# the expm block; 1, 48 and 130 for odd and wide tiles.
+SPMM_WIDTHS = (1, 4, 8, 12, 24, 48, 130, 256)
+BAND_OFFSETS = (-70, -3, -1, 0, 2, 65)
+EXPM_SOURCES = 256
+LOBPCG_M = 8
+LOBPCG_FIXED_ITERS = 50
+EIG_SIDE = 128
+# Rehearsed on the CPU with the port: LOBPCG at 128², m = 8, tol 1e-6
+# took 644 iterations; svds(k=4) on the band took 52.
+EIG_MAX_ITER = 2000
+SVDS_MAX_ITER = 500
+BSR_N, BSR_K, BSR_BS = 4096, 512, 128
+BSR_DENSITIES = (0.125, 0.25, 0.5)
+BSR_BIG_N = 16384
+BSR_GROUP = 8
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
 
 
 def phase_device():
@@ -75,7 +136,7 @@ def phase_device():
     ).stdout.strip().splitlines()[0]
     log(f"device: {name}, count {count}, torch {torch.__version__}, cuda {torch.version.cuda}")
     log(smi)
-    return name, count
+    return name, count, smi
 
 
 def phase_build():
@@ -88,7 +149,20 @@ def phase_build():
             log(f"    {line}")
 
 
-def banded_operand(rows, cols, offsets, dtype, seed):
+def check_rel(name, err, ref_max, limit):
+    rel = err / max(ref_max, 1e-300)
+    log(f"gate {name}: max_abs_err {err!r} rel {rel!r} (limit {limit})")
+    if not rel <= limit:
+        raise AssertionError(f"gate {name}: rel {rel} > {limit}")
+    return err
+
+
+# ---------------------------------------------------------------------------
+# operands
+# ---------------------------------------------------------------------------
+
+
+def band_dia(rows, cols, offsets, dtype, seed):
     """Random DIA operand with zeros where a diagonal leaves the matrix."""
     rng = np.random.default_rng(seed)
     rows_pad = round_up(rows, 8)
@@ -96,72 +170,184 @@ def banded_operand(rows, cols, offsets, dtype, seed):
     i = np.arange(rows_pad)
     for d, off in enumerate(offsets):
         data[d, (i >= rows) | (i + off < 0) | (i + off >= cols)] = 0.0
-    dia = from_arrays(
-        "dia", (rows, cols), (data.astype(dtype),), offsets=offsets, device="cuda"
+    return dia_tile(
+        from_arrays("dia", (rows, cols), (data.astype(dtype),), offsets=offsets, device=DEVICE)
     )
-    x = torch.from_numpy(rng.standard_normal(cols).astype(dtype)).cuda()
-    return dia_tile(dia), x
+
+
+def banded_operand(rows, cols, offsets, dtype, seed):
+    dia = band_dia(rows, cols, offsets, dtype, seed)
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(cols).astype(dtype))
+    return dia, x.to(DEVICE)
 
 
 def laplacian_operand(mat, seed):
     dia = dia_tile(mat.to_dia())
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.standard_normal(dia.cols)).to("cuda", dia.dtype)
+    x = torch.from_numpy(rng.standard_normal(dia.cols)).to(DEVICE, dia.dtype)
     return dia, x
 
 
-def gate_one(name, dia, x):
+def rhs_block(rows, k, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal((rows, k))).to(DEVICE, dtype)
+
+
+def csr_twin(mat):
+    nnz = mat.nnz
+    return torch.sparse_csr_tensor(mat.indptr, mat.indices[:nnz], mat.data[:nnz], size=mat.shape)
+
+
+# ---------------------------------------------------------------------------
+# gates
+# ---------------------------------------------------------------------------
+
+
+def gate_spmv(name, dia, x):
     y = dia_spmv_kernel(dia, x)
     ref = dia_spmv_plain(dia, x)
-    torch.cuda.synchronize()
+    sync()
     if y.shape != (dia.rows,) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"gate {name}: bad output {tuple(y.shape)}")
     err = float((y - ref).abs().max())
-    rel = err / max(float(ref.abs().max()), 1e-300)
-    limit = GATE_LIMIT[dia.dtype]
-    log(f"gate {name}: max_abs_err {err!r} rel {rel!r} (limit {limit})")
-    if not rel <= limit:
-        raise AssertionError(f"gate {name}: rel {rel} > {limit}")
-    return err
+    return check_rel(name, err, float(ref.abs().max()), GATE_LIMIT[dia.dtype])
 
 
-def gate_grad():
-    """The autograd backward on the card against torch's own autograd of
-    the plain version on the CPU."""
-    dia, x = laplacian_operand(grid_laplacian((64, 64), device="cuda"), 7)
-    g = torch.from_numpy(np.random.default_rng(8).standard_normal(dia.rows)).cuda()
-    data = dia.data.clone().requires_grad_(True)
-    xx = x.clone().requires_grad_(True)
-    y = dia_spmv_kernel(type(dia)(data, dia.offsets, dia.shape), xx)
-    dd, dx = torch.autograd.grad(y, (data, xx), g)
-    data_c = dia.data.cpu().requires_grad_(True)
+def gate_spmm(name, dia, x):
+    y = dia_spmm_kernel(dia, x)
+    ref = dia_spmm_plain(dia, x)
+    sync()
+    if y.shape != (dia.rows, x.shape[1]) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"gate {name}: bad output {tuple(y.shape)}")
+    err = float((y - ref).abs().max())
+    return check_rel(name, err, float(ref.abs().max()), GATE_LIMIT[dia.dtype])
+
+
+def gate_bsr(name, fn, bsr, x):
+    y = fn(bsr, x)
+    ref = bsr_spmm_plain(bsr, x)
+    sync()
+    if y.shape != (bsr.rows, x.shape[1]) or y.dtype != x.dtype or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"gate {name}: bad output {tuple(y.shape)} {y.dtype}")
+    err = float((y.float() - ref.float()).abs().max())
+    return check_rel(name, err, float(ref.float().abs().max()), BSR_GATE_LIMIT[x.dtype])
+
+
+def gate_grads():
+    """The autograd backwards on the card against torch's own autograd of
+    the plain versions on the CPU: the largest error of each kernel's."""
+    errs = {}
+    dia, x = laplacian_operand(grid_laplacian((64, 64), device=DEVICE), 7)
+    for label, fn, plain, xx, g in (
+        ("K1", dia_spmv_kernel, dia_spmv_plain, x, rhs_block(dia.rows, 1, torch.float64, 8)[:, 0]),
+        ("K2", dia_spmm_kernel, dia_spmm_plain, rhs_block(dia.cols, 24, torch.float64, 9),
+         rhs_block(dia.rows, 24, torch.float64, 10)),
+    ):
+        data = dia.data.clone().requires_grad_(True)
+        xg = xx.clone().requires_grad_(True)
+        dd, dx = torch.autograd.grad(fn(type(dia)(data, dia.offsets, dia.shape), xg), (data, xg), g)
+        data_c = dia.data.cpu().requires_grad_(True)
+        x_c = xx.cpu().requires_grad_(True)
+        y_c = plain(type(dia)(data_c, dia.offsets, dia.shape), x_c)
+        dd_c, dx_c = torch.autograd.grad(y_c, (data_c, x_c), g.cpu())
+        err = max(float((dd.cpu() - dd_c).abs().max()), float((dx.cpu() - dx_c).abs().max()))
+        log(f"gate grad {label} (64x64 grid, float64): max_abs_err {err!r}")
+        if not err <= 1e-12:
+            raise AssertionError(f"gate grad {label}: {err}")
+        errs[label] = err
+
+    bsr = bsr_random(11, (300, 260), 8, 0.3, torch.float32, device=DEVICE)
+    x = rhs_block(260, 20, torch.float32, 12)
+    g = rhs_block(300, 20, torch.float32, 13)
+    blocks = bsr.blocks.clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    y = bsr_spmm_kernel(BsrMat(bsr.brows, bsr.bcols, blocks, bsr.shape, bsr.n_blocks), xg)
+    db, dx = torch.autograd.grad(y, (blocks, xg), g)
+    blocks_c = bsr.blocks.cpu().requires_grad_(True)
     x_c = x.cpu().requires_grad_(True)
-    y_c = dia_spmv_plain(type(dia)(data_c, dia.offsets, dia.shape), x_c)
-    dd_c, dx_c = torch.autograd.grad(y_c, (data_c, x_c), g.cpu())
-    err = max(float((dd.cpu() - dd_c).abs().max()), float((dx.cpu() - dx_c).abs().max()))
-    log(f"gate grad (64x64 grid, float64): max_abs_err {err!r}")
-    if not err <= 1e-12:
-        raise AssertionError(f"gate grad: {err}")
+    cpu = BsrMat(bsr.brows.cpu(), bsr.bcols.cpu(), blocks_c, bsr.shape, bsr.n_blocks)
+    db_c, dx_c = torch.autograd.grad(bsr_spmm_plain(cpu, x_c), (blocks_c, x_c), g.cpu())
+    errs["K3"] = max(
+        check_rel(f"grad K3 {label} (bs 8, float32)", float((a.cpu() - b).abs().max()),
+                  float(b.abs().max()), 1e-5)
+        for label, a, b in (("dblocks", db, db_c), ("dX", dx, dx_c))
+    )
+    return errs
+
+
+def odd_block_dense(dtype):
+    """A 45×37 matrix of 8×8 blocks with an empty block row (rows 8-15)."""
+    rng = np.random.default_rng(20)
+    keep = rng.random((6, 5)) < 0.5
+    keep[1] = False
+    dense = np.zeros((48, 40), np.float32)
+    for i, j in zip(*np.nonzero(keep)):
+        dense[i * 8 : (i + 1) * 8, j * 8 : (j + 1) * 8] = rng.standard_normal((8, 8))
+    return torch.from_numpy(dense[:45, :37]).to(dtype)
 
 
 def phase_gate(lap_spmv):
-    errs = []
+    k1_errs, k2_errs, k3_errs, k4_errs = [], [], [], []
     for dtype in (np.float32, np.float64):
         tdt = torch.float32 if dtype == np.float32 else torch.float64
-        lap = grid_laplacian((64, 64), tdt, device="cuda")
-        errs.append(gate_one(f"64x64 grid {tdt}", *laplacian_operand(lap, 1)))
-        offs = (-70, -3, -1, 0, 2, 65)
-        errs.append(
-            gate_one(f"band 5000x4803 {offs} {tdt}", *banded_operand(5000, 4803, offs, dtype, 2))
-        )
+        lap = grid_laplacian((64, 64), tdt, device=DEVICE)
+        k1_errs.append(gate_spmv(f"K1 64x64 grid {tdt}", *laplacian_operand(lap, 1)))
+        k1_errs.append(gate_spmv(f"K1 band 5000x4803 {BAND_OFFSETS} {tdt}",
+                                 *banded_operand(5000, 4803, BAND_OFFSETS, dtype, 2)))
+        # every operand of the block main paths and correctness solves:
+        # the grid (expm), the Dirichlet Laplacian (LOBPCG), the band and
+        # its transpose (svds' A and Aᵀ)
+        band = band_dia(5000, 4803, BAND_OFFSETS, dtype, 3)
+        for label, dia in (
+            ("64x64 grid", dia_tile(lap.to_dia())),
+            (f"{SOLVE_SIDE}^2 grid", dia_tile(grid_laplacian((SOLVE_SIDE,) * 2, tdt, device=DEVICE).to_dia())),
+            (f"{SOLVE_SIDE}^2 dirichlet",
+             dia_tile(dirichlet_laplacian((SOLVE_SIDE,) * 2, tdt, device=DEVICE).to_dia())),
+            (f"band 5000x4803 {BAND_OFFSETS}", band),
+            ("band transposed", dia_tile(dia_to_csmat(band).T.to_csr().to_dia())),
+        ):
+            for k in SPMM_WIDTHS:
+                x = rhs_block(dia.cols, k, tdt, k)
+                k2_errs.append(gate_spmm(f"K2 {label} k={k} {tdt}", dia, x))
     for mat, label in (
-        (grid_laplacian((SOLVE_SIDE,) * 2, device="cuda"), "grid"),
-        (dirichlet_laplacian((SOLVE_SIDE,) * 2, device="cuda"), "dirichlet"),
+        (grid_laplacian((SOLVE_SIDE,) * 2, device=DEVICE), "grid"),
+        (dirichlet_laplacian((SOLVE_SIDE,) * 2, device=DEVICE), "dirichlet"),
     ):
-        errs.append(gate_one(f"{SOLVE_SIDE}^2 {label} float64", *laplacian_operand(mat, 3)))
-    spmv_err = gate_one(f"{SPMV_SIDE}^2 grid float32", *lap_spmv)
-    gate_grad()
-    return max(errs + [spmv_err]), spmv_err
+        k1_errs.append(gate_spmv(f"K1 {SOLVE_SIDE}^2 {label} float64", *laplacian_operand(mat, 3)))
+    spmv_err = gate_spmv(f"K1 {SPMV_SIDE}^2 grid float32", *lap_spmv)
+
+    for tdt in (torch.float32, torch.bfloat16, torch.float64):
+        # bs 8: odd shape, an empty block row, padding blocks; then a
+        # slice whose blocks are shuffled out of row order; then grouped
+        bsr = bsr_from_dense(odd_block_dense(tdt), 8, cap=40, device=DEVICE)
+        sliced = bsr.slice_block_rows(8, 45)
+        perm = torch.from_numpy(np.random.default_rng(21).permutation(sliced.cap)).to(DEVICE)
+        unsorted = BsrMat(sliced.brows[perm], sliced.bcols[perm], sliced.blocks[perm],
+                          sliced.shape, sliced.n_blocks)
+        x = rhs_block(37, 70, tdt, 22)
+        k3_errs.append(gate_bsr(f"K3 bs8 45x37 padded {tdt}", bsr_spmm_kernel, bsr, x))
+        k3_errs.append(gate_bsr(f"K3 bs8 sliced+unsorted {tdt}", bsr_spmm_kernel, unsorted, x))
+        k3_errs.append(gate_bsr(f"K3 bs8 spmv {tdt}", bsr_spmm_kernel, bsr, x[:, :1].contiguous()))
+        k4_errs.append(gate_bsr(f"K4 bs8 group 4 {tdt}", lambda b, v: bsr_spmm_grouped_kernel(b, v, 4),
+                                bsr_group(bsr, 4), x))
+        # bs 128 at an odd size
+        big = bsr_random(23, (1000, 900), 128, 0.3, tdt, device=DEVICE)
+        xb = rhs_block(900, 200, tdt, 24)
+        k3_errs.append(gate_bsr(f"K3 bs128 1000x900 {tdt}", bsr_spmm_kernel, big, xb))
+        k4_errs.append(gate_bsr(f"K4 bs128 group 4 {tdt}", lambda b, v: bsr_spmm_grouped_kernel(b, v, 4),
+                                bsr_group(big, 4), xb))
+    grad = gate_grads()
+    return {
+        "dia_spmv": max(k1_errs + [spmv_err, grad["K1"]]),
+        "dia_spmm": max(k2_errs + [grad["K2"]]),
+        "bsr_spmm": max(k3_errs + [grad["K3"]]),
+        "bsr_spmm_grouped": max(k4_errs),
+    }
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
 
 
 def time_ms(fn, reps):
@@ -169,34 +355,25 @@ def time_ms(fn, reps):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
+    sync()
     start.record()
     for _ in range(reps):
         fn()
     end.record()
-    torch.cuda.synchronize()
+    sync()
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(dia, x):
-    """Least time for y = A @ x: every input byte read once and y
-    written once at the HBM rate, or 2·k·rows flops at the peak."""
-    nbytes = (dia.data.numel() + x.numel() + dia.rows) * dia.data.element_size()
+def bound(nbytes, flops, peak):
+    """Least time in ms: every input byte read once and every output byte
+    written once at the HBM rate, or the operations at the peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * dia.n_diags * dia.rows / PEAK_FLOPS[dia.dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes
+    t_ops = flops / peak * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_timing(label, mat, dia, x, reps):
-    ms = time_ms(lambda: dia_spmv_kernel(dia, x), reps)
-    plain_ms = time_ms(lambda: dia_spmv_plain(dia, x), max(reps // 5, 3))
-    nnz = mat.nnz
-    csr = torch.sparse_csr_tensor(
-        mat.indptr, mat.indices[:nnz], mat.data[:nnz], size=mat.shape
-    )
-    lib_err = float((torch.mv(csr, x) - dia_spmv_plain(dia, x)).abs().max())
-    library_ms = time_ms(lambda: torch.mv(csr, x), reps)
-    b_ms, b_by, nbytes = bound_ms(dia, x)
+def timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak, **extra):
+    b_ms, b_by = bound(nbytes, flops, peak)
     row = {
         "shape": label,
         "ms": ms,
@@ -205,11 +382,122 @@ def phase_timing(label, mat, dia, x, reps):
         "bound_ms": b_ms,
         "bound_by": b_by,
         "bytes": nbytes,
+        "flops": flops,
         "roofline_share": b_ms / ms,
-        "library_max_abs_err": lib_err,
+        **extra,
     }
     log(f"timing {json.dumps(row)}")
     return row
+
+
+def timing_spmv(label, mat, dia, x, reps):
+    ms = time_ms(lambda: dia_spmv_kernel(dia, x), reps)
+    plain_ms = time_ms(lambda: dia_spmv_plain(dia, x), max(reps // 5, 3))
+    csr = csr_twin(mat)
+    lib_err = float((torch.mv(csr, x) - dia_spmv_plain(dia, x)).abs().max())
+    library_ms = time_ms(lambda: torch.mv(csr, x), reps)
+    nbytes = (dia.data.numel() + x.numel() + dia.rows) * dia.data.element_size()
+    flops = 2 * dia.n_diags * dia.rows
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, PEAK_FLOPS[dia.dtype],
+                      kernel="dia_spmv", library="torch.mv (CSR)", library_max_abs_err=lib_err)
+
+
+def timing_spmm(label, mat, dia, x, reps):
+    ms = time_ms(lambda: dia_spmm_kernel(dia, x), reps)
+    plain_ms = time_ms(lambda: dia_spmm_plain(dia, x), max(reps // 5, 3))
+    csr = csr_twin(mat)
+    lib_err = float((torch.sparse.mm(csr, x) - dia_spmm_kernel(dia, x)).abs().max())
+    library_ms = time_ms(lambda: torch.sparse.mm(csr, x), reps)
+    k = x.shape[1]
+    nbytes = (dia.data.numel() + x.numel() + dia.rows * k) * dia.data.element_size()
+    flops = 2 * dia.n_diags * dia.rows * k
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, PEAK_FLOPS[dia.dtype],
+                      kernel="dia_spmm", library="torch.sparse.mm (CSR)", library_max_abs_err=lib_err)
+
+
+def torch_bsr_twin(bsr):
+    row_ptr, order = bsr.row_order
+    idx = order.to(torch.int64)
+    return torch.sparse_bsr_tensor(
+        row_ptr, bsr.bcols[idx], bsr.blocks[idx], size=bsr.shape
+    )
+
+
+def timing_bsr(label, name, fn, bsr, x, reps, product=None):
+    """``product``: the matrix whose product ``fn`` computes, where
+    ``bsr`` is a repack of it with zero padding blocks; the bound counts
+    the product's blocks, not the padding."""
+    ms = time_ms(lambda: fn(bsr, x), reps)
+    plain_ms = time_ms(lambda: bsr_spmm_plain(bsr, x), max(reps // 5, 3))
+    dense = bsr.to_dense()
+    library_ms = time_ms(lambda: torch.matmul(dense, x), reps)
+    del dense
+    try:
+        twin = torch_bsr_twin(bsr)
+        lib_bsr_err = float((twin @ x - fn(bsr, x)).float().abs().max())
+        lib_bsr_ms = time_ms(lambda: twin @ x, reps)
+        lib_bsr = None
+    except Exception as e:  # torch's own BSR product: not every type runs
+        lib_bsr_err = lib_bsr_ms = None
+        lib_bsr = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    k = x.shape[1]
+    size = x.element_size()
+    bs = bsr.block_size
+    n_blocks = (bsr if product is None else product).n_blocks
+    nbytes = (n_blocks * bs * bs + bsr.cols * k + bsr.rows * k) * size
+    flops = 2 * n_blocks * bs * bs * k
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, BSR_PEAK_FLOPS[x.dtype],
+                      kernel=name, library="torch.matmul (dense A)",
+                      torch_bsr_ms=lib_bsr_ms, torch_bsr_max_abs_err=lib_bsr_err,
+                      torch_bsr_error=lib_bsr, n_blocks=bsr.n_blocks,
+                      block_density=bsr.block_density)
+
+
+def phase_timing(lap_spmv, spmv_operand):
+    rows = {}
+    rows["dia_spmv"] = timing_spmv(f"{SPMV_SIDE}^2 grid float32", lap_spmv, *spmv_operand, reps=50)
+    lap_solve = grid_laplacian((SOLVE_SIDE,) * 2, device=DEVICE)
+    timing_spmv(f"{SOLVE_SIDE}^2 grid float64", lap_solve, *laplacian_operand(lap_solve, 4), reps=200)
+    lap_small = grid_laplacian((64, 64), device=DEVICE)
+    timing_spmv("64^2 grid float64", lap_small, *laplacian_operand(lap_small, 5), reps=2000)
+
+    lap2 = grid_laplacian(SPMM_GRID, torch.float32, device=DEVICE)
+    dia2 = dia_tile(lap2.to_dia())
+    rows["dia_spmm"] = timing_spmm(
+        f"{SPMM_GRID[0]}x{SPMM_GRID[1]} grid float32 k=128", lap2, dia2,
+        rhs_block(dia2.cols, 128, torch.float32, 30), reps=20,
+    )
+    del lap2, dia2
+    dia_solve = dia_tile(lap_solve.to_dia())
+    for k in (24, 48, 256):
+        timing_spmm(f"{SOLVE_SIDE}^2 grid float64 k={k}", lap_solve, dia_solve,
+                    rhs_block(dia_solve.cols, k, torch.float64, 31 + k), reps=20)
+
+    for density in BSR_DENSITIES:
+        bsr = bsr_random(40, (BSR_N, BSR_N), BSR_BS, density, torch.bfloat16, device=DEVICE)
+        x = rhs_block(BSR_N, BSR_K, torch.bfloat16, 41)
+        row = timing_bsr(f"n={BSR_N} k={BSR_K} bs={BSR_BS} density {density} bfloat16",
+                         "bsr_spmm", bsr_spmm_kernel, bsr, x, reps=20)
+        if density == BSR_DENSITIES[0]:
+            rows["bsr_spmm"] = row
+            grouped = bsr_group(bsr, BSR_GROUP)
+            rows["bsr_spmm_grouped"] = timing_bsr(
+                f"n={BSR_N} k={BSR_K} bs={BSR_BS} density {density} bfloat16 group {BSR_GROUP}",
+                "bsr_spmm_grouped",
+                lambda b, v: bsr_spmm_grouped_kernel(b, v, BSR_GROUP), grouped, x, reps=20,
+                product=bsr,
+            )
+    for tdt in (torch.bfloat16, torch.float32):
+        bsr = bsr_random(42, (BSR_BIG_N, BSR_BIG_N), BSR_BS, BSR_DENSITIES[0], tdt, device=DEVICE)
+        x = rhs_block(BSR_BIG_N, BSR_K, tdt, 43)
+        timing_bsr(f"n={BSR_BIG_N} k={BSR_K} bs={BSR_BS} density {BSR_DENSITIES[0]} {tdt}",
+                   "bsr_spmm", bsr_spmm_kernel, bsr, x, reps=5)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# main paths
+# ---------------------------------------------------------------------------
 
 
 def check_solution(name, res, a_dia, b, launches, expected):
@@ -245,7 +533,7 @@ def check_small_against_dense():
         ("bicgstab", bicgstab, grid_laplacian),
         ("cg", cg, dirichlet_laplacian),
     ):
-        a = make((side, side), device="cuda")
+        a = make((side, side), device=DEVICE)
         res = solver(a, rhs, tol=SOLVE_TOL, max_iter=MAX_ITER)
         ref = np.linalg.solve(a.to_dense().cpu().numpy(), rhs)
         rel = float(np.abs(res.x.cpu().numpy() - ref).max() / np.abs(ref).max())
@@ -254,31 +542,31 @@ def check_small_against_dense():
             raise AssertionError(f"small {name}: rel err {rel}, converged {res.converged}")
 
 
-def phase_main_path():
+def phase_main_spmv():
     side = SOLVE_SIDE
     n = side * side
-    lap = grid_laplacian((side, side), device="cuda")
-    rhs = torch.zeros(n, dtype=torch.float64, device="cuda")
+    lap = grid_laplacian((side, side), device=DEVICE)
+    rhs = torch.zeros(n, dtype=torch.float64, device=DEVICE)
     rhs[(side // 2) * side + side // 2] = 1.0
-    spd = dirichlet_laplacian((side, side), device="cuda")
+    spd = dirichlet_laplacian((side, side), device=DEVICE)
     spd_dia = spd.to_dia()
-    b = dia_spmv_plain(spd_dia, torch.ones(n, dtype=torch.float64, device="cuda"))
+    b = dia_spmv_plain(spd_dia, torch.ones(n, dtype=torch.float64, device=DEVICE))
     lap_dia = lap.to_dia()
     for label, mat in (("grid", lap), ("dirichlet", spd)):
         t0 = time.perf_counter()
         prepare_spmv(mat)
         log(f"prepare_spmv {side}^2 {label}: {time.perf_counter() - t0!r} s")
-    torch.cuda.synchronize()
+    sync()
 
     dia_spmv_kernel.launches = 0
     t0 = time.perf_counter()
     res_b = bicgstab(lap, rhs, tol=SOLVE_TOL, max_iter=MAX_ITER)
-    torch.cuda.synchronize()
+    sync()
     wall_b = time.perf_counter() - t0
     launches_b = dia_spmv_kernel.launches
     t0 = time.perf_counter()
     res_c = cg(spd, b, tol=SOLVE_TOL, max_iter=MAX_ITER)
-    torch.cuda.synchronize()
+    sync()
     wall_c = time.perf_counter() - t0
     launches = dia_spmv_kernel.launches
 
@@ -286,42 +574,217 @@ def phase_main_path():
     check_solution("bicgstab", res_b, lap_dia, rhs, launches_b, 3 * res_b.iterations + 2)
     log(f"cg {side}^2 float64: wall {wall_c!r} s (prepare_spmv included)")
     check_solution("cg", res_c, spd_dia, b, launches - launches_b, res_c.iterations + 2)
+    if launches == 0:
+        raise AssertionError("the SpMV main path launched no K1 kernel")
     return launches, lap, rhs
 
 
-def phase_profile(lap, rhs):
-    """Device busy share of BiCGSTAB iterations at the main path's size:
-    torch.profiler over PROFILE_ITERS iterations (set-up excluded), the
-    same iterations timed untraced beside it."""
+def profile_window(label, run, kernel_key):
+    """Device busy share of ``run`` (set-up excluded): torch.profiler over
+    one run, the same run timed untraced beside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn, prepared = prepare_spmv(lap)
-
-    def run():
+    def timed():
         t0 = time.perf_counter()
-        bicgstab(lambda v: fn(prepared, v), rhs, tol=SOLVE_TOL, max_iter=PROFILE_ITERS)
-        torch.cuda.synchronize()
+        run()
+        sync()
         return (time.perf_counter() - t0) * 1e3
 
-    run()
-    untraced_ms = run()
+    timed()
+    untraced_ms = timed()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        traced_ms = run()
+        traced_ms = timed()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    k1_ms = sum(e.self_device_time_total for e in kernels if "dia_spmv" in e.key) / 1e3
+    kernel_ms = sum(e.self_device_time_total for e in kernels if kernel_key in e.key) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     row = {
-        "iterations": PROFILE_ITERS,
         "untraced_ms": untraced_ms,
         "traced_ms": traced_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1.0 - busy_ms / traced_ms,
-        "k1_ms": k1_ms,
+        f"{kernel_key}_ms": kernel_ms,
         "top_kernels": [[e.key[:60], e.count, e.self_device_time_total / 1e3] for e in top],
     }
-    log(f"profile bicgstab {SOLVE_SIDE}^2 float64 {json.dumps(row)}")
+    log(f"profile {label} {json.dumps(row)}")
+    return row
+
+
+def phase_profile_bicgstab(lap, rhs):
+    fn, prepared = prepare_spmv(lap)
+    profile_window(
+        f"bicgstab {SOLVE_SIDE}^2 float64, {PROFILE_ITERS} iterations",
+        lambda: bicgstab(lambda v: fn(prepared, v), rhs, tol=SOLVE_TOL, max_iter=PROFILE_ITERS),
+        "dia_spmv",
+    )
+
+
+def reset_counts():
+    for fn in (dia_spmv_kernel, dia_spmm_kernel, bsr_spmm_kernel, bsr_spmm_grouped_kernel):
+        fn.launches = 0
+    dia_spmm_plain.calls = 0
+    bsr_spmm_plain.calls = 0
+
+
+def phase_main_block():
+    """The block solvers through prepare_spmm and K2 (see the module
+    note).  Returns K2's launches over this path."""
+    side = SOLVE_SIDE
+    n = side * side
+    lap = grid_laplacian((side, side), device=DEVICE)
+    anorm = float(lap.norm(1))
+    if anorm != 8.0:
+        raise AssertionError(f"norm(1) of the grid Laplacian is {anorm}, expected 8")
+    src = np.random.default_rng(50).choice(n, EXPM_SOURCES, replace=False)
+    B = torch.zeros((n, EXPM_SOURCES), dtype=torch.float64, device=DEVICE)
+    B[torch.from_numpy(src).to(DEVICE), torch.arange(EXPM_SOURCES, device=DEVICE)] = 1.0
+    spd = dirichlet_laplacian((side, side), device=DEVICE)
+    x0 = rhs_block(n, LOBPCG_M, torch.float64, 51)
+    for label, mat in (("grid", lap), ("dirichlet", spd)):
+        t0 = time.perf_counter()
+        prepare_spmm(mat)
+        sync()
+        log(f"prepare_spmm {side}^2 {label}: {time.perf_counter() - t0!r} s")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    y = expm_multiply(lap, B, t=-1.0)
+    sync()
+    wall_e = time.perf_counter() - t0
+    expm_launches = dia_spmm_kernel.launches
+    t0 = time.perf_counter()
+    res = lobpcg(spd, x0, tol=0.0, max_iter=LOBPCG_FIXED_ITERS)
+    sync()
+    wall_l = time.perf_counter() - t0
+    launches = dia_spmm_kernel.launches
+    plain_calls = dia_spmm_plain.calls
+    lobpcg_launches = launches - expm_launches
+    log(
+        f"expm_multiply {side}^2 grid float64, {EXPM_SOURCES} sources, t=-1: wall {wall_e!r} s "
+        f"(prepare_spmm included), K2 launches {expm_launches}"
+    )
+    log(
+        f"lobpcg {side}^2 dirichlet float64 m={LOBPCG_M}, {res.iterations} iterations: wall "
+        f"{wall_l!r} s (prepare_spmm included), {wall_l / max(res.iterations, 1) * 1e3!r} ms per "
+        f"iteration, K2 launches {lobpcg_launches} (expected {2 * LOBPCG_FIXED_ITERS + 2})"
+    )
+    if plain_calls != 0:
+        raise AssertionError(f"the plain dia_spmm ran {plain_calls} times on the main path")
+    if res.iterations != LOBPCG_FIXED_ITERS or lobpcg_launches != 2 * LOBPCG_FIXED_ITERS + 2:
+        raise AssertionError(f"lobpcg: {res.iterations} iterations, {lobpcg_launches} K2 launches")
+    if not bool(torch.isfinite(res.eigenvalues).all()) or res.eigenvectors.shape != (n, LOBPCG_M):
+        raise AssertionError("lobpcg: bad result")
+
+    # The reference: the same call over the plain version on the card.
+    # The callable computes 2A·v with t/2: expm_multiply's fixed budget
+    # for a callable (‖A‖₁ = 16) then gives the CsMat path's substeps
+    # (norm(1) = 8), and the arithmetic is the same term for term, since
+    # scaling by 2 is exact.  So its call count is the SpMM count that
+    # K2's launches must equal.
+    ref_dia = lap.to_dia()
+    ref_calls = [0]
+
+    def ref_op(v):
+        ref_calls[0] += 1
+        return 2.0 * dia_spmm_plain(ref_dia, v)
+
+    ref = expm_multiply(ref_op, B, t=-0.5)
+    sync()
+    if y.shape != B.shape or not bool(torch.isfinite(y).all()):
+        raise AssertionError("expm: bad output")
+    rel = float((y - ref).abs().max()) / float(ref.abs().max())
+    log(f"expm vs plain reference: rel {rel!r} (limit 1e-10), reference SpMMs {ref_calls[0]}")
+    if not rel <= 1e-10:
+        raise AssertionError(f"expm: rel {rel} > 1e-10")
+    if expm_launches != ref_calls[0] or expm_launches == 0:
+        raise AssertionError(f"expm: K2 launched {expm_launches} times for {ref_calls[0]} SpMMs")
+    # heat from unit sources: mass stays in [0, 1] per column
+    col_sums = y.sum(0)
+    if not bool(((col_sums > 0) & (col_sums <= 1.0 + 1e-9)).all()):
+        raise AssertionError("expm: column sums outside (0, 1]")
+
+    fn, prepared = prepare_spmm(spd)
+    profile_window(
+        f"lobpcg {side}^2 float64 m={LOBPCG_M}, {LOBPCG_FIXED_ITERS} iterations",
+        lambda: lobpcg(lambda v: fn(prepared, v), x0, tol=0.0, max_iter=LOBPCG_FIXED_ITERS),
+        "dia_spmm",
+    )
+    return launches
+
+
+def phase_main_bsr():
+    """Block-sparse products at the JAX bench's shape: ``BsrMat @ X``
+    (K3) and the grouped product (K4), four of each."""
+    bsr = bsr_random(60, (BSR_N, BSR_N), BSR_BS, BSR_DENSITIES[0], torch.bfloat16, device=DEVICE)
+    grouped = bsr_group(bsr, BSR_GROUP)
+    x = rhs_block(BSR_N, BSR_K, torch.bfloat16, 61)
+    want = bsr.to_dense().float() @ x.float()
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    ys = [bsr @ x for _ in range(4)]
+    ys += [bsr_spmm_grouped_kernel(grouped, x, group=BSR_GROUP) for _ in range(4)]
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {"bsr_spmm": bsr_spmm_kernel.launches, "bsr_spmm_grouped": bsr_spmm_grouped_kernel.launches}
+    log(f"bsr main path n={BSR_N} k={BSR_K} bs={BSR_BS} bfloat16: wall {wall!r} s, launches {launches}")
+    if launches != {"bsr_spmm": 4, "bsr_spmm_grouped": 4} or bsr_spmm_plain.calls != 0:
+        raise AssertionError(f"bsr: launches {launches}, plain calls {bsr_spmm_plain.calls}")
+    scale = float(want.abs().max())
+    for y in ys:
+        if y.dtype != torch.bfloat16 or y.shape != want.shape:
+            raise AssertionError("bsr: bad output")
+        err = float((y.float() - want).abs().max())
+        if not err <= 2.0**-7 * scale:
+            raise AssertionError(f"bsr: {err} against the dense product (limit {2.0**-7 * scale})")
+    return launches
+
+
+def phase_eigen_checks():
+    """LOBPCG against the closed-form Dirichlet eigenvalues and svds
+    against torch.linalg.svdvals, with exact K2 launch counts."""
+    side = EIG_SIDE
+    spd = dirichlet_laplacian((side, side), device=DEVICE)
+    x0 = rhs_block(side * side, LOBPCG_M, torch.float64, 70)
+    dia_spmm_kernel.launches = 0
+    t0 = time.perf_counter()
+    res = lobpcg(spd, x0, tol=1e-6, max_iter=EIG_MAX_ITER)
+    sync()
+    wall = time.perf_counter() - t0
+    h = np.pi / (side + 1)
+    closed = sorted(4 - 2 * math.cos(i * h) - 2 * math.cos(j * h)
+                    for i in range(1, 6) for j in range(1, 6))[:LOBPCG_M]
+    err = float(np.abs(res.eigenvalues.cpu().numpy() - np.array(closed)).max())
+    launches = dia_spmm_kernel.launches
+    log(f"lobpcg {side}^2 m={LOBPCG_M} tol 1e-6: iterations {res.iterations} converged "
+        f"{res.converged} wall {wall!r} s, max eigenvalue error {err!r} (limit 1e-6), "
+        f"K2 launches {launches} (expected {2 * res.iterations + 2})")
+    if not (res.converged and err <= 1e-6 and launches == 2 * res.iterations + 2):
+        raise AssertionError("lobpcg correctness solve failed")
+
+    band = dia_to_csmat(band_dia(5000, 4803, BAND_OFFSETS, np.float64, 71))
+    dia_spmm_kernel.launches = 0
+    t0 = time.perf_counter()
+    sv = svds(band, k=4, max_iter=SVDS_MAX_ITER)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = dia_spmm_kernel.launches
+    ref = torch.linalg.svdvals(band.to_dense())[:4]
+    rel = float((sv.s - ref).abs().max() / ref[0])
+    log(f"svds k=4 band 5000x4803: iterations {sv.iterations} converged {sv.converged} wall "
+        f"{wall!r} s, rel error {rel!r} (limit 1e-8), K2 launches {launches} "
+        f"(expected {4 * sv.iterations + 5})")
+    if not (sv.converged and rel <= 1e-8 and launches == 4 * sv.iterations + 5):
+        raise AssertionError("svds correctness solve failed")
+
+
+KERNELS = {
+    "dia_spmv": ("sprs_tpu_torch/csrc/dia_spmv.cu", "sprs_tpu/ops/pallas/dia_spmv.py:232"),
+    "dia_spmm": ("sprs_tpu_torch/csrc/dia_spmm.cu", "sprs_tpu/ops/pallas/dia_spmm.py:93"),
+    "bsr_spmm": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:69"),
+    "bsr_spmm_grouped": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:258"),
+}
 
 
 def main() -> int:
@@ -329,48 +792,48 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     torch.cuda.set_device(0)
-    name, count = phase_device()
+    name, count, smi = phase_device()
     phase_build()
 
     t0 = time.perf_counter()
-    lap_spmv = grid_laplacian((SPMV_SIDE,) * 2, torch.float32, device="cuda")
+    lap_spmv = grid_laplacian((SPMV_SIDE,) * 2, torch.float32, device=DEVICE)
     spmv_operand = laplacian_operand(lap_spmv, 0)
     log(f"setup: {SPMV_SIDE}^2 grid Laplacian and DIA in {time.perf_counter() - t0:.3f} s")
-    max_err, spmv_err = phase_gate(spmv_operand)
-
-    big = phase_timing(f"{SPMV_SIDE}^2 grid float32", lap_spmv, *spmv_operand, reps=50)
-    lap_solve = grid_laplacian((SOLVE_SIDE,) * 2, device="cuda")
-    phase_timing(
-        f"{SOLVE_SIDE}^2 grid float64", lap_solve, *laplacian_operand(lap_solve, 4), reps=200
-    )
+    errs = phase_gate(spmv_operand)
+    timing = phase_timing(lap_spmv, spmv_operand)
     del lap_spmv, spmv_operand
-    lap_small = grid_laplacian((64, 64), device="cuda")
-    phase_timing("64^2 grid float64", lap_small, *laplacian_operand(lap_small, 5), reps=2000)
 
     check_small_against_dense()
-    launches, lap, rhs = phase_main_path()
-    if launches == 0:
-        raise AssertionError("the main path launched no K1 kernel")
-    phase_profile(lap, rhs)
+    launches = {}
+    launches["dia_spmv"], lap, rhs = phase_main_spmv()
+    phase_profile_bicgstab(lap, rhs)
+    del lap, rhs
+    launches["dia_spmm"] = phase_main_block()
+    launches.update(phase_main_bsr())
+    phase_eigen_checks()
+    for kname, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the main path launched no {kname} kernel")
 
-    kernels = [
-        {
-            "name": "dia_spmv",
+    kernels = []
+    for kname, (source, replaces) in KERNELS.items():
+        row = timing[kname]
+        kernels.append({
+            "name": kname,
             "route": "cuda",
-            "source": "sprs_tpu_torch/csrc/dia_spmv.cu",
-            "replaces": "sprs_tpu/ops/pallas/dia_spmv.py:232",
-            "launches": launches,
-            "max_abs_err": max_err,
-            "ms": big["ms"],
-            "plain_ms": big["plain_ms"],
-            "bound_ms": big["bound_ms"],
-            "bound_by": big["bound_by"],
-            "library_ms": big["library_ms"],
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[kname],
+            "max_abs_err": errs[kname],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
             "ok": True,
-            "shape": big["shape"],
-            "shape_max_abs_err": spmv_err,
-        }
-    ]
+            "shape": row["shape"],
+            "card": smi,
+        })
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -2,9 +2,11 @@
 
 A package of its own beside the JAX package: it imports ``torch`` and
 numpy, never JAX, and nothing of ``sprs_tpu``.  It mirrors the JAX
-package's module paths; the banded-solve path is ported so far
-(formats, the structure-dispatched SpMV with its hand-written CUDA
-kernel for the DIA format, BiCGSTAB, CG, Jacobi and Gauss–Seidel).
+package's module paths.  Ported so far: the banded-solve path (formats,
+the structure-dispatched SpMV with its hand-written CUDA kernel for the
+DIA format, BiCGSTAB, CG, Jacobi and Gauss–Seidel) and the multi-RHS
+path (the DIA SpMM and BSR SpMM kernels, ``@`` on CsMat and BsrMat,
+LOBPCG, svds and expm_multiply).
 Public constructors place tensors on ``"cuda"`` unless the caller
 passes ``device=``.
 
@@ -29,8 +31,16 @@ from .errors import (
     SprsError,
     StructureError,
 )
-from .formats import CSC, CSR, INDEX_DTYPE, CsMat, csmat, from_dense
+from .formats import CSC, CSR, INDEX_DTYPE, BsrMat, CsMat, csmat, from_dense
 from .interop import from_arrays
-from .ops import dense_matmul_sparse, prepare_spmm, prepare_spmv, spmm, spmv
+from .ops import (
+    dense_matmul_sparse,
+    matmul,
+    prepare_spmm,
+    prepare_spmv,
+    rmatmul,
+    spmm,
+    spmv,
+)
 
 __version__ = "0.1.0"

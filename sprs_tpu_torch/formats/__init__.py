@@ -1,5 +1,6 @@
-"""Sparse storage formats: CSR/CSC, DIA and ELL."""
+"""Sparse storage formats: CSR/CSC, DIA, ELL and BSR."""
 
+from .bsr import BsrMat, bsr_from_csmat, bsr_from_dense, bsr_random, bsr_spmm_plain
 from .csmat import CSC, CSR, CsMat, csmat, from_dense
 from .dia import DiaMat, dia_from_csmat, dia_spmm, dia_spmv, dia_to_csmat, n_diags_of
 from .ell import EllMat, ell_from_csmat, ell_overhead, ell_spmm, ell_spmv

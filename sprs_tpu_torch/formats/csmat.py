@@ -5,8 +5,8 @@ The PyTorch counterpart of ``sprs_tpu/formats/csmat.py``: the same
 in the first ``nnz = indptr[-1]`` slots and padding ``indices == 0,
 data == 0``, so that arrays compare one for one with the JAX package.
 Transpose is metadata (the storage flag flips).  This module carries
-the subset of ``CsMat`` that the banded-solve path needs; the rest of
-the JAX class is listed in ROADMAP.md.
+the subset of ``CsMat`` that the ported slices need; the rest of the JAX
+class is listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -178,6 +178,12 @@ class CsMat:
 
         return dia_from_csmat(self, max_diags=max_diags)
 
+    def to_bsr(self, block_size: int = 128):
+        """Convert to the block-sparse layout (formats/bsr.py)."""
+        from .bsr import bsr_from_csmat
+
+        return bsr_from_csmat(self, block_size)
+
     # -- queries -----------------------------------------------------------
     def diag(self) -> torch.Tensor:
         """Dense main diagonal of length min(rows, cols)."""
@@ -188,6 +194,34 @@ class CsMat:
         out = torch.zeros(k + 1, dtype=self.dtype, device=self.device)
         out.index_add_(0, idx.to(torch.int64), self.data * on_diag)
         return out[:k]
+
+    def norm(self, ord="fro") -> torch.Tensor:
+        """Matrix norm over the stored values (scipy.sparse.linalg.norm
+        parity): 'fro', 1 (largest column abs-sum), inf (largest row
+        abs-sum) or 'max' (largest |entry|).  Padding is zero.
+
+        >>> import numpy as np
+        >>> from sprs_tpu_torch import from_dense
+        >>> m = from_dense(np.array([[1.0, -2.0], [0.0, 3.0]]), device="cpu")
+        >>> [float(m.norm(o)) for o in (1, np.inf, "max")]
+        [5.0, 3.0, 3.0]
+        """
+        a = self.data.abs()
+        if ord == "fro":
+            return torch.sqrt((a * a).sum())
+        if ord == "max":
+            return a.max()
+        if ord in (1, np.inf, "inf"):
+            outer = self.outer_ids().to(torch.int64)
+            # padding slots carry outer id outer_dims and data 0: send
+            # them to 0, where they add nothing
+            outer = torch.where(outer < self.outer_dims, outer, 0)
+            inner = self.indices.to(torch.int64)
+            rows_like, cols_like = (outer, inner) if self.is_csr else (inner, outer)
+            ids, n = (cols_like, self.cols) if ord == 1 else (rows_like, self.rows)
+            sums = torch.zeros(n, dtype=a.dtype, device=a.device)
+            return sums.index_add_(0, ids, a).max()
+        raise ValueError(f"unsupported norm ord {ord!r}")
 
     # -- validation --------------------------------------------------------
     def check_structure(self) -> "CsMat":
@@ -227,11 +261,14 @@ class CsMat:
 
     # -- operators ---------------------------------------------------------
     def __matmul__(self, other):
-        from ..ops.prod import spmm, spmv
+        from ..ops import matmul
 
-        if not isinstance(other, torch.Tensor):
-            return NotImplemented
-        return spmv(self, other) if other.ndim == 1 else spmm(self, other)
+        return matmul(self, other)
+
+    def __rmatmul__(self, other):
+        from ..ops import rmatmul
+
+        return rmatmul(other, self)
 
     def __repr__(self):
         return (

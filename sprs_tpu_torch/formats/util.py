@@ -47,7 +47,11 @@ def as_tensor(arr, *, dtype=None, device=DEFAULT_DEVICE) -> torch.Tensor:
     if isinstance(arr, torch.Tensor):
         t = arr
     else:
-        t = torch.from_numpy(np.array(arr))  # a copy: the source may be read-only
+        a = np.array(arr)  # a copy: the source may be read-only
+        if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as JAX hands it out
+            t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(a)
     return t.to(device=device, dtype=torch_dtype(dtype) if dtype else None)
 
 

@@ -10,11 +10,12 @@ from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+from .formats.bsr import BsrMat
 from .formats.csmat import CSR, csmat
 from .formats.dia import DiaMat
-from .formats.util import DEFAULT_DEVICE, as_tensor
+from .formats.util import DEFAULT_DEVICE, INDEX_DTYPE, as_tensor
 
-KINDS = ("csmat", "dia")
+KINDS = ("csmat", "dia", "bsr")
 
 
 def from_arrays(
@@ -23,6 +24,7 @@ def from_arrays(
     arrays: Sequence,
     *,
     offsets: Optional[Sequence[int]] = None,
+    n_blocks: Optional[int] = None,
     storage: str = CSR,
     device=DEFAULT_DEVICE,
 ):
@@ -32,6 +34,8 @@ def from_arrays(
       with ``storage`` "csr" or "csc"; the capacity is ``len(indices)``.
     * ``kind="dia"``: ``arrays = (data,)`` of a DiaMat, shape
       ``(n_diags, rows_pad)``, with its ``offsets``.
+    * ``kind="bsr"``: ``arrays = (brows, bcols, blocks)`` of a BsrMat,
+      padding blocks included, with its live count ``n_blocks``.
     """
     shape = tuple(int(s) for s in shape)
     if kind == "csmat":
@@ -54,5 +58,16 @@ def from_arrays(
             as_tensor(data, device=device),
             tuple(int(o) for o in offsets),
             shape,
+        )
+    if kind == "bsr":
+        if n_blocks is None:
+            raise ValueError("from_arrays('bsr', ...) needs n_blocks")
+        brows, bcols, blocks = arrays
+        return BsrMat(
+            as_tensor(brows, dtype=INDEX_DTYPE, device=device),
+            as_tensor(bcols, dtype=INDEX_DTYPE, device=device),
+            as_tensor(blocks, device=device),
+            shape,
+            int(n_blocks),
         )
     raise ValueError(f"from_arrays: kind must be one of {KINDS}, got {kind!r}")

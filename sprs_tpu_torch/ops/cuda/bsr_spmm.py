@@ -1,0 +1,213 @@
+"""Block-sparse SpMM kernels K3 and K4: Y = A @ X for a BSR matrix A.
+
+The CUDA C++ kernel is ``sprs_tpu_torch/csrc/bsr_spmm.cu``; its note says
+which TPU functions it replaces, what bounds it and how its design goes
+about it.  This module holds what surrounds it:
+
+* :func:`bsr_spmm_kernel` (K3) and :func:`bsr_spmv_kernel`, the
+  counterparts of ``bsr_spmm_pallas`` and ``bsr_spmv_pallas``;
+* :func:`bsr_group`, the host repack of the JAX package, and
+  :func:`bsr_spmm_grouped_kernel` (K4), the counterpart of
+  ``bsr_spmm_pallas_grouped``: on a group-aligned matrix
+  (``cap % group == 0``) it launches the same kernel on the repacked
+  operand, under its own ``launches`` count; else it takes the per-block
+  path, K3, as the JAX function does;
+* a ``torch.autograd.Function`` whose backward (:func:`bsr_vjp`) is the
+  plain torch form of the JAX package's ``_spmm_bwd``.
+
+The plain version is ``formats/bsr.py::bsr_spmm_plain``.  Each wrapper
+takes it for tensors on the CPU; tensors on a CUDA device launch the
+kernel or raise — never both.  The kernel reads the block-row pointer
+that :attr:`BsrMat.row_order` builds once per matrix, so it takes the
+blocks in any order.  The launch configuration is computed here in
+Python (:func:`launch_config`) so the CPU tests reach it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ...errors import ShapeError
+from ...formats.bsr import BsrMat, bsr_spmm_plain
+from ...formats.util import INDEX_DTYPE
+from . import build
+
+THREADS = 256
+TILE_N = 64  # output columns per CTA (csrc/bsr_spmm.cu: kTileN)
+DEPTH = 8  # depth of one staged slice: bs must be a multiple of it
+MAX_BLOCK = 128
+
+_ENTRY = {
+    torch.float32: "sprs_bsr_spmm_f32",
+    torch.bfloat16: "sprs_bsr_spmm_bf16",
+    torch.float64: "sprs_bsr_spmm_f64",
+}
+
+
+def launch_config(n_block_rows: int, k: int) -> Tuple[Tuple[int, int], int]:
+    """((grid_x, grid_y), block): one CTA per (block row, 64-column tile
+    of X)."""
+    return (max(n_block_rows, 1), max(-(-k // TILE_N), 1)), THREADS
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    fn = getattr(build.load("bsr_spmm"), _ENTRY[dtype])
+    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, i, vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, counter) -> torch.Tensor:
+    if bsr.bcols.dtype != INDEX_DTYPE:
+        raise TypeError(
+            f"bsr_spmm kernel reads bcols as {INDEX_DTYPE}, got {bsr.bcols.dtype}"
+        )
+    if blocks.device.type != "cuda" or x.device != blocks.device:
+        raise ValueError(
+            f"bsr_spmm kernel needs blocks and X on one CUDA device, got "
+            f"{blocks.device} and {x.device}"
+        )
+    if blocks.dtype not in _ENTRY or x.dtype != blocks.dtype:
+        raise TypeError(
+            f"bsr_spmm kernel takes float32, bfloat16 or float64 blocks and "
+            f"X of the same type, got {blocks.dtype} and {x.dtype}"
+        )
+    bs = bsr.block_size
+    if bs % DEPTH or not DEPTH <= bs <= MAX_BLOCK:
+        raise ShapeError(
+            f"bsr_spmm kernel takes block sizes that are multiples of {DEPTH} "
+            f"up to {MAX_BLOCK}, got {bs}"
+        )
+    if not (blocks.is_contiguous() and x.is_contiguous() and bsr.bcols.is_contiguous()):
+        raise ValueError("bsr_spmm kernel needs contiguous blocks, bcols and X")
+    k = x.shape[1]
+    y = torch.empty((bsr.rows, k), dtype=x.dtype, device=x.device)
+    if bsr.rows == 0 or k == 0:
+        return y
+    row_ptr, order = bsr.row_order
+    (gx, gy), block = launch_config(bsr.n_block_rows, k)
+    err = _entry(x.dtype)(
+        blocks.data_ptr(),
+        bsr.bcols.data_ptr(),
+        row_ptr.data_ptr(),
+        order.data_ptr(),
+        x.data_ptr(),
+        y.data_ptr(),
+        bsr.rows,
+        bsr.cols,
+        k,
+        bs,
+        gx,
+        gy,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"bsr_spmm kernel launch failed: CUDA error {err}")
+    counter.launches += 1
+    return y
+
+
+def bsr_vjp(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, g: torch.Tensor):
+    """(dblocks, dX) for Y = A @ X, in float32 as the JAX ``_spmm_bwd``:
+    dblocks[n] = G[brows[n]] @ X[bcols[n]]ᵀ and
+    dX[bcols[n]] += blocks[n]ᵀ @ G[brows[n]], over every slot."""
+    bs, k = bsr.block_size, x.shape[1]
+    nbr, nbc = bsr.n_block_rows, bsr.n_block_cols
+    gb = g.new_zeros((nbr * bs, k))
+    gb[: bsr.rows] = g
+    gb = gb.reshape(nbr, bs, k)[bsr.brows.to(torch.int64)].float()
+    xb = x.new_zeros((nbc * bs, k))
+    xb[: bsr.cols] = x
+    bcols = bsr.bcols.to(torch.int64)
+    xb = xb.reshape(nbc, bs, k)[bcols].float()
+    dblocks = torch.einsum("nik,njk->nij", gb, xb).to(blocks.dtype)
+    contrib = torch.einsum("nji,njk->nik", blocks.float(), gb)
+    dxb = contrib.new_zeros((nbc, bs, k)).index_add_(0, bcols, contrib)
+    return dblocks, dxb.reshape(nbc * bs, k)[: bsr.cols].to(x.dtype)
+
+
+class _BsrSpmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, blocks, x, bsr, counter):
+        ctx.save_for_backward(blocks, x)
+        ctx.bsr = bsr
+        if blocks.device.type == "cpu" and x.device.type == "cpu":
+            return bsr_spmm_plain(bsr, x)
+        return _launch(bsr, blocks, x, counter)
+
+    @staticmethod
+    def backward(ctx, g):
+        blocks, x = ctx.saved_tensors
+        dblocks, dx = bsr_vjp(ctx.bsr, blocks, x, g)
+        return dblocks, dx, None, None
+
+
+def _apply(bsr: BsrMat, x: torch.Tensor, counter) -> torch.Tensor:
+    if x.ndim != 2 or x.shape[0] != bsr.cols:
+        raise ShapeError(f"bsr_spmm: A is {bsr.shape}, X is {tuple(x.shape)}")
+    return _BsrSpmm.apply(bsr.blocks, x.contiguous(), bsr, counter)
+
+
+def bsr_spmm_kernel(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X through K3; X is dense, (cols, k).  Differentiable in
+    ``bsr.blocks`` and ``X``."""
+    return _apply(bsr, x, bsr_spmm_kernel)
+
+
+bsr_spmm_kernel.launches = 0
+
+
+def bsr_spmv_kernel(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x through K3 with one RHS column."""
+    return bsr_spmm_kernel(bsr, x[:, None])[:, 0]
+
+
+def bsr_group(bsr: BsrMat, group: int) -> BsrMat:
+    """Host repack: pad each block row's block count to a multiple of
+    ``group`` with zero blocks, so every run of ``group`` slots holds
+    blocks of one row (arrays equal to the JAX package's ``bsr_group``).
+    All slots of the result are live."""
+    nb = bsr.n_blocks
+    brows = bsr.brows[:nb].cpu().numpy()
+    bcols = bsr.bcols[:nb].cpu().numpy()
+    blocks = bsr.blocks[:nb].cpu()
+    bs = bsr.block_size
+    out_r, out_c, out_b = [], [], []
+    for r in range(bsr.n_block_rows):
+        sel = np.nonzero(brows == r)[0]
+        pad = (-sel.size) % group
+        out_r.append(np.full(sel.size + pad, r, np.int32))
+        out_c.append(np.concatenate([bcols[sel], np.zeros(pad, np.int32)]))
+        out_b.append(blocks[torch.from_numpy(sel)])
+        out_b.append(blocks.new_zeros((pad, bs, bs)))
+    brows2 = np.concatenate(out_r)
+    dev = bsr.device
+    return BsrMat(
+        torch.from_numpy(brows2).to(dev),
+        torch.from_numpy(np.concatenate(out_c).astype(np.int32)).to(dev),
+        torch.cat(out_b).to(dev),
+        bsr.shape,
+        int(brows2.shape[0]),
+    )
+
+
+def bsr_spmm_grouped_kernel(bsr: BsrMat, x: torch.Tensor, group: int = 8) -> torch.Tensor:
+    """Y = A @ X through K4, ``group`` blocks of one row at a time.
+
+    ``bsr`` must be row-group-aligned (use :func:`bsr_group`); when
+    ``bsr.cap % group != 0`` this takes the per-block path, K3, as
+    ``bsr_spmm_pallas_grouped`` does.  (The JAX function's other escape,
+    an X too large for the TPU's VMEM, has no counterpart here.)"""
+    if bsr.cap % group != 0:
+        return bsr_spmm_kernel(bsr, x)
+    return _apply(bsr, x, bsr_spmm_grouped_kernel)
+
+
+bsr_spmm_grouped_kernel.launches = 0

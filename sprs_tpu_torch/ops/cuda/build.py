@@ -33,7 +33,7 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
-SOURCES = ("dia_spmv",)
+SOURCES = ("dia_spmv", "dia_spmm", "bsr_spmm")
 
 
 @dataclasses.dataclass(frozen=True)

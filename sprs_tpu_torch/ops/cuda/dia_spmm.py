@@ -1,0 +1,145 @@
+"""Banded SpMM kernel K2: Y[i, c] = Σ_d data[d, i] · X[i + off_d, c].
+
+The CUDA C++ kernel is ``sprs_tpu_torch/csrc/dia_spmm.cu``; its note says
+which TPU functions it replaces, what bounds it (bytes: the diagonals, X
+and Y each cross device memory once) and how its design meets that bound.
+This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
+
+* :func:`dia_spmm_plain`, the plain torch version (``formats/dia.py::
+  dia_spmm``), used for tensors on the CPU and as the kernel's reference
+  on the card.  Its ``calls`` attribute counts calls;
+* :func:`dia_spmm_kernel`, the wrapper: CPU tensors take the plain
+  version, CUDA tensors launch the kernel or raise — never both.  Its
+  ``launches`` attribute counts kernel launches.  Every RHS width takes
+  the kernel: the JAX package's ``k >= 256`` cut (``ops/prod.py``) is a
+  TPU measurement and has no counterpart here;
+* a ``torch.autograd.Function`` whose forward is the kernel and whose
+  backward is :func:`~.dia_spmv.dia_vjp`, the plain torch form of the JAX
+  package's ``_bwd``.
+
+The prepared operand is K1's :class:`~.dia_spmv.DiaTiledMat`, whose
+``spmm`` method calls this wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from ...errors import ShapeError
+from ...formats.dia import DiaMat, dia_spmm
+from . import build
+from .dia_spmv import BLOCK, BLOCKS_PER_SM, MAX_DIAGS, dia_vjp
+
+_ENTRY = {torch.float32: "sprs_dia_spmm_f32", torch.float64: "sprs_dia_spmm_f64"}
+
+
+def launch_config(rows: int, k: int, n_sm: int) -> Tuple[int, int]:
+    """(grid, block) for a (rows, k) output on a card with ``n_sm`` SMs:
+    one thread per entry, at most one full wave of resident blocks; the
+    kernel's grid-stride loop covers the rest."""
+    blocks = -(-(rows * k) // BLOCK)
+    return max(1, min(blocks, n_sm * BLOCKS_PER_SM)), BLOCK
+
+
+def dia_spmm_plain(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
+    """The plain torch K2: shifted row blocks, multiply-add in diagonal
+    order (``formats/dia.py::dia_spmm``)."""
+    dia_spmm_plain.calls += 1
+    return dia_spmm(dia, x)
+
+
+dia_spmm_plain.calls = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    fn = getattr(build.load("dia_spmm"), _ENTRY[dtype])
+    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, ll, ll, ll, ll, vp, i, i, i, vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
+    data = dia.data
+    if data.device.type != "cuda" or x.device != data.device:
+        raise ValueError(
+            f"dia_spmm kernel needs data and X on one CUDA device, got "
+            f"{data.device} and {x.device}"
+        )
+    if data.dtype not in _ENTRY or x.dtype != data.dtype:
+        raise TypeError(
+            f"dia_spmm kernel takes float32 or float64 data and X of the "
+            f"same type, got {data.dtype} and {x.dtype}"
+        )
+    n = dia.n_diags
+    if n > MAX_DIAGS:
+        raise ShapeError(f"dia_spmm kernel takes at most {MAX_DIAGS} diagonals, got {n}")
+    if data.shape != (n, dia.rows_pad) or dia.rows_pad < dia.rows:
+        raise ShapeError(f"dia_spmm: data {tuple(data.shape)} for {n} diagonals of {dia.shape}")
+    if not (data.is_contiguous() and x.is_contiguous()):
+        raise ValueError("dia_spmm kernel needs contiguous data and X")
+    k = x.shape[1]
+    y = torch.empty((dia.rows, k), dtype=data.dtype, device=data.device)
+    if dia.rows == 0 or k == 0:
+        return y
+    n_sm = torch.cuda.get_device_properties(data.device).multi_processor_count
+    grid, block = launch_config(dia.rows, k, n_sm)
+    err = _entry(data.dtype)(
+        data.data_ptr(),
+        x.data_ptr(),
+        y.data_ptr(),
+        dia.rows,
+        dia.cols,
+        dia.rows_pad,
+        k,
+        (ctypes.c_int * n)(*dia.offsets),
+        n,
+        grid,
+        block,
+        torch.cuda.current_stream(data.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"dia_spmm kernel launch failed: CUDA error {err}")
+    dia_spmm_kernel.launches += 1
+    return y
+
+
+class _DiaSpmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, data, x, offsets, shape):
+        dia = DiaMat(data, offsets, shape)
+        ctx.save_for_backward(data, x)
+        ctx.offsets, ctx.shape = offsets, shape
+        if data.device.type == "cpu" and x.device.type == "cpu":
+            return dia_spmm_plain(dia, x)
+        return _launch(dia, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        data, x = ctx.saved_tensors
+        ddata, dx = dia_vjp(DiaMat(data, ctx.offsets, ctx.shape), x, g)
+        return ddata, dx, None, None
+
+
+def dia_spmm_kernel(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X through K2; the counterpart of ``dia_spmm_pallas``.
+
+    ``X`` is dense, (cols, k), at any width k.  Tensors on the CPU take
+    :func:`dia_spmm_plain`; tensors on a CUDA device launch the kernel,
+    which raises on what it cannot take (a complex operand among them).
+    Differentiable in ``dia.data`` and ``X``.
+    """
+    if x.ndim != 2 or x.shape[0] != dia.cols:
+        raise ShapeError(f"dia_spmm: A is {dia.shape}, X is {tuple(x.shape)}")
+    # The kernel reads X row-major; the solvers' blocks often come out of
+    # torch.linalg in column-major order.
+    x = x.contiguous()
+    return _DiaSpmm.apply(dia.data, x, tuple(dia.offsets), tuple(dia.shape))
+
+
+dia_spmm_kernel.launches = 0

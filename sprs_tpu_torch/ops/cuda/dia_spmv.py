@@ -15,7 +15,8 @@ meets that bound.  This module holds what surrounds it:
   the solver loops.  The GPU kernel reads ``DiaMat``'s own (k, rows_pad)
   layout, so preparing only checks the operand and makes it contiguous;
 * a ``torch.autograd.Function`` whose forward is the kernel and whose
-  backward is the plain torch form of the JAX package's ``_bwd``.
+  backward (:func:`dia_vjp`, shared with K2) is the plain torch form of
+  the JAX package's ``_bwd``.
 
 The launch configuration is computed here in Python (:func:`launch_config`)
 so the CPU tests reach it.
@@ -107,19 +108,23 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def _dia_spmv_vjp(dia: DiaMat, x: torch.Tensor, g: torch.Tensor):
-    """(ddata, dx) for y = A @ x: ddata[d, i] = g[i]·x[i+off_d] and
-    dx[i+off_d] += data[d, i]·g[i], over the zero-padded x."""
-    gp = torch.zeros(dia.rows_pad, dtype=g.dtype, device=g.device)
+def dia_vjp(dia: DiaMat, x: torch.Tensor, g: torch.Tensor):
+    """(ddata, dx) for y = A @ x (x of shape (cols,) or (cols, k)):
+    ddata[d, i] = Σ_c g[i, c]·x[i+off_d, c] and dx[i+off_d] += data[d, i]·g[i],
+    over the zero-padded x.  The plain torch form of the JAX package's
+    ``_bwd`` for both K1 and K2."""
+    gp = g.new_zeros((dia.rows_pad,) + tuple(g.shape[1:]))
     gp[: dia.rows] = g
     xp, left = _padded_x(dia, x)
     n = dia.rows_pad
-    ddata = torch.stack(
-        [gp * xp[left + off : left + off + n] for off in dia.offsets]
-    ).to(dia.dtype)
+    prods = [gp * xp[left + off : left + off + n] for off in dia.offsets]
+    if x.ndim == 2:
+        prods = [p.sum(1) for p in prods]
+    ddata = torch.stack(prods).to(dia.dtype)
+    data = dia.data if x.ndim == 1 else dia.data[:, :, None]
     dxp = torch.zeros_like(xp, dtype=torch.promote_types(dia.dtype, g.dtype))
     for d, off in enumerate(dia.offsets):
-        dxp[left + off : left + off + n] += dia.data[d] * gp
+        dxp[left + off : left + off + n] += data[d] * gp
     return ddata, dxp[left : left + dia.cols].to(x.dtype)
 
 
@@ -136,7 +141,7 @@ class _DiaSpmv(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         data, x = ctx.saved_tensors
-        ddata, dx = _dia_spmv_vjp(DiaMat(data, ctx.offsets, ctx.shape), x, g)
+        ddata, dx = dia_vjp(DiaMat(data, ctx.offsets, ctx.shape), x, g)
         return ddata, dx, None, None
 
 
@@ -156,15 +161,21 @@ dia_spmv_kernel.launches = 0
 
 
 class DiaTiledMat(DiaMat):
-    """Prepared DIA operand for repeated SpMV (solver loops): the
+    """Prepared DIA operand for repeated products (solver loops): the
     contiguous (k, rows_pad) diagonals and their offsets, multiplied
-    through K1.  Build it once with :func:`dia_tile`."""
+    through K1 (a vector) or K2 (a block of columns).  Build it once with
+    :func:`dia_tile`."""
 
     def spmv(self, x: torch.Tensor) -> torch.Tensor:
         return dia_spmv_kernel(self, x)
 
+    def spmm(self, x: torch.Tensor) -> torch.Tensor:
+        from .dia_spmm import dia_spmm_kernel
+
+        return dia_spmm_kernel(self, x)
+
     def __matmul__(self, x):
-        return self.spmv(x)
+        return self.spmv(x) if x.ndim == 1 else self.spmm(x)
 
 
 def dia_tile(dia: DiaMat) -> DiaTiledMat:

@@ -106,13 +106,20 @@ def prepare_spmv(mat: CsMat) -> Tuple[Callable, object]:
 
 def prepare_spmm(mat: CsMat) -> Tuple[Callable, object]:
     """Structure-dispatched SpMM: ``(fn, prepared)`` with
-    ``fn(prepared, X) -> Y`` for a dense RHS ``X (cols, k)``.  The DIA
-    branch is the plain ``dia_spmm`` (kernel K2 waits)."""
+    ``fn(prepared, X) -> Y`` for a dense RHS ``X (cols, k)``.
+
+    * few populated diagonals → :class:`DiaTiledMat` through kernel K2
+      at every RHS width (the JAX package's ``k >= 256`` cut is a TPU
+      measurement),
+    * modest ELL padding overhead → ELL gather SpMM,
+    * otherwise → CSR index-add.
+    """
     route = _route(mat)
     if route == "dia":
-        from ..formats.dia import dia_from_csmat, dia_spmm
+        from ..formats.dia import dia_from_csmat
+        from .cuda.dia_spmv import dia_tile
 
-        return dia_spmm, dia_from_csmat(mat)
+        return (lambda m, x: m.spmm(x)), dia_tile(dia_from_csmat(mat))
     if route == "ell":
         from ..formats.ell import ell_from_csmat, ell_spmm
 

@@ -50,6 +50,8 @@ MODULES = [
     "sprs_tpu_torch",
     "sprs_tpu_torch.formats.csmat",
     "sprs_tpu_torch.linalg.bicgstab",
+    "sprs_tpu_torch.linalg.lobpcg",
+    "sprs_tpu_torch.linalg.expm",
 ]
 
 
