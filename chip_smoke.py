@@ -15,14 +15,18 @@ and prints no result):
    correctness solves give it (4 to 256) and at 1, 48 and 130; K3 and K4
    (block-sparse SpMM) at block size 8 (odd shapes, an empty block row,
    padding blocks, unsorted blocks) and 128 in float32, bfloat16 and
-   float64; the backwards of K1, K2 and K3 against torch's autograd of
-   the plain version on the CPU;
+   float64; K5 (ELL SpMV) on the 1024² mesh step (float64), the
+   "random8" matrix (float32) and small odd ELLs; K6 (row sort) on
+   random, tied and float keys, bit for bit; the backwards of K1, K2, K3
+   and K5 against torch's autograd of the plain version on the CPU;
 4. timing, with CUDA events, beside each kernel's bound, its plain
    version and one library call: K1 at the 4096×4096-grid SpMV and the
    1024² float64 solve size; K2 at the 2048×1024 grid with 128 RHS
    (float32) and at 1024² float64 with 24, 48 and 256 RHS; K3 at
    n = 4096, k = 512, bs = 128, block densities 0.125/0.25/0.5 (bfloat16)
-   and at n = 16384 (bfloat16, float32); K4 at the first of those;
+   and at n = 16384 (bfloat16, float32); K4 at the first of those; K5
+   at "random8" (n = 2,097,152, 8 uniform slots per row, float32) and
+   the 1024² mesh step (float64); K6 at 43,750 × 128;
 5. main paths, each with the launch counts set to 0 just before and read
    just after:
    a. BiCGSTAB and CG at 1024² float64 through ``prepare_spmv`` and K1
@@ -35,7 +39,16 @@ and prints no result):
       stay at 0;
    c. block-sparse products ``BsrMat @ X`` (K3) and the grouped product
       (K4) at n = 4096, k = 512, bs = 128, bfloat16;
-6. correctness solves: BiCGSTAB and CG at 32² against a dense solve;
+   d. the unstructured path: an implicit heat step I + 10·L on a 1024²
+      vertex triangle mesh with permuted labels, assembled on the card
+      (``tri_mesh_graph_laplacian``, ``eye``, ``+``, ``*``) and held
+      against scipy, routed by ``prepare_spmv`` to ELL, solved by CG
+      through K5 (iters+2 launches, the plain version's calls 0), held
+      against the same CG over the plain version, then a profiler
+      window;
+   e. K6 through its own entry point on 43,750 rows of 128;
+6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
+   step against a dense solve;
    LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
    2·iters+2 K2 launches) and ``svds(k=4)`` on the random band against
    ``torch.linalg.svdvals`` (4·iters+5 K2 launches);
@@ -57,7 +70,10 @@ import numpy as np
 import torch
 
 from sprs_tpu_torch.formats.bsr import BsrMat, bsr_from_dense, bsr_random, bsr_spmm_plain
+from sprs_tpu_torch.formats.csmat import eye, from_dense
 from sprs_tpu_torch.formats.dia import dia_to_csmat
+from sprs_tpu_torch.formats.ell import EllMat, ell_from_csmat
+from sprs_tpu_torch.formats.triplet import coo_to_csmat
 from sprs_tpu_torch.formats.util import round_up
 from sprs_tpu_torch.interop import from_arrays
 from sprs_tpu_torch.linalg import bicgstab, cg, expm_multiply, lobpcg, svds
@@ -74,7 +90,9 @@ from sprs_tpu_torch.ops.cuda.dia_spmv import (
     dia_spmv_plain,
     dia_tile,
 )
-from sprs_tpu_torch.utils import dirichlet_laplacian, grid_laplacian
+from sprs_tpu_torch.ops.cuda.ell_spmv import ell_spmv_kernel, ell_spmv_plain
+from sprs_tpu_torch.ops.cuda.sort import sort_rows_kernel, sort_rows_plain
+from sprs_tpu_torch.utils import dirichlet_laplacian, grid_laplacian, tri_mesh_graph_laplacian
 
 DEVICE = "cuda"
 # H100 SXM data sheet: HBM3 rate; CUDA-core peaks (K1, K2) and the peaks
@@ -114,6 +132,17 @@ BSR_N, BSR_K, BSR_BS = 4096, 512, 128
 BSR_DENSITIES = (0.125, 0.25, 0.5)
 BSR_BIG_N = 16384
 BSR_GROUP = 8
+# The unstructured path: a 1024² vertex mesh, labels permuted, step
+# I + τL with τ = 10 (scipy's CG took 85 iterations to 1e-8 at this size).
+MESH_SIDE = 1024
+MESH_TAU = 10.0
+MESH_SMALL_SIDE = 16
+# The JAX package's ELL timing shape (benches/r4/r4_format_spmv.py:84-99):
+# 8 uniform column draws per row, duplicates summed.
+RANDOM8_N = 2**21
+RANDOM8_SLOTS = 8
+# The row count of the JAX sort kernel's TPU measurement (5.6M elements).
+SORT_ROWS = 43750
 
 
 def log(msg: str) -> None:
@@ -621,10 +650,11 @@ def phase_profile_bicgstab(lap, rhs):
 
 
 def reset_counts():
-    for fn in (dia_spmv_kernel, dia_spmm_kernel, bsr_spmm_kernel, bsr_spmm_grouped_kernel):
+    for fn in (dia_spmv_kernel, dia_spmm_kernel, bsr_spmm_kernel, bsr_spmm_grouped_kernel,
+               ell_spmv_kernel, sort_rows_kernel):
         fn.launches = 0
-    dia_spmm_plain.calls = 0
-    bsr_spmm_plain.calls = 0
+    for fn in (dia_spmm_plain, bsr_spmm_plain, ell_spmv_plain, sort_rows_plain):
+        fn.calls = 0
 
 
 def phase_main_block():
@@ -779,11 +809,317 @@ def phase_eigen_checks():
         raise AssertionError("svds correctness solve failed")
 
 
+# ---------------------------------------------------------------------------
+# the unstructured slice: K5 (ELL SpMV) and K6 (row sort)
+# ---------------------------------------------------------------------------
+
+
+def permuted_mesh(side, seed=0):
+    """A regular triangulation of a side×side vertex grid (two triangles
+    per cell) with labels permuted by ``default_rng(seed)``: (n, triangles,
+    label of the grid's centre vertex)."""
+    ii, jj = np.meshgrid(np.arange(side - 1), np.arange(side - 1), indexing="ij")
+    v = (ii * side + jj).ravel()
+    tri = np.concatenate([np.stack([v, v + 1, v + side], 1),
+                          np.stack([v + 1, v + side + 1, v + side], 1)])
+    perm = np.random.default_rng(seed).permutation(side * side)
+    return side * side, perm[tri], int(perm[(side // 2) * side + side // 2])
+
+
+def mesh_step(n, tri):
+    """(L, A = I + τL) assembled on the card through the port's triplet
+    builder, ``eye`` and the sparse ``+`` and ``*``, with the seconds of
+    each part."""
+    sync()
+    t0 = time.perf_counter()
+    lap = tri_mesh_graph_laplacian(n, tri, device=DEVICE)
+    sync()
+    t1 = time.perf_counter()
+    a = eye(n, dtype=torch.float64, device=DEVICE) + lap * MESH_TAU
+    sync()
+    return lap, a, {"assembly_s": t1 - t0, "binop_s": time.perf_counter() - t1}
+
+
+def scipy_mesh_step(n, tri):
+    """The same L and A from the triangles by scipy, independently of the
+    port: adjacency from the three edges of each triangle, duplicates
+    merged."""
+    import scipy.sparse as sp
+
+    u = np.concatenate([tri[:, 0], tri[:, 1], tri[:, 0]])
+    v = np.concatenate([tri[:, 1], tri[:, 2], tri[:, 2]])
+    adj = sp.coo_matrix((np.ones(2 * u.size), (np.concatenate([u, v]), np.concatenate([v, u]))),
+                        shape=(n, n)).tocsr()
+    adj.data[:] = 1.0
+    lap = (sp.diags(np.diff(adj.indptr).astype(np.float64)) - adj).tocsr()
+    a = (sp.identity(n, format="csr") + MESH_TAU * lap).tocsr()
+    for m in (lap, a):
+        m.sort_indices()
+    return lap, a
+
+
+def check_against_scipy(name, mat, ref):
+    nnz = mat.nnz
+    indptr = mat.indptr.cpu().numpy()
+    indices = mat.indices[:nnz].cpu().numpy()
+    data = mat.data[:nnz].cpu().numpy()
+    if not (np.array_equal(indptr, ref.indptr) and np.array_equal(indices, ref.indices)):
+        raise AssertionError(f"{name}: structure differs from scipy's")
+    err = float(np.abs(data - ref.data).max())
+    log(f"{name} vs scipy: nnz {nnz}, indptr and indices equal, data max_abs_err {err!r} (limit 1e-15 of max)")
+    if not err <= 1e-15 * float(np.abs(ref.data).max()):
+        raise AssertionError(f"{name}: data differs from scipy's by {err}")
+
+
+def random8_operand():
+    """(CsMat, EllMat, x) of the JAX package's "random8" ELL shape, f32,
+    assembled on the card by ``coo_to_csmat``."""
+    rng = np.random.default_rng(80)
+    n = RANDOM8_N
+    rows = np.repeat(np.arange(n, dtype=np.int32), RANDOM8_SLOTS)
+    cols = rng.integers(0, n, rows.size).astype(np.int32)
+    vals = rng.random(rows.size, np.float32)
+    mat = coo_to_csmat(rows, cols, vals, (n, n), device=DEVICE)
+    x = torch.from_numpy(rng.random(n, np.float32)).to(DEVICE)
+    return mat, ell_from_csmat(mat), x
+
+
+def small_ells():
+    """Odd ELL operands: rows not a multiple of 8, an empty row, width 1,
+    a rectangular shape."""
+    rng = np.random.default_rng(81)
+    width1 = np.zeros((45, 37))
+    for r in range(45):
+        if r != 7:
+            width1[r, rng.integers(37)] = rng.standard_normal()
+    wide = rng.standard_normal((45, 37))
+    wide[rng.random((45, 37)) > 0.15] = 0.0
+    wide[3] = 0.0
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        for label, d in (("45x37 width 1, empty row", width1), ("45x37 random, empty row", wide)):
+            ell = from_dense(torch.from_numpy(d).to(dtype), device=DEVICE).to_ell()
+            x = torch.from_numpy(rng.standard_normal(37)).to(DEVICE, dtype)
+            out.append((f"{label} {dtype}", ell, x))
+    return out
+
+
+def gate_ell(name, ell, x):
+    y = ell_spmv_kernel(ell, x)
+    ref = ell_spmv_plain(ell, x)
+    sync()
+    if y.shape != (ell.rows,) or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"gate {name}: bad output {tuple(y.shape)}")
+    err = float((y - ref).abs().max())
+    return check_rel(name, err, float(ref.abs().max()), GATE_LIMIT[ell.dtype])
+
+
+def gate_grad_ell():
+    """K5's backward on the card against torch's autograd of the plain
+    version on the CPU (float64, a small odd ELL)."""
+    _, ell, x = small_ells()[3]
+    g = rhs_block(ell.rows, 1, torch.float64, 82)[:, 0]
+    data = ell.data.clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    dd, dx = torch.autograd.grad(ell_spmv_kernel(EllMat(ell.indices, data, ell.shape), xg), (data, xg), g)
+    data_c = ell.data.cpu().requires_grad_(True)
+    x_c = x.cpu().requires_grad_(True)
+    y_c = ell_spmv_plain(EllMat(ell.indices.cpu(), data_c, ell.shape), x_c)
+    dd_c, dx_c = torch.autograd.grad(y_c, (data_c, x_c), g.cpu())
+    err = max(float((dd.cpu() - dd_c).abs().max()), float((dx.cpu() - dx_c).abs().max()))
+    log(f"gate grad K5 (45x37, float64): max_abs_err {err!r}")
+    if not err <= 1e-12:
+        raise AssertionError(f"gate grad K5: {err}")
+    return err
+
+
+def sort_case(rows, kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "int32":
+        keys = rng.integers(0, 1 << 30, (rows, 128)).astype(np.int32)
+    elif kind == "ties":
+        keys = rng.integers(0, 8, (rows, 128)).astype(np.int32)
+    else:
+        keys = rng.standard_normal((rows, 128)).astype(np.float32)
+    vals = rng.random((rows, 128)).astype(np.float32)
+    return torch.from_numpy(keys).to(DEVICE), torch.from_numpy(vals).to(DEVICE)
+
+
+def gate_sort(name, keys, vals):
+    """K6 against its plain version bit for bit (keys and values), and the
+    keys against ``torch.sort``."""
+    ks, vs = sort_rows_kernel(keys, vals)
+    pk, pv = sort_rows_plain(keys, vals)
+    lib = torch.sort(keys, dim=1).values
+    sync()
+    bits = [t.view(torch.int32) for t in (ks, pk, vs, pv, lib)]
+    same = torch.equal(bits[0], bits[1]) and torch.equal(bits[2], bits[3])
+    err = max(float((ks.double() - pk.double()).abs().max()), float((vs.double() - pv.double()).abs().max()))
+    log(f"gate K6 {name}: equal to plain {same}, keys equal to torch.sort {torch.equal(bits[0], bits[4])}, "
+        f"max_abs_err {err!r}")
+    if not (same and torch.equal(bits[0], bits[4])):
+        raise AssertionError(f"gate K6 {name}: differs")
+    return err
+
+
+def phase_gate_unstructured(mesh_a, random8):
+    errs = [gate_ell(f"K5 {MESH_SIDE}^2 mesh step float64", ell_from_csmat(mesh_a),
+                     rhs_block(mesh_a.cols, 1, torch.float64, 83)[:, 0].contiguous())]
+    errs.append(gate_ell(f"K5 random8 n={RANDOM8_N} float32", random8[1], random8[2]))
+    errs += [gate_ell(f"K5 {label}", ell, x) for label, ell, x in small_ells()]
+    errs.append(gate_grad_ell())
+    sort_errs = [
+        gate_sort("65 rows int32", *sort_case(65, "int32", 84)),
+        gate_sort("65 rows int32 keys in [0, 8)", *sort_case(65, "ties", 85)),
+        gate_sort("10 rows float32", *sort_case(10, "float32", 86)),
+        gate_sort(f"{SORT_ROWS} rows int32", *sort_case(SORT_ROWS, "int32", 87)),
+        gate_sort(f"{SORT_ROWS} rows float32", *sort_case(SORT_ROWS, "float32", 88)),
+    ]
+    return {"ell_spmv": max(errs), "sort_rows": max(sort_errs)}
+
+
+def timing_ell(label, mat, ell, x, reps):
+    ms = time_ms(lambda: ell_spmv_kernel(ell, x), reps)
+    plain_ms = time_ms(lambda: ell_spmv_plain(ell, x), max(reps // 5, 3))
+    csr = csr_twin(mat)
+    lib_err = float((torch.mv(csr, x) - ell_spmv_plain(ell, x)).abs().max())
+    library_ms = time_ms(lambda: torch.mv(csr, x), reps)
+    size = ell.data.element_size()
+    # as utils/profile.py::ell_spmv_bytes counts them
+    nbytes = ell.rows_pad * ell.width * (4 + size) + (ell.cols + ell.rows_pad) * size
+    flops = 2 * ell.rows_pad * ell.width
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, PEAK_FLOPS[ell.dtype],
+                      kernel="ell_spmv", library="torch.mv (CSR)", library_max_abs_err=lib_err,
+                      width=ell.width)
+
+
+def timing_sort(keys, vals, reps):
+    def library():
+        s, order = torch.sort(keys, dim=1, stable=True)
+        return s, torch.gather(vals, 1, order)
+
+    ms = time_ms(lambda: sort_rows_kernel(keys, vals), reps)
+    plain_ms = time_ms(lambda: sort_rows_plain(keys, vals), 3)
+    library_ms = time_ms(library, reps)
+    nbytes = 2 * keys.numel() * (keys.element_size() + vals.element_size())
+    flops = 28 * keys.numel()  # one comparison per element per stage
+    return timing_row(f"{keys.shape[0]}x128 {keys.dtype} keys, {vals.dtype} vals", ms, plain_ms,
+                      library_ms, nbytes, flops, PEAK_FLOPS[torch.float32], kernel="sort_rows",
+                      library="torch.sort(dim=1, stable) + torch.gather")
+
+
+def phase_timing_unstructured(mesh_a, random8):
+    rows = {"ell_spmv": timing_ell(f"random8 n={RANDOM8_N} float32", *random8, reps=50)}
+    timing_ell(f"{MESH_SIDE}^2 mesh step float64", mesh_a, ell_from_csmat(mesh_a),
+               rhs_block(mesh_a.cols, 1, torch.float64, 89)[:, 0].contiguous(), reps=200)
+    rows["sort_rows"] = timing_sort(*sort_case(SORT_ROWS, "int32", 90), reps=50)
+    return rows
+
+
+ROUTE_OF = {"DiaTiledMat": "dia", "EllMat": "ell", "CsMat": "csr"}
+
+
+def phase_main_mesh():
+    """The implicit heat step on the permuted mesh (see the module note).
+    Returns K5's launches over the CG solve."""
+    n, tri, centre = permuted_mesh(MESH_SIDE)
+    lap, a, setup = mesh_step(n, tri)
+    ref_lap, ref_a = scipy_mesh_step(n, tri)
+    check_against_scipy(f"L {MESH_SIDE}^2 mesh", lap, ref_lap)
+    check_against_scipy(f"A = I + {MESH_TAU}L", a, ref_a)
+    del ref_lap, ref_a
+    t0 = time.perf_counter()
+    fn, prepared = prepare_spmv(a)
+    sync()
+    setup["prepare_spmv_s"] = time.perf_counter() - t0
+    route = ROUTE_OF[type(prepared).__name__]
+    log(f"mesh {MESH_SIDE}^2 set-up {json.dumps(setup)}: route {route}, width {getattr(prepared, 'width', None)}")
+    if route != "ell" or prepared.width != 7:
+        raise AssertionError(f"mesh step routed to {route}, expected ell of width 7")
+    b = torch.zeros(n, dtype=torch.float64, device=DEVICE)
+    b[centre] = 1.0
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cg(a, b, tol=SOLVE_TOL, max_iter=MAX_ITER)
+    sync()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = ell_spmv_kernel.launches, ell_spmv_plain.calls
+
+    true_res = float(torch.linalg.vector_norm(b - ell_spmv_plain(prepared, res.x)))
+    ref = cg(lambda v: ell_spmv_plain(prepared, v), b, tol=SOLVE_TOL, max_iter=MAX_ITER)
+    sync()
+    rel = float((res.x - ref.x).abs().max() / ref.x.abs().max())
+    log(f"cg mesh {MESH_SIDE}^2 step float64: iterations {res.iterations} converged {res.converged} "
+        f"wall {wall!r} s (prepare_spmv included), {wall / max(res.iterations, 1) * 1e3!r} ms per "
+        f"iteration, true residual {true_res!r} (limit {SOLVE_TOL!r}), K5 launches {launches} "
+        f"(expected {res.iterations + 2}), plain calls {plain_calls}; vs the plain CG "
+        f"({ref.iterations} iterations): rel {rel!r} (limit 1e-6)")
+    if not (res.converged and true_res <= SOLVE_TOL * float(torch.linalg.vector_norm(b))):
+        raise AssertionError(f"cg mesh: converged {res.converged}, true residual {true_res}")
+    if launches != res.iterations + 2 or plain_calls != 0:
+        raise AssertionError(f"cg mesh: {launches} K5 launches, {plain_calls} plain calls")
+    if res.x.shape != b.shape or not bool(torch.isfinite(res.x).all()) or not rel <= 1e-6:
+        raise AssertionError(f"cg mesh: rel {rel} against the plain CG")
+    profile_window(
+        f"cg {MESH_SIDE}^2 mesh step float64, whole solve",
+        lambda: cg(lambda v: fn(prepared, v), b, tol=SOLVE_TOL, max_iter=MAX_ITER),
+        "ell_spmv",
+    )
+    return launches
+
+
+def phase_main_sort():
+    """K6 through its own entry point: 43,750 rows with tied keys, each
+    value the key's column, so the result shows the permutation."""
+    keys, _ = sort_case(SORT_ROWS, "ties", 91)
+    cols = torch.arange(128, dtype=torch.int32, device=DEVICE).expand(SORT_ROWS, -1).contiguous()
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    ks, vs = sort_rows_kernel(keys, cols)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = sort_rows_kernel.launches
+    log(f"sort_rows main path {SORT_ROWS}x128: wall {wall!r} s, K6 launches {launches}, "
+        f"plain calls {sort_rows_plain.calls}")
+    if launches != 1 or sort_rows_plain.calls != 0:
+        raise AssertionError("sort_rows: launch counts")
+    idx = vs.to(torch.int64)
+    if not (torch.equal(ks, torch.sort(keys, dim=1).values) and torch.equal(ks, keys.gather(1, idx))
+            and torch.equal(idx.sort(dim=1).values, cols.to(torch.int64))):
+        raise AssertionError("sort_rows: not a sorted permutation of each row")
+    return launches
+
+
+def check_small_mesh():
+    """CG on the 16² permuted mesh step on the card against a dense solve
+    of the same A.  The step's condition number is at most 1 + 12τ = 121,
+    so a residual of 1e-8·‖b‖ leaves x within about 1.2e-6 of max|x|: the
+    limit is 1e-5."""
+    n, tri, centre = permuted_mesh(MESH_SMALL_SIDE)
+    _, a, _ = mesh_step(n, tri)
+    route = ROUTE_OF[type(prepare_spmv(a)[1]).__name__]
+    b = torch.zeros(n, dtype=torch.float64, device=DEVICE)
+    b[centre] = 1.0
+    ell_spmv_kernel.launches = 0
+    res = cg(a, b, tol=SOLVE_TOL, max_iter=MAX_ITER)
+    launches = ell_spmv_kernel.launches
+    ref = torch.linalg.solve(a.to_dense(), b)
+    rel = float((res.x - ref).abs().max() / ref.abs().max())
+    log(f"small cg {MESH_SMALL_SIDE}^2 mesh step vs dense solve: route {route}, iterations "
+        f"{res.iterations}, rel err {rel!r}, K5 launches {launches}")
+    if not (route == "ell" and res.converged and rel <= 1e-5 and launches == res.iterations + 2):
+        raise AssertionError(f"small cg mesh: route {route}, rel err {rel}, launches {launches}")
+
+
 KERNELS = {
     "dia_spmv": ("sprs_tpu_torch/csrc/dia_spmv.cu", "sprs_tpu/ops/pallas/dia_spmv.py:232"),
     "dia_spmm": ("sprs_tpu_torch/csrc/dia_spmm.cu", "sprs_tpu/ops/pallas/dia_spmm.py:93"),
     "bsr_spmm": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:69"),
     "bsr_spmm_grouped": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:258"),
+    "ell_spmv": ("sprs_tpu_torch/csrc/ell_spmv.cu", "sprs_tpu/ops/pallas/spmv.py:72"),
+    "sort_rows": ("sprs_tpu_torch/csrc/sort_rows.cu", "sprs_tpu/ops/pallas/sort.py:97"),
 }
 
 
@@ -802,14 +1138,24 @@ def main() -> int:
     errs = phase_gate(spmv_operand)
     timing = phase_timing(lap_spmv, spmv_operand)
     del lap_spmv, spmv_operand
+    t0 = time.perf_counter()
+    mesh_a = mesh_step(*permuted_mesh(MESH_SIDE)[:2])[1]
+    random8 = random8_operand()
+    log(f"setup: {MESH_SIDE}^2 mesh step and random8 in {time.perf_counter() - t0:.3f} s")
+    errs.update(phase_gate_unstructured(mesh_a, random8))
+    timing.update(phase_timing_unstructured(mesh_a, random8))
+    del mesh_a, random8
 
     check_small_against_dense()
+    check_small_mesh()
     launches = {}
     launches["dia_spmv"], lap, rhs = phase_main_spmv()
     phase_profile_bicgstab(lap, rhs)
     del lap, rhs
     launches["dia_spmm"] = phase_main_block()
     launches.update(phase_main_bsr())
+    launches["ell_spmv"] = phase_main_mesh()
+    launches["sort_rows"] = phase_main_sort()
     phase_eigen_checks()
     for kname, n in launches.items():
         if n == 0:

@@ -4,9 +4,11 @@ A package of its own beside the JAX package: it imports ``torch`` and
 numpy, never JAX, and nothing of ``sprs_tpu``.  It mirrors the JAX
 package's module paths.  Ported so far: the banded-solve path (formats,
 the structure-dispatched SpMV with its hand-written CUDA kernel for the
-DIA format, BiCGSTAB, CG, Jacobi and Gauss–Seidel) and the multi-RHS
+DIA format, BiCGSTAB, CG, Jacobi and Gauss–Seidel), the multi-RHS
 path (the DIA SpMM and BSR SpMM kernels, ``@`` on CsMat and BsrMat,
-LOBPCG, svds and expm_multiply).
+LOBPCG, svds and expm_multiply) and the unstructured path (triplet
+assembly, the mesh Laplacian, sparse ``+ - *``, and the ELL SpMV kernel
+under CG; the row-sort kernel beside it).
 Public constructors place tensors on ``"cuda"`` unless the caller
 passes ``device=``.
 
@@ -31,16 +33,31 @@ from .errors import (
     SprsError,
     StructureError,
 )
-from .formats import CSC, CSR, INDEX_DTYPE, BsrMat, CsMat, csmat, from_dense
+from .formats import (
+    CSC,
+    CSR,
+    INDEX_DTYPE,
+    BsrMat,
+    CsMat,
+    TriMat,
+    coo_to_csmat,
+    csmat,
+    csmat_from_unsorted,
+    eye,
+    from_dense,
+)
 from .interop import from_arrays
 from .ops import (
+    add,
     dense_matmul_sparse,
+    elementwise_mul,
     matmul,
     prepare_spmm,
     prepare_spmv,
     rmatmul,
     spmm,
     spmv,
+    sub,
 )
 
 __version__ = "0.1.0"

@@ -5,8 +5,9 @@ The PyTorch counterpart of ``sprs_tpu/formats/csmat.py``: the same
 in the first ``nnz = indptr[-1]`` slots and padding ``indices == 0,
 data == 0``, so that arrays compare one for one with the JAX package.
 Transpose is metadata (the storage flag flips).  This module carries
-the subset of ``CsMat`` that the ported slices need; the rest of the JAX
-class is listed in ROADMAP.md.
+the subset of ``CsMat`` that the ported slices need, with the elementwise
+methods and the ``+ - *`` operators (``ops/binop.py``); the rest of the
+JAX class is listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,7 +24,10 @@ from .util import (
     INDEX_DTYPE,
     as_tensor,
     check_index_capacity,
+    compress_coo,
+    positions,
     row_ids_from_indptr,
+    torch_dtype,
     valid_mask,
 )
 
@@ -184,6 +188,42 @@ class CsMat:
 
         return bsr_from_csmat(self, block_size)
 
+    # -- elementwise -------------------------------------------------------
+    def map(self, fn) -> "CsMat":
+        """Apply ``fn`` to every live entry; padding stays zero.  Only stored
+        entries are touched: ``fn(0) != 0`` does not densify."""
+        new = fn(self.data)
+        return self.with_data(torch.where(self.live_mask(), new, torch.zeros_like(new)))
+
+    def with_data(self, data: torch.Tensor) -> "CsMat":
+        if data.shape != self.data.shape:
+            raise ShapeError(
+                f"data must keep capacity {tuple(self.data.shape)}, got {tuple(data.shape)}"
+            )
+        return CsMat(self.indptr, self.indices, data, self.shape, self.storage)
+
+    def astype(self, dtype) -> "CsMat":
+        return self.with_data(self.data.to(torch_dtype(dtype)))
+
+    def scale(self, alpha) -> "CsMat":
+        return self.map(lambda d: d * alpha)
+
+    def __neg__(self) -> "CsMat":
+        return self.map(torch.neg)
+
+    def with_cap(self, new_cap: int) -> "CsMat":
+        """Re-pad to a new capacity; shrinking below nnz raises."""
+        if new_cap == self.cap:
+            return self
+        if new_cap < self.nnz:
+            raise StructureError.size_mismatch(f"cannot shrink cap below nnz={self.nnz}")
+        if new_cap > self.cap:
+            indices = _pad_to_cap(self.indices, new_cap)
+            data = _pad_to_cap(self.data, new_cap)
+        else:
+            indices, data = self.indices[:new_cap], self.data[:new_cap]
+        return CsMat(self.indptr, indices, data, self.shape, self.storage)
+
     # -- queries -----------------------------------------------------------
     def diag(self) -> torch.Tensor:
         """Dense main diagonal of length min(rows, cols)."""
@@ -269,6 +309,30 @@ class CsMat:
         from ..ops import rmatmul
 
         return rmatmul(other, self)
+
+    def __add__(self, other):
+        from ..ops import add
+
+        return add(self, other)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        from ..ops import sub
+
+        return sub(self, other)
+
+    def __rsub__(self, other):
+        from ..ops import sub
+
+        return sub(other, self)
+
+    def __mul__(self, other):
+        from ..ops import elementwise_mul
+
+        return elementwise_mul(self, other)
+
+    __rmul__ = __mul__
 
     def __repr__(self):
         return (
@@ -368,5 +432,54 @@ def from_dense(
         indices,
         data,
         (int(r), int(c)),
+        storage,
+    )
+
+
+def csmat_from_unsorted(
+    shape: Tuple[int, int],
+    indptr,
+    indices,
+    data,
+    *,
+    storage: str = CSR,
+    cap: Optional[int] = None,
+    device=DEFAULT_DEVICE,
+) -> CsMat:
+    """Build a CsMat from compressed arrays whose indices within an outer
+    dimension are in any order; duplicates are summed, as triplets are."""
+    raw = csmat(
+        shape, indptr, indices, data, storage=storage, cap=cap, validate=False, device=device
+    )
+    res = compress_coo(
+        raw.outer_ids(),
+        raw.indices,
+        (raw.data,),
+        raw.indptr[-1],
+        raw.outer_dims,
+        raw.inner_dims,
+        raw.cap,
+    )
+    return CsMat(res.indptr, res.indices, res.values[0], raw.shape, storage)
+
+
+def eye(
+    n: int,
+    dtype=torch.float32,
+    *,
+    storage: str = CSR,
+    cap: Optional[int] = None,
+    device=DEFAULT_DEVICE,
+) -> CsMat:
+    """The n×n identity; a ``cap`` above n adds padding slots."""
+    check_index_capacity(n=n, cap=cap)
+    cap = cap or max(n, 1)
+    idx = positions(cap, device)
+    live = idx < n
+    return CsMat(
+        positions(n + 1, device),
+        torch.where(live, idx, 0),
+        live.to(torch_dtype(dtype)),
+        (n, n),
         storage,
     )

@@ -7,8 +7,9 @@ are dense ``(rows_pad, width)`` arrays and SpMV is
 Pad slots carry ``indices == 0`` (an always-valid gather address) and
 ``data == 0``.  Rows are padded to a multiple of ``row_align``.
 
-Only the plain torch products live here; the ELL kernel (K5 in
-ROADMAP.md) is not ported yet.
+The plain torch products live here; :func:`ell_spmv` is also the plain
+version of the ELL SpMV kernel K5, whose wrapper and prepared-path use
+are in ``ops/cuda/ell_spmv.py``.
 """
 
 from __future__ import annotations

@@ -10,9 +10,15 @@ index ops need it.
 Unlike JAX's scatters, torch's ``index_add_`` raises on an out-of-range
 index and advanced indexing wraps a negative one, so every consumer of
 :func:`row_ids_from_indptr` masks the padding sentinel explicitly.
+
+:func:`compress_coo` is the shared sort-and-compress primitive: triplet
+assembly, ``csmat_from_unsorted`` and the sparse binary ops all run
+through it, as in the JAX package.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -96,4 +102,128 @@ def row_ids_from_indptr(indptr: torch.Tensor, cap: int) -> torch.Tensor:
     n_outer = indptr.shape[0] - 1
     return torch.where(
         positions(cap, device) < indptr[-1], ids, torch.full_like(ids, n_outer)
+    )
+
+
+def indptr_from_row_counts(row_counts: torch.Tensor) -> torch.Tensor:
+    """Exclusive scan of a per-row count vector: an indptr of length n+1."""
+    out = torch.zeros(
+        row_counts.shape[0] + 1, dtype=INDEX_DTYPE, device=row_counts.device
+    )
+    out[1:] = torch.cumsum(row_counts, 0)
+    return out
+
+
+def indptr_from_rows(
+    rows: torch.Tensor, unique_valid: torch.Tensor, n_outer: int
+) -> torch.Tensor:
+    """indptr from the row ids of the live unique entries (``unique_valid``).
+    Rows outside [0, n_outer), the padding sentinel ``n_outer`` among them,
+    are dropped as JAX's ``mode="drop"`` drops them: they count in one
+    spare slot past the end.  The JAX version's ``rows_sorted`` hint has
+    no counterpart in torch."""
+    rows = rows.to(torch.int64)
+    keep = unique_valid & (rows >= 0) & (rows < n_outer)
+    counts = torch.zeros(n_outer + 1, dtype=INDEX_DTYPE, device=rows.device)
+    counts.index_add_(
+        0, torch.where(keep, rows, n_outer), torch.ones_like(rows, dtype=INDEX_DTYPE)
+    )
+    return indptr_from_row_counts(counts[:n_outer])
+
+
+class CompressedCoo(NamedTuple):
+    """Result of :func:`compress_coo`.
+
+    ``required_nnz`` is the number of unique live entries of the input; if
+    it exceeds ``out_cap`` the output holds the first ``out_cap`` of them
+    and ``nnz == out_cap``.  Both are 0-d tensors on the input's device.
+    """
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    values: Tuple[torch.Tensor, ...]
+    nnz: torch.Tensor
+    required_nnz: torch.Tensor
+
+
+def compress_coo(
+    rows: torch.Tensor,
+    cols: torch.Tensor,
+    value_channels: Sequence[torch.Tensor],
+    nvalid,
+    n_outer: int,
+    n_inner: int,
+    out_cap: int,
+    sort_batches=None,
+) -> CompressedCoo:
+    """Sort-and-deduplicate COO entries into CSR-ordered arrays.
+
+    Entries at positions >= ``nvalid`` are padding and ignored, as are
+    entries whose row is ``n_outer`` or more.  Duplicate (row, col) pairs
+    are summed per value channel; the output is sorted by (row, col), so
+    each row's column indices ascend.  Several value channels ride one
+    sort (the binary ops carry each operand in its own).
+
+    One ``torch.sort`` on an int64 key ``row * n_inner + col``: it holds
+    every i32 index space, so the JAX package's i32 / i64 / two-key cases
+    are one case here.  The sort is stable, so duplicates are summed in
+    input order; the JAX sort is unstable, which can change the last bit
+    of a sum of three or more duplicates.  ``sort_batches`` is accepted
+    for the JAX signature and ignored: the JAX package splits its sort
+    into segments because one very large ``lax.sort`` crashed the TPU
+    worker; the port does one sort.
+    """
+    del sort_batches
+    device = rows.device
+    cap = rows.shape[0]
+    channels = tuple(value_channels)
+    if cap == 0:
+        zero = torch.zeros((), dtype=INDEX_DTYPE, device=device)
+        return CompressedCoo(
+            torch.zeros(n_outer + 1, dtype=INDEX_DTYPE, device=device),
+            torch.zeros(out_cap, dtype=INDEX_DTYPE, device=device),
+            tuple(torch.zeros(out_cap, dtype=v.dtype, device=device) for v in channels),
+            zero,
+            zero,
+        )
+    live = positions(cap, device) < nvalid
+    n_inner_c = max(n_inner, 1)
+    # Padding packs to the sentinel key n_outer·n_inner, which sorts after
+    # every live key; so does a live entry of row n_outer (a padding slot
+    # of a CsMat operand, whose outer id is the sentinel row).
+    sentinel = n_outer * n_inner_c
+    key = torch.where(
+        live,
+        rows.to(torch.int64) * n_inner_c + cols.to(torch.int64),
+        torch.full((cap,), sentinel, dtype=torch.int64, device=device),
+    )
+    key, order = torch.sort(key, stable=True)
+    vals = [torch.where(live, v, torch.zeros((), dtype=v.dtype, device=device))[order]
+            for v in channels]
+    first = torch.ones(cap, dtype=torch.bool, device=device)
+    first[1:] = key[1:] != key[:-1]
+    unique = first & (key < sentinel)
+    gid = torch.cumsum(unique, 0) - 1
+    required = gid[-1] + 1
+    # Padding follows the last group (or precedes the first, gid -1 → 0);
+    # it adds zeros there and loses every min against a live key.
+    gid = gid.clamp(min=0)
+    slot = torch.where(gid < out_cap, gid, out_cap)  # out_cap: dropped
+    nnz = required.clamp(max=out_cap)
+    key_out = torch.full(
+        (out_cap + 1,), torch.iinfo(torch.int64).max, dtype=torch.int64, device=device
+    ).scatter_reduce_(0, slot, key, "amin")[:out_cap]
+    valid = positions(out_cap, device) < nnz
+    r_out = key_out // n_inner_c
+    indices = torch.where(valid, key_out - r_out * n_inner_c, 0).to(INDEX_DTYPE)
+    values = tuple(
+        torch.zeros(out_cap + 1, dtype=v.dtype, device=device).index_add_(0, slot, v)[:out_cap]
+        for v in vals
+    )
+    return CompressedCoo(
+        indptr_from_rows(r_out, valid, n_outer),
+        indices,
+        values,
+        nnz.to(INDEX_DTYPE),
+        required.to(INDEX_DTYPE),
     )

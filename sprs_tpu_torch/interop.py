@@ -13,9 +13,10 @@ from typing import Optional, Sequence, Tuple
 from .formats.bsr import BsrMat
 from .formats.csmat import CSR, csmat
 from .formats.dia import DiaMat
+from .formats.ell import EllMat
 from .formats.util import DEFAULT_DEVICE, INDEX_DTYPE, as_tensor
 
-KINDS = ("csmat", "dia", "bsr")
+KINDS = ("csmat", "dia", "bsr", "ell")
 
 
 def from_arrays(
@@ -36,6 +37,8 @@ def from_arrays(
       ``(n_diags, rows_pad)``, with its ``offsets``.
     * ``kind="bsr"``: ``arrays = (brows, bcols, blocks)`` of a BsrMat,
       padding blocks included, with its live count ``n_blocks``.
+    * ``kind="ell"``: ``arrays = (indices, data)`` of an EllMat, both
+      ``(rows_pad, width)``.
     """
     shape = tuple(int(s) for s in shape)
     if kind == "csmat":
@@ -69,5 +72,12 @@ def from_arrays(
             as_tensor(blocks, device=device),
             shape,
             int(n_blocks),
+        )
+    if kind == "ell":
+        indices, data = arrays
+        return EllMat(
+            as_tensor(indices, dtype=INDEX_DTYPE, device=device),
+            as_tensor(data, device=device),
+            shape,
         )
     raise ValueError(f"from_arrays: kind must be one of {KINDS}, got {kind!r}")

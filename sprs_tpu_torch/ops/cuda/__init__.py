@@ -10,3 +10,5 @@ from .bsr_spmm import (
 )
 from .dia_spmm import dia_spmm_kernel, dia_spmm_plain
 from .dia_spmv import DiaTiledMat, dia_spmv_kernel, dia_spmv_plain, dia_tile
+from .ell_spmv import ell_spmv_kernel, ell_spmv_plain
+from .sort import sort_rows_kernel, sort_rows_plain

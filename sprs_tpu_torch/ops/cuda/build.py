@@ -33,7 +33,7 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
-SOURCES = ("dia_spmv", "dia_spmm", "bsr_spmm")
+SOURCES = ("dia_spmv", "dia_spmm", "bsr_spmm", "ell_spmv", "sort_rows")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,163 @@
+"""Unstructured SpMV kernel K5 over the ELL format:
+y[r] = Σ_j data[r, j] · x[indices[r, j]].
+
+The CUDA C++ kernel is ``sprs_tpu_torch/csrc/ell_spmv.cu``; its note says
+which TPU function it replaces, what bounds it (bytes: indices, data, x
+and y each cross device memory once) and how its design meets that bound.
+This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
+
+* :func:`ell_spmv_plain`, the plain torch version (``formats/ell.py::
+  ell_spmv``), used for tensors on the CPU and as the kernel's reference
+  on the card.  Its ``calls`` attribute counts calls;
+* :func:`ell_spmv_kernel`, the wrapper: CPU tensors take the plain
+  version, CUDA tensors launch the kernel or raise — never both.  Its
+  ``launches`` attribute counts kernel launches.  Every x takes the
+  kernel: the JAX package's escapes to XLA (x above 48 MB of VMEM, a
+  backend that cannot lower the gather) are TPU limits with no
+  counterpart here;
+* a ``torch.autograd.Function`` whose forward is the kernel and whose
+  backward (:func:`ell_vjp`) is the plain torch form of the JAX package's
+  ``_bwd``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from ...errors import ShapeError
+from ...formats.ell import EllMat, ell_spmv
+from . import build
+from .dia_spmv import BLOCK, BLOCKS_PER_SM
+
+_ENTRY = {torch.float32: "sprs_ell_spmv_f32", torch.float64: "sprs_ell_spmv_f64"}
+
+
+def launch_config(rows: int, n_sm: int) -> Tuple[int, int]:
+    """(grid, block) for ``rows`` output rows on a card with ``n_sm`` SMs:
+    one thread per row, at most one full wave of resident blocks; the
+    kernel's grid-stride loop covers the rest."""
+    blocks = -(-rows // BLOCK)
+    return max(1, min(blocks, n_sm * BLOCKS_PER_SM)), BLOCK
+
+
+def ell_spmv_plain(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
+    """The plain torch K5: one gather and a row sum, pad slots included
+    (``formats/ell.py::ell_spmv``)."""
+    ell_spmv_plain.calls += 1
+    return ell_spmv(ell, x)
+
+
+ell_spmv_plain.calls = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype: torch.dtype):
+    fn = getattr(build.load("ell_spmv"), _ENTRY[dtype])
+    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, vp, vp, vp, ll, ll, i, i, i, vp]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(ell: EllMat, x: torch.Tensor) -> None:
+    """Refuse, before any launch, the types, shapes and layouts that the
+    kernel does not take (the device is checked by :func:`_launch`)."""
+    idx, data = ell.indices, ell.data
+    if data.dtype not in _ENTRY or x.dtype != data.dtype:
+        raise TypeError(
+            f"ell_spmv kernel takes float32 or float64 data and x of the "
+            f"same type, got {data.dtype} and {x.dtype}"
+        )
+    if idx.dtype != torch.int32:
+        raise TypeError(f"ell_spmv kernel takes int32 indices, got {idx.dtype}")
+    if idx.ndim != 2 or data.shape != idx.shape or ell.rows_pad < ell.rows:
+        raise ShapeError(
+            f"ell_spmv: indices {tuple(idx.shape)} and data {tuple(data.shape)} for {ell.shape}"
+        )
+    if not (idx.is_contiguous() and data.is_contiguous() and x.is_contiguous()):
+        raise ValueError("ell_spmv kernel needs contiguous indices, data and x")
+
+
+def _launch(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
+    idx, data = ell.indices, ell.data
+    if data.device.type != "cuda" or idx.device != data.device or x.device != data.device:
+        raise ValueError(
+            f"ell_spmv kernel needs indices, data and x on one CUDA device, got "
+            f"{idx.device}, {data.device} and {x.device}"
+        )
+    _check(ell, x)
+    y = torch.empty(ell.rows, dtype=data.dtype, device=data.device)
+    if ell.rows == 0:
+        return y
+    if ell.cols == 0:
+        return y.zero_()
+    n_sm = torch.cuda.get_device_properties(data.device).multi_processor_count
+    grid, block = launch_config(ell.rows, n_sm)
+    err = _entry(data.dtype)(
+        idx.data_ptr(),
+        data.data_ptr(),
+        x.data_ptr(),
+        y.data_ptr(),
+        ell.rows,
+        ell.cols,
+        ell.width,
+        grid,
+        block,
+        torch.cuda.current_stream(data.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"ell_spmv kernel launch failed: CUDA error {err}")
+    ell_spmv_kernel.launches += 1
+    return y
+
+
+def ell_vjp(ell: EllMat, x: torch.Tensor, g: torch.Tensor):
+    """(ddata, dx) for y = A @ x: ddata[r, j] = g[r]·x[indices[r, j]] (the
+    forward gather against the cotangent) and dx[indices[r, j]] +=
+    data[r, j]·g[r] (the transpose product in scatter form), pad rows
+    taking g = 0.  The plain torch form of the JAX package's ``_bwd``."""
+    gp = g.new_zeros(ell.rows_pad)
+    gp[: ell.rows] = g
+    idx = ell.indices.to(torch.int64)
+    ddata = (x[idx] * gp[:, None]).to(ell.dtype)
+    contrib = ell.data * gp[:, None]
+    dx = torch.zeros_like(x, dtype=contrib.dtype).index_add_(
+        0, idx.reshape(-1), contrib.reshape(-1)
+    )
+    return ddata, dx.to(x.dtype)
+
+
+class _EllSpmv(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, indices, data, x, shape):
+        ell = EllMat(indices, data, shape)
+        ctx.save_for_backward(indices, data, x)
+        ctx.shape = shape
+        if all(t.device.type == "cpu" for t in (indices, data, x)):
+            return ell_spmv_plain(ell, x)
+        return _launch(ell, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        indices, data, x = ctx.saved_tensors
+        ddata, dx = ell_vjp(EllMat(indices, data, ctx.shape), x, g)
+        return None, ddata, dx, None
+
+
+def ell_spmv_kernel(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x through K5; the counterpart of ``ell_spmv_pallas``.
+
+    Tensors on the CPU take :func:`ell_spmv_plain`; tensors on a CUDA
+    device launch the kernel, which raises on what it cannot take.
+    Differentiable in ``ell.data`` and ``x``.
+    """
+    if x.shape != (ell.cols,):
+        raise ShapeError(f"ell_spmv: A is {ell.shape}, x is {tuple(x.shape)}")
+    return _EllSpmv.apply(ell.indices, ell.data, x, tuple(ell.shape))
+
+
+ell_spmv_kernel.launches = 0

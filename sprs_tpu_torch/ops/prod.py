@@ -88,7 +88,9 @@ def prepare_spmv(mat: CsMat) -> Tuple[Callable, object]:
 
     * few populated diagonals → :class:`DiaTiledMat` through kernel K1
       (every band width: the kernel has no window to outgrow),
-    * modest ELL padding overhead → ELL (plain gather; kernel K5 waits),
+    * modest ELL padding overhead → ELL through kernel K5 (every x: the
+      JAX package's VMEM limit on x has no counterpart; its own ELL arm
+      runs the plain XLA product, since the TPU could not compile K5),
     * otherwise → CSR index-add.
     """
     route = _route(mat)
@@ -98,9 +100,10 @@ def prepare_spmv(mat: CsMat) -> Tuple[Callable, object]:
 
         return (lambda m, x: m.spmv(x)), dia_tile(dia_from_csmat(mat))
     if route == "ell":
-        from ..formats.ell import ell_from_csmat, ell_spmv
+        from ..formats.ell import ell_from_csmat
+        from .cuda.ell_spmv import ell_spmv_kernel
 
-        return ell_spmv, ell_from_csmat(mat)
+        return ell_spmv_kernel, ell_from_csmat(mat)
     return spmv, mat
 
 
@@ -111,7 +114,8 @@ def prepare_spmm(mat: CsMat) -> Tuple[Callable, object]:
     * few populated diagonals → :class:`DiaTiledMat` through kernel K2
       at every RHS width (the JAX package's ``k >= 256`` cut is a TPU
       measurement),
-    * modest ELL padding overhead → ELL gather SpMM,
+    * modest ELL padding overhead → ELL gather SpMM, plain torch (the
+      JAX package has no ELL SpMM kernel),
     * otherwise → CSR index-add.
     """
     route = _route(mat)

@@ -1,3 +1,4 @@
 """Matrix constructors for tests, examples and benchmarks."""
 
-from .special import dirichlet_laplacian, grid_laplacian
+from .rand import rand_csr
+from .special import dirichlet_laplacian, grid_laplacian, tri_mesh_graph_laplacian

@@ -6,8 +6,12 @@
   the heat-diffusion example.  Nonsymmetric because of the border rows.
 * :func:`dirichlet_laplacian` — the SPD interior 5-point operator
   kron(I,T) + kron(T,I) with T = tridiag(-1,2,-1): the operator for CG.
+* :func:`tri_mesh_graph_laplacian` — the graph Laplacian of a triangle
+  mesh (degree on the diagonal, −1 for each undirected edge).
 
-Both assemble sorted CSR in numpy, then move it to ``device``.
+The grid operators assemble sorted CSR in numpy, then move it to
+``device``; the mesh Laplacian goes through :class:`TriMat` and is
+compressed on ``device``.
 """
 
 from __future__ import annotations
@@ -15,7 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..errors import StructureError
 from ..formats.csmat import CsMat, csmat
+from ..formats.triplet import TriMat
 from ..formats.util import DEFAULT_DEVICE, np_dtype
 
 
@@ -75,3 +81,34 @@ def dirichlet_laplacian(
         cols.append(row[ok] + off)
         vals.append(np.full(int(ok.sum()), -1.0))
     return _assemble(n, rows, cols, vals, dtype, device)
+
+
+def tri_mesh_graph_laplacian(
+    n_vertices: int, triangles, *, device=DEFAULT_DEVICE
+) -> CsMat:
+    """Graph Laplacian of a triangle mesh, float64.
+
+    ``triangles``: (m, 3) integer array.  L[i,i] = degree(i) (stored for
+    every vertex, 0 included); L[i,j] = −1 for each mesh edge {i, j}; an
+    edge shared by several triangles counts once.  The JAX version dedups
+    the edges in a Python set; here one ``np.unique`` of the packed edge
+    keys does it, which gives the same matrix array for array.
+    """
+    n = int(n_vertices)
+    tri = np.asarray(triangles, dtype=np.int64).reshape(-1, 3)
+    if tri.size and (tri.min() < 0 or tri.max() >= n):
+        raise StructureError.out_of_range("triangle vertex out of range")
+    u = np.concatenate([tri[:, 0], tri[:, 1], tri[:, 0]])
+    v = np.concatenate([tri[:, 1], tri[:, 2], tri[:, 2]])
+    keep = u != v
+    edges = np.unique(np.minimum(u, v)[keep] * n + np.maximum(u, v)[keep])
+    lo, hi = np.divmod(edges, n) if n else (edges, edges)
+    deg = np.bincount(lo, minlength=n) + np.bincount(hi, minlength=n)
+    diag = np.arange(n)
+    minus = np.full(edges.size, -1.0)
+    return TriMat.from_triplets(
+        (n, n),
+        np.concatenate([lo, hi, diag]),
+        np.concatenate([hi, lo, diag]),
+        np.concatenate([minus, minus, deg.astype(np.float64)]),
+    ).to_csr(device=device)
