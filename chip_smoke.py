@@ -12,19 +12,28 @@ and prints no result):
    K1 (banded SpMV) and K2 (banded SpMM) on grid Laplacians and a random
    band in float32 and float64, K2 also on the 1024² Dirichlet Laplacian
    and the band's transpose, at every RHS width the block main paths and
-   correctness solves give it (4 to 256) and at 1, 48 and 130; K3 and K4
+   correctness solves give it (4 to 256) and at 1, 48 and 130, each
+   width also on an X that starts off a 16-byte boundary (K2's vector
+   and scalar variants, each gate checking which one ran); K3 and K4
    (block-sparse SpMM) at block size 8 (odd shapes, an empty block row,
    padding blocks, unsorted blocks) and 128 in float32, bfloat16 and
-   float64; K5 (ELL SpMV) on the 1024² mesh step (float64), the
+   float64, and K3's tensor-core variant in bfloat16 at block sizes 64
+   and 128 (a 1000×900 shape with a partial last block row and X rows
+   past ``cols``, a sliced and unsorted operand, an empty block row,
+   k = 200 and k = 70, the latter sent to the CUDA-core variant by the
+   wrapper's rule, and the K4 repack); K5 (ELL SpMV) on the 1024² mesh step (float64), the
    "random8" matrix (float32) and small odd ELLs; K6 (row sort) on
    random, tied and float keys, bit for bit; the backwards of K1, K2, K3
    and K5 against torch's autograd of the plain version on the CPU;
 4. timing, with CUDA events, beside each kernel's bound, its plain
-   version and one library call: K1 at the 4096×4096-grid SpMV and the
-   1024² float64 solve size; K2 at the 2048×1024 grid with 128 RHS
-   (float32) and at 1024² float64 with 24, 48 and 256 RHS; K3 at
-   n = 4096, k = 512, bs = 128, block densities 0.125/0.25/0.5 (bfloat16)
-   and at n = 16384 (bfloat16, float32); K4 at the first of those; K5
+   version and one library call (K2, K3 and K4 also with the profiler's
+   device time per launch, ``device_ms``): K1 at the 4096×4096-grid SpMV
+   and the 1024² float64 solve size; K2 at the 2048×1024 grid with 128
+   RHS (float32) and at 1024² float64 with 24, 48 and 256 RHS (vector
+   variant) and 3 RHS (scalar variant); K3 at n = 4096, k = 512,
+   bs = 128, block densities 0.125/0.25/0.5 (bfloat16, tensor cores) and
+   in float32 (CUDA cores), and at n = 16384 (bfloat16, float32); K4 at
+   the first of those; K5
    at "random8" (n = 2,097,152, 8 uniform slots per row, float32) and
    the 1024² mesh step (float64); K6 at 43,750 × 128;
 5. main paths, each with the launch counts set to 0 just before and read
@@ -34,11 +43,13 @@ and prints no result):
    b. the block solvers through ``prepare_spmm`` and K2: heat diffusion
       from 256 point sources, ``expm_multiply`` on the 1024² grid
       Laplacian (float64), held against the same call over the plain
-      version; LOBPCG at 1024² for a fixed 50 iterations (2·50+2
+      version (K2's vector variant), and the same from 3 sources (its
+      scalar variant); LOBPCG at 1024² for a fixed 50 iterations (2·50+2
       launches), with a profiler window; the plain versions' call counts
       stay at 0;
-   c. block-sparse products ``BsrMat @ X`` (K3) and the grouped product
-      (K4) at n = 4096, k = 512, bs = 128, bfloat16;
+   c. block-sparse products ``BsrMat @ X`` (K3's tensor-core variant)
+      and the grouped product (K4) at n = 4096, k = 512, bs = 128,
+      bfloat16, and ``BsrMat @ X`` in float32 (K3's CUDA-core variant);
    d. the unstructured path: an implicit heat step I + 10·L on a 1024²
       vertex triangle mesh with permuted labels, assembled on the card
       (``tri_mesh_graph_laplacian``, ``eye``, ``+``, ``*``) and held
@@ -79,6 +90,8 @@ from sprs_tpu_torch.interop import from_arrays
 from sprs_tpu_torch.linalg import bicgstab, cg, expm_multiply, lobpcg, svds
 from sprs_tpu_torch.ops import prepare_spmm, prepare_spmv
 from sprs_tpu_torch.ops.cuda import build
+from sprs_tpu_torch.ops.cuda import bsr_spmm as k3
+from sprs_tpu_torch.ops.cuda import dia_spmm as k2
 from sprs_tpu_torch.ops.cuda.bsr_spmm import (
     bsr_group,
     bsr_spmm_grouped_kernel,
@@ -121,6 +134,8 @@ SPMM_GRID = (2048, 1024)  # the JAX package's measured K2 shape (2M rows)
 SPMM_WIDTHS = (1, 4, 8, 12, 24, 48, 130, 256)
 BAND_OFFSETS = (-70, -3, -1, 0, 2, 65)
 EXPM_SOURCES = 256
+# a heat diffusion from 3 sources: rows of 24 bytes, K2's scalar variant
+EXPM_FEW_SOURCES = 3
 LOBPCG_M = 8
 LOBPCG_FIXED_ITERS = 50
 EIG_SIDE = 128
@@ -132,6 +147,8 @@ BSR_N, BSR_K, BSR_BS = 4096, 512, 128
 BSR_DENSITIES = (0.125, 0.25, 0.5)
 BSR_BIG_N = 16384
 BSR_GROUP = 8
+# the tensor-core variant's gates: both block sizes it takes
+TC_BLOCK_SIZES = (64, 128)
 # The unstructured path: a 1024² vertex mesh, labels permuted, step
 # I + τL with τ = 10 (scipy's CG took 85 iterations to 1e-8 at this size).
 MESH_SIDE = 1024
@@ -242,24 +259,58 @@ def gate_spmv(name, dia, x):
     return check_rel(name, err, float(ref.abs().max()), GATE_LIMIT[dia.dtype])
 
 
+# the largest gate error of each kernel variant, by its name in the
+# kernels line
+GATE_ERRS = {}
+
+
 def gate_spmm(name, dia, x):
+    """K2 against its plain version; the variant the wrapper's rule picks
+    for this X must be the one that launched."""
+    kind = k2.variant(x.shape[1], x.element_size(), x.data_ptr())
+    before = getattr(dia_spmm_kernel, f"launches_{kind}")
     y = dia_spmm_kernel(dia, x)
     ref = dia_spmm_plain(dia, x)
     sync()
+    if getattr(dia_spmm_kernel, f"launches_{kind}") != before + 1:
+        raise AssertionError(f"gate {name}: the {kind} variant did not launch")
     if y.shape != (dia.rows, x.shape[1]) or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"gate {name}: bad output {tuple(y.shape)}")
     err = float((y - ref).abs().max())
-    return check_rel(name, err, float(ref.abs().max()), GATE_LIMIT[dia.dtype])
+    err = check_rel(f"{name} ({kind})", err, float(ref.abs().max()), GATE_LIMIT[dia.dtype])
+    GATE_ERRS.setdefault(f"dia_spmm_{kind}", []).append(err)
+    return err
 
 
-def gate_bsr(name, fn, bsr, x):
+def misaligned_copy(x):
+    """A contiguous copy of X that starts one element past a 16-byte
+    boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def gate_bsr(name, fn, bsr, x, counter=bsr_spmm_kernel, expect=None):
+    """K3 (or K4, ``counter`` = its wrapper) against the plain version;
+    the variant the wrapper's rule picks must be the one that launched,
+    and ``expect`` when given."""
+    kind = k3.variant(x.dtype, bsr.block_size, x.shape[1], x.data_ptr(), bsr.blocks.data_ptr())
+    if expect is not None and kind != expect:
+        raise AssertionError(f"gate {name}: the rule picks {kind}, expected {expect}")
+    before = getattr(counter, f"launches_{kind}")
     y = fn(bsr, x)
     ref = bsr_spmm_plain(bsr, x)
     sync()
+    if getattr(counter, f"launches_{kind}") != before + 1:
+        raise AssertionError(f"gate {name}: the {kind} variant did not launch")
     if y.shape != (bsr.rows, x.shape[1]) or y.dtype != x.dtype or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"gate {name}: bad output {tuple(y.shape)} {y.dtype}")
     err = float((y.float() - ref.float()).abs().max())
-    return check_rel(name, err, float(ref.float().abs().max()), BSR_GATE_LIMIT[x.dtype])
+    err = check_rel(f"{name} ({kind})", err, float(ref.float().abs().max()), BSR_GATE_LIMIT[x.dtype])
+    key = "bsr_spmm_grouped" if counter is bsr_spmm_grouped_kernel else f"bsr_spmm_{kind}"
+    GATE_ERRS.setdefault(key, []).append(err)
+    return err
 
 
 def gate_grads():
@@ -284,6 +335,7 @@ def gate_grads():
         if not err <= 1e-12:
             raise AssertionError(f"gate grad {label}: {err}")
         errs[label] = err
+    GATE_ERRS["dia_spmm_vector"].append(errs["K2"])
 
     bsr = bsr_random(11, (300, 260), 8, 0.3, torch.float32, device=DEVICE)
     x = rhs_block(260, 20, torch.float32, 12)
@@ -301,6 +353,7 @@ def gate_grads():
                   float(b.abs().max()), 1e-5)
         for label, a, b in (("dblocks", db, db_c), ("dX", dx, dx_c))
     )
+    GATE_ERRS["bsr_spmm_cuda_core"].append(errs["K3"])
     return errs
 
 
@@ -315,8 +368,35 @@ def odd_block_dense(dtype):
     return torch.from_numpy(dense[:45, :37]).to(dtype)
 
 
+def gate_tc(bs):
+    """K3's tensor-core variant at block size ``bs`` (bfloat16): a
+    1000×900 shape with a partial last block row and X rows past
+    ``cols``, at k = 200 (a partial 128-column tile) and k = 70 (rows
+    of X not whole 16 bytes: the rule sends it to the CUDA-core
+    variant); a slice with its blocks shuffled out of row order; block
+    row 1 left with no block; the K4 repack."""
+    bf = torch.bfloat16
+    big = bsr_random(25, (1000, 900), bs, 0.3, bf, device=DEVICE)
+    for k in (200, 70):
+        gate_bsr(f"K3 bs{bs} 1000x900 k={k} bfloat16", bsr_spmm_kernel, big,
+                 rhs_block(900, k, bf, 26 + k), expect="tc" if k % 8 == 0 else "cuda_core")
+    x = rhs_block(900, 200, bf, 27)
+    sliced = big.slice_block_rows(bs, 1000)
+    perm = torch.from_numpy(np.random.default_rng(28).permutation(sliced.cap)).to(DEVICE)
+    unsorted = BsrMat(sliced.brows[perm], sliced.bcols[perm], sliced.blocks[perm],
+                      sliced.shape, sliced.n_blocks)
+    gate_bsr(f"K3 bs{bs} sliced+unsorted bfloat16", bsr_spmm_kernel, unsorted, x, expect="tc")
+    keep = torch.nonzero(big.brows[: big.n_blocks] != 1)[:, 0]
+    holed = BsrMat(big.brows[keep], big.bcols[keep], big.blocks[keep], big.shape, int(keep.numel()))
+    if int(holed.row_order[0][2] - holed.row_order[0][1]) != 0:
+        raise AssertionError("gate: block row 1 still holds a block")
+    gate_bsr(f"K3 bs{bs} empty block row bfloat16", bsr_spmm_kernel, holed, x, expect="tc")
+    gate_bsr(f"K4 bs{bs} group 4 bfloat16", lambda b, v: bsr_spmm_grouped_kernel(b, v, 4),
+             bsr_group(big, 4), x, counter=bsr_spmm_grouped_kernel, expect="tc")
+
+
 def phase_gate(lap_spmv):
-    k1_errs, k2_errs, k3_errs, k4_errs = [], [], [], []
+    k1_errs = []
     for dtype in (np.float32, np.float64):
         tdt = torch.float32 if dtype == np.float32 else torch.float64
         lap = grid_laplacian((64, 64), tdt, device=DEVICE)
@@ -337,7 +417,8 @@ def phase_gate(lap_spmv):
         ):
             for k in SPMM_WIDTHS:
                 x = rhs_block(dia.cols, k, tdt, k)
-                k2_errs.append(gate_spmm(f"K2 {label} k={k} {tdt}", dia, x))
+                gate_spmm(f"K2 {label} k={k} {tdt}", dia, x)
+                gate_spmm(f"K2 {label} k={k} {tdt} misaligned X", dia, misaligned_copy(x))
     for mat, label in (
         (grid_laplacian((SOLVE_SIDE,) * 2, device=DEVICE), "grid"),
         (dirichlet_laplacian((SOLVE_SIDE,) * 2, device=DEVICE), "dirichlet"),
@@ -354,24 +435,23 @@ def phase_gate(lap_spmv):
         unsorted = BsrMat(sliced.brows[perm], sliced.bcols[perm], sliced.blocks[perm],
                           sliced.shape, sliced.n_blocks)
         x = rhs_block(37, 70, tdt, 22)
-        k3_errs.append(gate_bsr(f"K3 bs8 45x37 padded {tdt}", bsr_spmm_kernel, bsr, x))
-        k3_errs.append(gate_bsr(f"K3 bs8 sliced+unsorted {tdt}", bsr_spmm_kernel, unsorted, x))
-        k3_errs.append(gate_bsr(f"K3 bs8 spmv {tdt}", bsr_spmm_kernel, bsr, x[:, :1].contiguous()))
-        k4_errs.append(gate_bsr(f"K4 bs8 group 4 {tdt}", lambda b, v: bsr_spmm_grouped_kernel(b, v, 4),
-                                bsr_group(bsr, 4), x))
-        # bs 128 at an odd size
+        gate_bsr(f"K3 bs8 45x37 padded {tdt}", bsr_spmm_kernel, bsr, x)
+        gate_bsr(f"K3 bs8 sliced+unsorted {tdt}", bsr_spmm_kernel, unsorted, x)
+        gate_bsr(f"K3 bs8 spmv {tdt}", bsr_spmm_kernel, bsr, x[:, :1].contiguous())
+        gate_bsr(f"K4 bs8 group 4 {tdt}", lambda b, v: bsr_spmm_grouped_kernel(b, v, 4),
+                 bsr_group(bsr, 4), x, counter=bsr_spmm_grouped_kernel)
+        # bs 128 at an odd size (bfloat16: the tensor-core variant)
         big = bsr_random(23, (1000, 900), 128, 0.3, tdt, device=DEVICE)
         xb = rhs_block(900, 200, tdt, 24)
-        k3_errs.append(gate_bsr(f"K3 bs128 1000x900 {tdt}", bsr_spmm_kernel, big, xb))
-        k4_errs.append(gate_bsr(f"K4 bs128 group 4 {tdt}", lambda b, v: bsr_spmm_grouped_kernel(b, v, 4),
-                                bsr_group(big, 4), xb))
+        gate_bsr(f"K3 bs128 1000x900 {tdt}", bsr_spmm_kernel, big, xb)
+        gate_bsr(f"K4 bs128 group 4 {tdt}", lambda b, v: bsr_spmm_grouped_kernel(b, v, 4),
+                 bsr_group(big, 4), xb, counter=bsr_spmm_grouped_kernel)
+    for bs in TC_BLOCK_SIZES:
+        gate_tc(bs)
     grad = gate_grads()
-    return {
-        "dia_spmv": max(k1_errs + [spmv_err, grad["K1"]]),
-        "dia_spmm": max(k2_errs + [grad["K2"]]),
-        "bsr_spmm": max(k3_errs + [grad["K3"]]),
-        "bsr_spmm_grouped": max(k4_errs),
-    }
+    errs = {name: max(v) for name, v in GATE_ERRS.items()}
+    errs["dia_spmv"] = max(k1_errs + [spmv_err, grad["K1"]])
+    return errs
 
 
 # ---------------------------------------------------------------------------
@@ -391,6 +471,28 @@ def time_ms(fn, reps):
     end.record()
     sync()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, key, reps):
+    """The profiler's device time per launch of the kernels whose name
+    holds ``key`` over ``reps`` calls of ``fn`` (the time of the kernel
+    alone, without the wrapper's host cost that back-to-back calls may
+    expose in ``time_ms``).  The average is over the launches the trace
+    recorded, which may miss one of a run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key]
+    launches = sum(e.count for e in events)
+    if not 0 < launches <= reps:
+        raise AssertionError(f"device_ms: {launches} launches of {key!r} for {reps} calls")
+    return sum(e.self_device_time_total for e in events) / 1e3 / launches
 
 
 def bound(nbytes, flops, peak):
@@ -433,6 +535,7 @@ def timing_spmv(label, mat, dia, x, reps):
 
 def timing_spmm(label, mat, dia, x, reps):
     ms = time_ms(lambda: dia_spmm_kernel(dia, x), reps)
+    dev_ms = device_ms(lambda: dia_spmm_kernel(dia, x), "dia_spmm_kernel", reps)
     plain_ms = time_ms(lambda: dia_spmm_plain(dia, x), max(reps // 5, 3))
     csr = csr_twin(mat)
     lib_err = float((torch.sparse.mm(csr, x) - dia_spmm_kernel(dia, x)).abs().max())
@@ -440,8 +543,10 @@ def timing_spmm(label, mat, dia, x, reps):
     k = x.shape[1]
     nbytes = (dia.data.numel() + x.numel() + dia.rows * k) * dia.data.element_size()
     flops = 2 * dia.n_diags * dia.rows * k
+    kind = k2.variant(k, x.element_size(), x.data_ptr())
     return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, PEAK_FLOPS[dia.dtype],
-                      kernel="dia_spmm", library="torch.sparse.mm (CSR)", library_max_abs_err=lib_err)
+                      kernel=f"dia_spmm_{kind}", device_ms=dev_ms,
+                      library="torch.sparse.mm (CSR)", library_max_abs_err=lib_err)
 
 
 def torch_bsr_twin(bsr):
@@ -456,7 +561,10 @@ def timing_bsr(label, name, fn, bsr, x, reps, product=None):
     """``product``: the matrix whose product ``fn`` computes, where
     ``bsr`` is a repack of it with zero padding blocks; the bound counts
     the product's blocks, not the padding."""
+    kind = k3.variant(x.dtype, bsr.block_size, x.shape[1], x.data_ptr(), bsr.blocks.data_ptr())
     ms = time_ms(lambda: fn(bsr, x), reps)
+    key = "bsr_spmm_tc_kernel" if kind == "tc" else "bsr_spmm_kernel<"
+    dev_ms = device_ms(lambda: fn(bsr, x), key, reps)
     plain_ms = time_ms(lambda: bsr_spmm_plain(bsr, x), max(reps // 5, 3))
     dense = bsr.to_dense()
     library_ms = time_ms(lambda: torch.matmul(dense, x), reps)
@@ -476,7 +584,7 @@ def timing_bsr(label, name, fn, bsr, x, reps, product=None):
     nbytes = (n_blocks * bs * bs + bsr.cols * k + bsr.rows * k) * size
     flops = 2 * n_blocks * bs * bs * k
     return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, BSR_PEAK_FLOPS[x.dtype],
-                      kernel=name, library="torch.matmul (dense A)",
+                      kernel=name, variant=kind, device_ms=dev_ms, library="torch.matmul (dense A)",
                       torch_bsr_ms=lib_bsr_ms, torch_bsr_max_abs_err=lib_bsr_err,
                       torch_bsr_error=lib_bsr, n_blocks=bsr.n_blocks,
                       block_density=bsr.block_density)
@@ -492,7 +600,7 @@ def phase_timing(lap_spmv, spmv_operand):
 
     lap2 = grid_laplacian(SPMM_GRID, torch.float32, device=DEVICE)
     dia2 = dia_tile(lap2.to_dia())
-    rows["dia_spmm"] = timing_spmm(
+    rows["dia_spmm_vector"] = timing_spmm(
         f"{SPMM_GRID[0]}x{SPMM_GRID[1]} grid float32 k=128", lap2, dia2,
         rhs_block(dia2.cols, 128, torch.float32, 30), reps=20,
     )
@@ -501,26 +609,35 @@ def phase_timing(lap_spmv, spmv_operand):
     for k in (24, 48, 256):
         timing_spmm(f"{SOLVE_SIDE}^2 grid float64 k={k}", lap_solve, dia_solve,
                     rhs_block(dia_solve.cols, k, torch.float64, 31 + k), reps=20)
+    rows["dia_spmm_scalar"] = timing_spmm(
+        f"{SOLVE_SIDE}^2 grid float64 k={EXPM_FEW_SOURCES}", lap_solve, dia_solve,
+        rhs_block(dia_solve.cols, EXPM_FEW_SOURCES, torch.float64, 34), reps=50,
+    )
 
     for density in BSR_DENSITIES:
         bsr = bsr_random(40, (BSR_N, BSR_N), BSR_BS, density, torch.bfloat16, device=DEVICE)
         x = rhs_block(BSR_N, BSR_K, torch.bfloat16, 41)
         row = timing_bsr(f"n={BSR_N} k={BSR_K} bs={BSR_BS} density {density} bfloat16",
-                         "bsr_spmm", bsr_spmm_kernel, bsr, x, reps=20)
+                         "bsr_spmm", bsr_spmm_kernel, bsr, x, reps=50)
         if density == BSR_DENSITIES[0]:
-            rows["bsr_spmm"] = row
+            rows["bsr_spmm_tc"] = row
             grouped = bsr_group(bsr, BSR_GROUP)
             rows["bsr_spmm_grouped"] = timing_bsr(
                 f"n={BSR_N} k={BSR_K} bs={BSR_BS} density {density} bfloat16 group {BSR_GROUP}",
                 "bsr_spmm_grouped",
-                lambda b, v: bsr_spmm_grouped_kernel(b, v, BSR_GROUP), grouped, x, reps=20,
+                lambda b, v: bsr_spmm_grouped_kernel(b, v, BSR_GROUP), grouped, x, reps=50,
                 product=bsr,
             )
+    bsr = bsr_random(40, (BSR_N, BSR_N), BSR_BS, BSR_DENSITIES[0], torch.float32, device=DEVICE)
+    rows["bsr_spmm_cuda_core"] = timing_bsr(
+        f"n={BSR_N} k={BSR_K} bs={BSR_BS} density {BSR_DENSITIES[0]} float32", "bsr_spmm",
+        bsr_spmm_kernel, bsr, rhs_block(BSR_N, BSR_K, torch.float32, 41), reps=20,
+    )
     for tdt in (torch.bfloat16, torch.float32):
         bsr = bsr_random(42, (BSR_BIG_N, BSR_BIG_N), BSR_BS, BSR_DENSITIES[0], tdt, device=DEVICE)
         x = rhs_block(BSR_BIG_N, BSR_K, tdt, 43)
         timing_bsr(f"n={BSR_BIG_N} k={BSR_K} bs={BSR_BS} density {BSR_DENSITIES[0]} {tdt}",
-                   "bsr_spmm", bsr_spmm_kernel, bsr, x, reps=5)
+                   "bsr_spmm", bsr_spmm_kernel, bsr, x, reps=5 if tdt == torch.float32 else 20)
     return rows
 
 
@@ -653,13 +770,46 @@ def reset_counts():
     for fn in (dia_spmv_kernel, dia_spmm_kernel, bsr_spmm_kernel, bsr_spmm_grouped_kernel,
                ell_spmv_kernel, sort_rows_kernel):
         fn.launches = 0
+    dia_spmm_kernel.launches_vector = dia_spmm_kernel.launches_scalar = 0
+    for fn in (bsr_spmm_kernel, bsr_spmm_grouped_kernel):
+        fn.launches_tc = fn.launches_cuda_core = 0
     for fn in (dia_spmm_plain, bsr_spmm_plain, ell_spmv_plain, sort_rows_plain):
         fn.calls = 0
 
 
+def check_expm(label, lap, B, y, launches):
+    """``y`` = expm_multiply(lap, B, t=-1) against the same call over the
+    plain version on the card.  The callable computes 2A·v with t/2:
+    expm_multiply's fixed budget for a callable (‖A‖₁ = 16) then gives
+    the CsMat path's substeps (norm(1) = 8), and the arithmetic is the
+    same term for term, since scaling by 2 is exact.  So its call count
+    is the SpMM count that K2's launches must equal."""
+    ref_dia = lap.to_dia()
+    ref_calls = [0]
+
+    def ref_op(v):
+        ref_calls[0] += 1
+        return 2.0 * dia_spmm_plain(ref_dia, v)
+
+    ref = expm_multiply(ref_op, B, t=-0.5)
+    sync()
+    if y.shape != B.shape or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"expm {label}: bad output")
+    rel = float((y - ref).abs().max()) / float(ref.abs().max())
+    log(f"expm {label} vs plain reference: rel {rel!r} (limit 1e-10), reference SpMMs {ref_calls[0]}")
+    if not rel <= 1e-10:
+        raise AssertionError(f"expm {label}: rel {rel} > 1e-10")
+    if launches != ref_calls[0] or launches == 0:
+        raise AssertionError(f"expm {label}: K2 launched {launches} times for {ref_calls[0]} SpMMs")
+    # heat from unit sources: mass stays in [0, 1] per column
+    col_sums = y.sum(0)
+    if not bool(((col_sums > 0) & (col_sums <= 1.0 + 1e-9)).all()):
+        raise AssertionError(f"expm {label}: column sums outside (0, 1]")
+
+
 def phase_main_block():
     """The block solvers through prepare_spmm and K2 (see the module
-    note).  Returns K2's launches over this path."""
+    note).  Returns the launches of K2's two variants over this path."""
     side = SOLVE_SIDE
     n = side * side
     lap = grid_laplacian((side, side), device=DEVICE)
@@ -669,6 +819,7 @@ def phase_main_block():
     src = np.random.default_rng(50).choice(n, EXPM_SOURCES, replace=False)
     B = torch.zeros((n, EXPM_SOURCES), dtype=torch.float64, device=DEVICE)
     B[torch.from_numpy(src).to(DEVICE), torch.arange(EXPM_SOURCES, device=DEVICE)] = 1.0
+    B_few = B[:, :EXPM_FEW_SOURCES].contiguous()
     spd = dirichlet_laplacian((side, side), device=DEVICE)
     x0 = rhs_block(n, LOBPCG_M, torch.float64, 51)
     for label, mat in (("grid", lap), ("dirichlet", spd)):
@@ -688,8 +839,15 @@ def phase_main_block():
     sync()
     wall_l = time.perf_counter() - t0
     launches = dia_spmm_kernel.launches
-    plain_calls = dia_spmm_plain.calls
     lobpcg_launches = launches - expm_launches
+    t0 = time.perf_counter()
+    y_few = expm_multiply(lap, B_few, t=-1.0)
+    sync()
+    wall_f = time.perf_counter() - t0
+    few_launches = dia_spmm_kernel.launches - launches
+    plain_calls = dia_spmm_plain.calls
+    variants = {"dia_spmm_vector": dia_spmm_kernel.launches_vector,
+                "dia_spmm_scalar": dia_spmm_kernel.launches_scalar}
     log(
         f"expm_multiply {side}^2 grid float64, {EXPM_SOURCES} sources, t=-1: wall {wall_e!r} s "
         f"(prepare_spmm included), K2 launches {expm_launches}"
@@ -699,40 +857,22 @@ def phase_main_block():
         f"{wall_l!r} s (prepare_spmm included), {wall_l / max(res.iterations, 1) * 1e3!r} ms per "
         f"iteration, K2 launches {lobpcg_launches} (expected {2 * LOBPCG_FIXED_ITERS + 2})"
     )
+    log(
+        f"expm_multiply {side}^2 grid float64, {EXPM_FEW_SOURCES} sources, t=-1: wall {wall_f!r} s, "
+        f"K2 launches {few_launches}; K2 launches by variant {variants}"
+    )
     if plain_calls != 0:
         raise AssertionError(f"the plain dia_spmm ran {plain_calls} times on the main path")
+    if variants != {"dia_spmm_vector": launches, "dia_spmm_scalar": few_launches}:
+        raise AssertionError(f"K2 variants: {variants}, expected {launches} vector and "
+                             f"{few_launches} scalar launches")
     if res.iterations != LOBPCG_FIXED_ITERS or lobpcg_launches != 2 * LOBPCG_FIXED_ITERS + 2:
         raise AssertionError(f"lobpcg: {res.iterations} iterations, {lobpcg_launches} K2 launches")
     if not bool(torch.isfinite(res.eigenvalues).all()) or res.eigenvectors.shape != (n, LOBPCG_M):
         raise AssertionError("lobpcg: bad result")
 
-    # The reference: the same call over the plain version on the card.
-    # The callable computes 2A·v with t/2: expm_multiply's fixed budget
-    # for a callable (‖A‖₁ = 16) then gives the CsMat path's substeps
-    # (norm(1) = 8), and the arithmetic is the same term for term, since
-    # scaling by 2 is exact.  So its call count is the SpMM count that
-    # K2's launches must equal.
-    ref_dia = lap.to_dia()
-    ref_calls = [0]
-
-    def ref_op(v):
-        ref_calls[0] += 1
-        return 2.0 * dia_spmm_plain(ref_dia, v)
-
-    ref = expm_multiply(ref_op, B, t=-0.5)
-    sync()
-    if y.shape != B.shape or not bool(torch.isfinite(y).all()):
-        raise AssertionError("expm: bad output")
-    rel = float((y - ref).abs().max()) / float(ref.abs().max())
-    log(f"expm vs plain reference: rel {rel!r} (limit 1e-10), reference SpMMs {ref_calls[0]}")
-    if not rel <= 1e-10:
-        raise AssertionError(f"expm: rel {rel} > 1e-10")
-    if expm_launches != ref_calls[0] or expm_launches == 0:
-        raise AssertionError(f"expm: K2 launched {expm_launches} times for {ref_calls[0]} SpMMs")
-    # heat from unit sources: mass stays in [0, 1] per column
-    col_sums = y.sum(0)
-    if not bool(((col_sums > 0) & (col_sums <= 1.0 + 1e-9)).all()):
-        raise AssertionError("expm: column sums outside (0, 1]")
+    check_expm(f"{EXPM_SOURCES} sources", lap, B, y, expm_launches)
+    check_expm(f"{EXPM_FEW_SOURCES} sources", lap, B_few, y_few, few_launches)
 
     fn, prepared = prepare_spmm(spd)
     profile_window(
@@ -740,34 +880,48 @@ def phase_main_block():
         lambda: lobpcg(lambda v: fn(prepared, v), x0, tol=0.0, max_iter=LOBPCG_FIXED_ITERS),
         "dia_spmm",
     )
-    return launches
+    return variants
 
 
 def phase_main_bsr():
     """Block-sparse products at the JAX bench's shape: ``BsrMat @ X``
-    (K3) and the grouped product (K4), four of each."""
+    (K3, tensor cores) and the grouped product (K4), four of each, in
+    bfloat16; then ``BsrMat @ X`` in float32 (K3 on the CUDA cores), two."""
     bsr = bsr_random(60, (BSR_N, BSR_N), BSR_BS, BSR_DENSITIES[0], torch.bfloat16, device=DEVICE)
     grouped = bsr_group(bsr, BSR_GROUP)
     x = rhs_block(BSR_N, BSR_K, torch.bfloat16, 61)
     want = bsr.to_dense().float() @ x.float()
+    bsr32 = bsr_random(62, (BSR_N, BSR_N), BSR_BS, BSR_DENSITIES[0], torch.float32, device=DEVICE)
+    x32 = rhs_block(BSR_N, BSR_K, torch.float32, 63)
+    want32 = bsr32.to_dense() @ x32
     sync()
     reset_counts()
     t0 = time.perf_counter()
     ys = [bsr @ x for _ in range(4)]
     ys += [bsr_spmm_grouped_kernel(grouped, x, group=BSR_GROUP) for _ in range(4)]
+    ys32 = [bsr32 @ x32 for _ in range(2)]
     sync()
     wall = time.perf_counter() - t0
-    launches = {"bsr_spmm": bsr_spmm_kernel.launches, "bsr_spmm_grouped": bsr_spmm_grouped_kernel.launches}
-    log(f"bsr main path n={BSR_N} k={BSR_K} bs={BSR_BS} bfloat16: wall {wall!r} s, launches {launches}")
-    if launches != {"bsr_spmm": 4, "bsr_spmm_grouped": 4} or bsr_spmm_plain.calls != 0:
-        raise AssertionError(f"bsr: launches {launches}, plain calls {bsr_spmm_plain.calls}")
-    scale = float(want.abs().max())
-    for y in ys:
-        if y.dtype != torch.bfloat16 or y.shape != want.shape:
+    launches = {
+        "bsr_spmm_tc": bsr_spmm_kernel.launches_tc,
+        "bsr_spmm_cuda_core": bsr_spmm_kernel.launches_cuda_core,
+        "bsr_spmm_grouped": bsr_spmm_grouped_kernel.launches_tc,
+    }
+    others = bsr_spmm_grouped_kernel.launches_cuda_core + bsr_spmm_plain.calls
+    log(f"bsr main path n={BSR_N} k={BSR_K} bs={BSR_BS} bfloat16 and float32: wall {wall!r} s, "
+        f"launches {launches}, K4 on the CUDA cores and plain calls {others}")
+    expected = {"bsr_spmm_tc": 4, "bsr_spmm_cuda_core": 2, "bsr_spmm_grouped": 4}
+    if launches != expected or others != 0:
+        raise AssertionError(f"bsr: launches {launches}, expected {expected}; others {others}")
+    for y, ref, dtype, limit in [(y, want, torch.bfloat16, 2.0**-7) for y in ys] + [
+        (y, want32, torch.float32, 1e-5) for y in ys32
+    ]:
+        if y.dtype != dtype or y.shape != ref.shape:
             raise AssertionError("bsr: bad output")
-        err = float((y.float() - want).abs().max())
-        if not err <= 2.0**-7 * scale:
-            raise AssertionError(f"bsr: {err} against the dense product (limit {2.0**-7 * scale})")
+        err = float((y.float() - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not err <= limit * scale:
+            raise AssertionError(f"bsr {dtype}: {err} against the dense product (limit {limit * scale})")
     return launches
 
 
@@ -1113,10 +1267,13 @@ def check_small_mesh():
         raise AssertionError(f"small cg mesh: route {route}, rel err {rel}, launches {launches}")
 
 
+# name in the kernels line -> (source, TPU kernel it replaces)
 KERNELS = {
     "dia_spmv": ("sprs_tpu_torch/csrc/dia_spmv.cu", "sprs_tpu/ops/pallas/dia_spmv.py:232"),
-    "dia_spmm": ("sprs_tpu_torch/csrc/dia_spmm.cu", "sprs_tpu/ops/pallas/dia_spmm.py:93"),
-    "bsr_spmm": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:69"),
+    "dia_spmm_vector": ("sprs_tpu_torch/csrc/dia_spmm.cu", "sprs_tpu/ops/pallas/dia_spmm.py:93"),
+    "dia_spmm_scalar": ("sprs_tpu_torch/csrc/dia_spmm.cu", "sprs_tpu/ops/pallas/dia_spmm.py:93"),
+    "bsr_spmm_tc": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:69"),
+    "bsr_spmm_cuda_core": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:69"),
     "bsr_spmm_grouped": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:258"),
     "ell_spmv": ("sprs_tpu_torch/csrc/ell_spmv.cu", "sprs_tpu/ops/pallas/spmv.py:72"),
     "sort_rows": ("sprs_tpu_torch/csrc/sort_rows.cu", "sprs_tpu/ops/pallas/sort.py:97"),
@@ -1152,7 +1309,7 @@ def main() -> int:
     launches["dia_spmv"], lap, rhs = phase_main_spmv()
     phase_profile_bicgstab(lap, rhs)
     del lap, rhs
-    launches["dia_spmm"] = phase_main_block()
+    launches.update(phase_main_block())
     launches.update(phase_main_bsr())
     launches["ell_spmv"] = phase_main_mesh()
     launches["sort_rows"] = phase_main_sort()
@@ -1176,6 +1333,7 @@ def main() -> int:
             "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
+            "device_ms": row.get("device_ms"),
             "ok": True,
             "shape": row["shape"],
             "card": smi,

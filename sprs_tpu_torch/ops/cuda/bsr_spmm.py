@@ -16,11 +16,18 @@ about it.  This module holds what surrounds it:
   plain torch form of the JAX package's ``_spmm_bwd``.
 
 The plain version is ``formats/bsr.py::bsr_spmm_plain``.  Each wrapper
-takes it for tensors on the CPU; tensors on a CUDA device launch the
-kernel or raise — never both.  The kernel reads the block-row pointer
-that :attr:`BsrMat.row_order` builds once per matrix, so it takes the
-blocks in any order.  The launch configuration is computed here in
-Python (:func:`launch_config`) so the CPU tests reach it.
+takes it for tensors on the CPU; tensors on a CUDA device launch a
+kernel or raise — never both.  The source has two kernels, and
+:func:`variant` picks one by an explicit rule: the tensor-core kernel
+("tc": bfloat16, block size 64 or 128, k a multiple of 8, X and the
+blocks 16-byte aligned, as TMA needs) or the CUDA-core kernel
+("cuda_core": everything else, float32 and float64 among it).  Each
+wrapper's ``launches`` counts its launches, and ``launches_tc`` and
+``launches_cuda_core`` those of each variant.  The kernels read the
+block-row pointer that :attr:`BsrMat.row_order` builds once per matrix,
+so they take the blocks in any order.  The launch configuration is
+computed here in Python (:func:`launch_config`) so the CPU tests reach
+it.
 """
 
 from __future__ import annotations
@@ -41,25 +48,51 @@ THREADS = 256
 TILE_N = 64  # output columns per CTA (csrc/bsr_spmm.cu: kTileN)
 DEPTH = 8  # depth of one staged slice: bs must be a multiple of it
 MAX_BLOCK = 128
+TC_TILE_N = 128  # output columns per CTA of the tensor-core kernel
+TC_BLOCK_SIZES = (64, 128)  # one or two 64-row wgmma tiles
 
 _ENTRY = {
     torch.float32: "sprs_bsr_spmm_f32",
     torch.bfloat16: "sprs_bsr_spmm_bf16",
     torch.float64: "sprs_bsr_spmm_f64",
 }
+_TC_ENTRY = "sprs_bsr_spmm_tc_bf16"
 
 
-def launch_config(n_block_rows: int, k: int) -> Tuple[Tuple[int, int], int]:
-    """((grid_x, grid_y), block): one CTA per (block row, 64-column tile
-    of X)."""
+def variant(dtype: torch.dtype, bs: int, k: int, x_ptr: int, blocks_ptr: int) -> str:
+    """"tc" (the tensor-core kernel) for bfloat16 at block size 64 or 128
+    when TMA can read X and the blocks: rows of X of whole 16 bytes (k a
+    multiple of 8) and both starting on 16-byte boundaries; else
+    "cuda_core"."""
+    if (
+        dtype == torch.bfloat16
+        and bs in TC_BLOCK_SIZES
+        and k % 8 == 0
+        and x_ptr % 16 == 0
+        and blocks_ptr % 16 == 0
+    ):
+        return "tc"
+    return "cuda_core"
+
+
+def launch_config(n_block_rows: int, k: int, kind: str, bs: int) -> Tuple[Tuple[int, int], int]:
+    """((grid_x, grid_y), block): one CTA per (block row, column tile of
+    X): 64 columns and 256 threads on the CUDA cores; 128 columns and
+    bs / 64 consumer warpgroups plus one producer warp on the tensor
+    cores."""
+    if kind == "tc":
+        return (max(n_block_rows, 1), max(-(-k // TC_TILE_N), 1)), 128 * (bs // 64) + 32
     return (max(n_block_rows, 1), max(-(-k // TILE_N), 1)), THREADS
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    fn = getattr(build.load("bsr_spmm"), _ENTRY[dtype])
+def _entry(name: str):
+    fn = getattr(build.load("bsr_spmm"), name)
     ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, i, vp]
+    if name == _TC_ENTRY:
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, i, ll, i, i, vp]
+    else:
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, i, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -92,8 +125,9 @@ def _launch(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, counter) -> torc
     if bsr.rows == 0 or k == 0:
         return y
     row_ptr, order = bsr.row_order
-    (gx, gy), block = launch_config(bsr.n_block_rows, k)
-    err = _entry(x.dtype)(
+    kind = variant(x.dtype, bs, k, x.data_ptr(), blocks.data_ptr())
+    (gx, gy), _ = launch_config(bsr.n_block_rows, k, kind, bs)
+    args = [
         blocks.data_ptr(),
         bsr.bcols.data_ptr(),
         row_ptr.data_ptr(),
@@ -104,13 +138,18 @@ def _launch(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, counter) -> torc
         bsr.cols,
         k,
         bs,
-        gx,
-        gy,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    ]
+    if kind == "tc":
+        err = _entry(_TC_ENTRY)(*args, bsr.cap, gx, gy, torch.cuda.current_stream(x.device).cuda_stream)
+    else:
+        err = _entry(_ENTRY[x.dtype])(*args, gx, gy, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"bsr_spmm kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"bsr_spmm kernel ({kind}) launch failed: CUDA error {err}")
     counter.launches += 1
+    if kind == "tc":
+        counter.launches_tc += 1
+    else:
+        counter.launches_cuda_core += 1
     return y
 
 
@@ -162,6 +201,8 @@ def bsr_spmm_kernel(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
 
 
 bsr_spmm_kernel.launches = 0
+bsr_spmm_kernel.launches_tc = 0
+bsr_spmm_kernel.launches_cuda_core = 0
 
 
 def bsr_spmv_kernel(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
@@ -211,3 +252,5 @@ def bsr_spmm_grouped_kernel(bsr: BsrMat, x: torch.Tensor, group: int = 8) -> tor
 
 
 bsr_spmm_grouped_kernel.launches = 0
+bsr_spmm_grouped_kernel.launches_tc = 0
+bsr_spmm_grouped_kernel.launches_cuda_core = 0

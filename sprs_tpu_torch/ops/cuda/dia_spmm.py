@@ -10,9 +10,13 @@ This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
   on the card.  Its ``calls`` attribute counts calls;
 * :func:`dia_spmm_kernel`, the wrapper: CPU tensors take the plain
   version, CUDA tensors launch the kernel or raise — never both.  Its
-  ``launches`` attribute counts kernel launches.  Every RHS width takes
+  ``launches`` attribute counts kernel launches, and ``launches_vector``
+  and ``launches_scalar`` those of each variant.  Every RHS width takes
   the kernel: the JAX package's ``k >= 256`` cut (``ops/prod.py``) is a
   TPU measurement and has no counterpart here;
+* :func:`variant`, the rule that picks the kernel's variant: "vector"
+  (16-byte loads of X and stores of Y) when a row of X is whole 16-byte
+  vectors and X starts on a 16-byte boundary, else "scalar";
 * a ``torch.autograd.Function`` whose forward is the kernel and whose
   backward is :func:`~.dia_spmv.dia_vjp`, the plain torch form of the JAX
   package's ``_bwd``.
@@ -32,17 +36,36 @@ import torch
 from ...errors import ShapeError
 from ...formats.dia import DiaMat, dia_spmm
 from . import build
-from .dia_spmv import BLOCK, BLOCKS_PER_SM, MAX_DIAGS, dia_vjp
+from .dia_spmv import MAX_DIAGS, dia_vjp
+
+THREADS = 256  # csrc/dia_spmm.cu: kThreads
+RUN = 4  # consecutive rows per thread (kRun)
+BLOCKS_PER_SM = 3  # resident CTAs per SM (kMinBlocks)
+VECTOR_BYTES = 16
 
 _ENTRY = {torch.float32: "sprs_dia_spmm_f32", torch.float64: "sprs_dia_spmm_f64"}
 
 
-def launch_config(rows: int, k: int, n_sm: int) -> Tuple[int, int]:
-    """(grid, block) for a (rows, k) output on a card with ``n_sm`` SMs:
-    one thread per entry, at most one full wave of resident blocks; the
-    kernel's grid-stride loop covers the rest."""
-    blocks = -(-(rows * k) // BLOCK)
-    return max(1, min(blocks, n_sm * BLOCKS_PER_SM)), BLOCK
+def variant(k: int, itemsize: int, x_ptr: int) -> str:
+    """"vector" when every row of X is whole 16-byte vectors and X starts
+    on a 16-byte boundary (Y is allocated here, aligned), else "scalar"."""
+    if (k * itemsize) % VECTOR_BYTES == 0 and x_ptr % VECTOR_BYTES == 0:
+        return "vector"
+    return "scalar"
+
+
+def launch_config(rows: int, k: int, n_sm: int, itemsize: int, vector: bool) -> Tuple[int, int, int]:
+    """(grid, block, runs_per_tile) for a (rows, k) output on a card with
+    ``n_sm`` SMs.  A thread owns RUN rows by one column vector (16 bytes,
+    or one element for the scalar variant); a CTA's tile is as many runs
+    as its threads cover across the k columns, all k columns wide; the
+    grid is at most one wave of resident CTAs, which walk the tiles in
+    grid-stride order."""
+    per_vec = VECTOR_BYTES // itemsize if vector else 1
+    kv = k // per_vec
+    runs = max(THREADS // kv, 1)
+    tiles = -(-rows // (runs * RUN))
+    return max(1, min(tiles, n_sm * BLOCKS_PER_SM)), THREADS, runs
 
 
 def dia_spmm_plain(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
@@ -59,7 +82,7 @@ dia_spmm_plain.calls = 0
 def _entry(dtype: torch.dtype):
     fn = getattr(build.load("dia_spmm"), _ENTRY[dtype])
     ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, ll, ll, ll, ll, vp, i, i, i, vp]
+    fn.argtypes = [vp, vp, vp, ll, ll, ll, ll, vp, i, i, i, i, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -87,8 +110,9 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     y = torch.empty((dia.rows, k), dtype=data.dtype, device=data.device)
     if dia.rows == 0 or k == 0:
         return y
+    kind = variant(k, x.element_size(), x.data_ptr())
     n_sm = torch.cuda.get_device_properties(data.device).multi_processor_count
-    grid, block = launch_config(dia.rows, k, n_sm)
+    grid, _, runs = launch_config(dia.rows, k, n_sm, x.element_size(), kind == "vector")
     err = _entry(data.dtype)(
         data.data_ptr(),
         x.data_ptr(),
@@ -99,13 +123,18 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
         k,
         (ctypes.c_int * n)(*dia.offsets),
         n,
+        int(kind == "vector"),
+        runs,
         grid,
-        block,
         torch.cuda.current_stream(data.device).cuda_stream,
     )
     if err != 0:
-        raise RuntimeError(f"dia_spmm kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"dia_spmm kernel ({kind}) launch failed: CUDA error {err}")
     dia_spmm_kernel.launches += 1
+    if kind == "vector":
+        dia_spmm_kernel.launches_vector += 1
+    else:
+        dia_spmm_kernel.launches_scalar += 1
     return y
 
 
@@ -143,3 +172,5 @@ def dia_spmm_kernel(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
 
 
 dia_spmm_kernel.launches = 0
+dia_spmm_kernel.launches_vector = 0
+dia_spmm_kernel.launches_scalar = 0

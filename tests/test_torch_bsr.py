@@ -330,7 +330,45 @@ def test_from_arrays_round_trip():
 
 @pytest.mark.parametrize("nbr,k,grid", [(1, 1, (1, 1)), (32, 512, (32, 8)), (4, 65, (4, 2))])
 def test_launch_config(nbr, k, grid):
-    assert launch_config(nbr, k) == (grid, k3.THREADS)
+    assert launch_config(nbr, k, "cuda_core", 8) == (grid, k3.THREADS)
+    assert launch_config(nbr, k, "cuda_core", 128) == (grid, k3.THREADS)
+
+
+@pytest.mark.parametrize(
+    "nbr,k,bs,grid,threads",
+    [
+        (32, 512, 128, (32, 4), 288),  # the main shape: 128 CTAs, one wave
+        (128, 512, 128, (128, 4), 288),  # n = 16384
+        (16, 200, 64, (16, 2), 160),  # a partial 128-column tile
+        (1, 8, 128, (1, 1), 288),
+    ],
+)
+def test_launch_config_tensor_cores(nbr, k, bs, grid, threads):
+    """One CTA per (block row, 128 columns): bs / 64 consumer warpgroups
+    and one producer warp."""
+    assert launch_config(nbr, k, "tc", bs) == (grid, threads)
+
+
+@pytest.mark.parametrize(
+    "dtype,bs,k,x_off,b_off,kind",
+    [
+        (torch.bfloat16, 128, 512, 0, 0, "tc"),
+        (torch.bfloat16, 64, 200, 0, 0, "tc"),
+        (torch.bfloat16, 128, 8, 16, 32, "tc"),
+        (torch.bfloat16, 128, 70, 0, 0, "cuda_core"),  # rows of 140 bytes
+        (torch.bfloat16, 128, 1, 0, 0, "cuda_core"),  # bsr_spmv_kernel
+        (torch.bfloat16, 8, 64, 0, 0, "cuda_core"),
+        (torch.bfloat16, 32, 64, 0, 0, "cuda_core"),
+        (torch.float32, 128, 512, 0, 0, "cuda_core"),  # TF32 would cost 1e-3
+        (torch.float64, 128, 512, 0, 0, "cuda_core"),
+        (torch.bfloat16, 128, 512, 2, 0, "cuda_core"),  # X off 16 bytes
+        (torch.bfloat16, 128, 512, 0, 8, "cuda_core"),  # blocks off 16 bytes
+    ],
+)
+def test_variant_rule(dtype, bs, k, x_off, b_off, kind):
+    """The tensor-core kernel takes bfloat16 at bs 64 or 128 when TMA can
+    read X and the blocks; the rest goes to the CUDA-core kernel."""
+    assert k3.variant(dtype, bs, k, 4096 + x_off, 8192 + b_off) == kind
 
 
 def test_launch_refuses_what_the_kernel_does_not_take():
@@ -338,9 +376,12 @@ def test_launch_refuses_what_the_kernel_does_not_take():
     x = torch.zeros((16, 2))
     with pytest.raises(ValueError, match="CUDA"):
         k3._launch(t, t.blocks, x, bsr_spmm_kernel)
-    before = bsr_spmm_kernel.launches
+    counts = [(f.launches, f.launches_tc, f.launches_cuda_core)
+              for f in (bsr_spmm_kernel, bsr_spmm_grouped_kernel)]
     bsr_spmm_kernel(t, x)  # CPU tensors: the plain version, no launch
-    assert bsr_spmm_kernel.launches == before
+    bsr_spmm_grouped_kernel(bsr_group(t, 2), x, group=2)
+    assert counts == [(f.launches, f.launches_tc, f.launches_cuda_core)
+                      for f in (bsr_spmm_kernel, bsr_spmm_grouped_kernel)]
     with pytest.raises(ShapeError):
         bsr_spmm_kernel(t, torch.zeros((15, 2)))
 
@@ -371,3 +412,27 @@ def test_kernels_match_plain_on_card(dtype):
         assert fn.launches == before + 1
         err = float((y.float() - ref.float()).abs().max())
         assert err <= limit * float(ref.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [64, 128])
+def test_tensor_core_variant_matches_plain_on_card(bs):
+    """K3's tensor-core variant (bfloat16) on the card against the plain
+    version: a partial last block row, X rows past ``cols``, a partial
+    128-column tile, shuffled blocks and the K4 repack (run where a GPU
+    is)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    t = bsr_random(3, (1000, 900), bs, 0.3, torch.bfloat16, device="cuda")
+    perm = torch.randperm(t.cap, device="cuda")
+    shuffled = BsrMat(t.brows[perm], t.bcols[perm], t.blocks[perm], t.shape, t.n_blocks)
+    x = torch.randn((900, 200), device="cuda").to(torch.bfloat16)
+    for fn, b in ((bsr_spmm_kernel, t), (bsr_spmm_kernel, shuffled),
+                  (bsr_spmm_grouped_kernel, bsr_group(t, 4))):
+        before = fn.launches_tc
+        y = fn(b, x)
+        ref = bsr_spmm_plain(b, x)
+        torch.cuda.synchronize()
+        assert fn.launches_tc == before + 1
+        err = float((y.float() - ref.float()).abs().max())
+        assert err <= 2.0**-7 * float(ref.float().abs().max())

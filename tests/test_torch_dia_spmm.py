@@ -121,11 +121,59 @@ def test_backward_matches_torch_autograd_of_plain():
 
 
 @pytest.mark.parametrize(
-    "rows,k,grid",
-    [(1, 1, 1), (100, 24, 10), (1_048_576, 256, 1056), (2_097_152, 1, 1056)],
+    "rows,k,itemsize,vector,grid,runs",
+    [
+        pytest.param(1, 1, 8, False, 1, 256, id="1-1-1"),
+        pytest.param(100, 24, 8, True, 2, 21, id="100-24-10"),
+        pytest.param(1_048_576, 256, 8, True, 396, 2, id="1048576-256-1056"),
+        pytest.param(2_097_152, 1, 8, False, 396, 256, id="2097152-1-1056"),
+        # the f32 timing shape: 32 vectors a row, tiles of 8 runs = 32 rows
+        (2_097_152, 128, 4, True, 396, 8),
+        # 130 f32 columns are not whole 16-byte vectors: scalar, one run
+        (150, 130, 4, False, 38, 1),
+        # wider than one CTA's threads: one run, a column loop
+        (64, 2048, 4, True, 16, 1),
+        # the few-sources expm width (f64, 3 columns)
+        (1_048_576, 3, 8, False, 396, 85),
+    ],
 )
-def test_launch_config(rows, k, grid):
-    assert launch_config(rows, k, 132) == (grid, k2.BLOCK)
+def test_launch_config(rows, k, itemsize, vector, grid, runs):
+    """(grid, block, runs per tile): a tile is as many 4-row runs as a
+    CTA's threads cover across k; at most one wave of 3 CTAs per SM."""
+    assert launch_config(rows, k, 132, itemsize, vector) == (grid, k2.THREADS, runs)
+
+
+@pytest.mark.parametrize(
+    "k,itemsize,offset,kind",
+    [
+        (128, 4, 0, "vector"),
+        (4, 4, 16, "vector"),
+        (2, 8, 0, "vector"),
+        (256, 8, 32, "vector"),
+        (130, 4, 0, "scalar"),  # 520-byte rows
+        (1, 8, 0, "scalar"),
+        (3, 8, 0, "scalar"),
+        (12, 4, 0, "vector"),
+        (128, 4, 4, "scalar"),  # X one f32 past a 16-byte boundary
+        (24, 8, 8, "scalar"),  # X one f64 past a 16-byte boundary
+    ],
+)
+def test_variant_rule(k, itemsize, offset, kind):
+    """The vector variant needs rows of X of whole 16 bytes and X on a
+    16-byte boundary; everything else takes the scalar variant."""
+    assert k2.variant(k, itemsize, 4096 + offset) == kind
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_variant_rule_on_a_misaligned_view(dtype):
+    """A contiguous view that starts one element into its storage (what
+    chip_smoke.py's misaligned gates build) takes the scalar variant."""
+    buf = torch.zeros(48 * 8 + 1, dtype=dtype)
+    x = buf[1:].view(48, 8)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert k2.variant(8, x.element_size(), x.data_ptr()) == "scalar"
+    aligned = torch.zeros((48, 8), dtype=dtype)
+    assert k2.variant(8, aligned.element_size(), aligned.data_ptr()) == "vector"
 
 
 @pytest.mark.parametrize("k", [1, 24, 255, 256, 300])
@@ -152,11 +200,16 @@ def test_prepare_spmm_takes_the_wrapper_at_every_width(k):
     np.testing.assert_allclose((prepared @ torch.from_numpy(x)).numpy(), got.numpy(), rtol=0)
 
 
+def launch_counts():
+    k = dia_spmm_kernel
+    return k.launches, k.launches_vector, k.launches_scalar
+
+
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     _, tdia, x = operands(64, 64, (-5, 0, 5), 8, 40, np.float32)
-    before = dia_spmm_kernel.launches
+    before = launch_counts()
     dia_spmm_kernel(tdia, torch.from_numpy(x))
-    assert dia_spmm_kernel.launches == before
+    assert launch_counts() == before
 
 
 def test_launch_refuses_non_cuda_tensors():
@@ -190,14 +243,20 @@ def test_kernel_matches_plain_on_card(dtype):
     band = banded(500, 450, (-70, -3, -1, 0, 2, 65), 50, np.float64)
     dia = dia_tile(from_dense(torch.from_numpy(band).to(dtype), device="cuda").to_dia())
     for k in (1, 24, 48, 130, 256):
-        x = torch.randn((dia.cols, k), dtype=dtype, device="cuda")
-        before = dia_spmm_kernel.launches
-        y = dia_spmm_kernel(dia, x)
-        ref = dia_spmm_plain(dia, x)
-        torch.cuda.synchronize()
-        assert dia_spmm_kernel.launches == before + 1
-        limit = 1e-12 if dtype == torch.float64 else 1e-5
-        assert float((y - ref).abs().max()) <= limit * float(ref.abs().max())
+        aligned = torch.randn((dia.cols, k), dtype=dtype, device="cuda")
+        buf = torch.empty(aligned.numel() + 1, dtype=dtype, device="cuda")
+        misaligned = buf[1:].view(aligned.shape)
+        misaligned.copy_(aligned)
+        for x in (aligned, misaligned):
+            kind = k2.variant(k, x.element_size(), x.data_ptr())
+            before = dia_spmm_kernel.launches, getattr(dia_spmm_kernel, f"launches_{kind}")
+            y = dia_spmm_kernel(dia, x)
+            ref = dia_spmm_plain(dia, x)
+            torch.cuda.synchronize()
+            after = dia_spmm_kernel.launches, getattr(dia_spmm_kernel, f"launches_{kind}")
+            assert after == (before[0] + 1, before[1] + 1)
+            limit = 1e-12 if dtype == torch.float64 else 1e-5
+            assert float((y - ref).abs().max()) <= limit * float(ref.abs().max())
     # a complex operand on the card raises: K2 is real only
     cdia = type(dia)(dia.data.to(torch.complex128), dia.offsets, dia.shape)
     with pytest.raises(TypeError):
