@@ -1,19 +1,30 @@
-"""A/B of design variants of kernels K2 and K3 on one card.
+"""A/B of design variants of kernels K2, K3, K5 and K6 on one card.
 
-Each variant is the committed source with a few constants or lines
-replaced; all are built with the package's nvcc flags into
-``sprs_tpu_torch/_build/variants/`` and timed in one process, in two
-rounds, by the profiler's device time per launch, after a check against
-the plain version.
+Each variant is a CUDA source with a few constants or lines replaced:
+the committed source in ``sprs_tpu_torch/csrc/``, the source of an
+earlier tree (``--baseline DIR``, a ``csrc`` directory unpacked with
+``git archive <commit> sprs_tpu_torch/csrc``), or K5's candidate (b) held
+here (``ELL_ROW_SOURCE``: one thread per row).  All are built with the
+package's nvcc flags into ``sprs_tpu_torch/_build/variants/`` (ptxas'
+registers and spills printed; with ``--sass``, each variant's SASS
+opcodes counted by ``cuobjdump``) and timed in one process, in two
+rounds, by the profiler's device time per launch over 30 calls, after a
+check against the plain version (K6: bit for bit).  A candidate that
+does not build is reported and left out; the committed source or the
+baseline failing to build stops the run.
 
 Run from the repository root on a machine with one H100:
-``python3 benches/torch_kernel_variants.py``.
+``python3 benches/torch_kernel_variants.py [--kernels k2 k3 k5 k6]
+[--baseline DIR] [--sass]``.
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
 import ctypes
 import functools
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -23,9 +34,12 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke as cs  # noqa: E402
 from sprs_tpu_torch.formats.bsr import bsr_random, bsr_spmm_plain  # noqa: E402
+from sprs_tpu_torch.formats.ell import ell_from_csmat  # noqa: E402
 from sprs_tpu_torch.ops.cuda import bsr_spmm as k3  # noqa: E402
 from sprs_tpu_torch.ops.cuda import build  # noqa: E402
 from sprs_tpu_torch.ops.cuda import dia_spmm as k2  # noqa: E402
+from sprs_tpu_torch.ops.cuda import ell_spmv as k5  # noqa: E402
+from sprs_tpu_torch.ops.cuda import sort as k6  # noqa: E402
 from sprs_tpu_torch.ops.cuda.dia_spmv import dia_tile  # noqa: E402
 from sprs_tpu_torch.utils import grid_laplacian  # noqa: E402
 
@@ -53,41 +67,253 @@ def min_blocks(n):
     return ("constexpr int kMinBlocks = 3;", f"constexpr int kMinBlocks = {n};")
 
 
-# name -> (source, replacements, K2 CTAs per SM, K2 rows per run)
+def per_lane(n):
+    return ("constexpr int kPerLane = 8;", f"constexpr int kPerLane = {n};")
+
+
+def k6_min_blocks(n):
+    return ("constexpr int kMinBlocks = 4;", f"constexpr int kMinBlocks = {n};")
+
+
+# K5 with L2 cache policies: indices and data loaded with L1 no-allocate
+# and evict-first, x with evict-last, so that the streamed operands do not
+# push x out of L2
+K5_CACHE_POLICIES = [
+    ("constexpr int kThreads = 256;\n", """constexpr int kThreads = 256;
+
+__device__ __forceinline__ unsigned long long l2_policy(bool last) {
+  unsigned long long p;
+  if (last) asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  else asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+__device__ __forceinline__ int ld_once(const int* p, unsigned long long pol) {
+  int v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.s32 %0, [%1], %2;" : "=r"(v) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ float ld_once(const float* p, unsigned long long pol) {
+  float v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(v) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ double ld_once(const double* p, unsigned long long pol) {
+  double v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.f64 %0, [%1], %2;" : "=d"(v) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ float ld_keep(const float* p, unsigned long long pol) {
+  float v;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(v) : "l"(p), "l"(pol));
+  return v;
+}
+__device__ __forceinline__ double ld_keep(const double* p, unsigned long long pol) {
+  double v;
+  asm("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;" : "=d"(v) : "l"(p), "l"(pol));
+  return v;
+}
+"""),
+    ("  const long long n_groups = (long long)gridDim.x * blockDim.x / G;\n",
+     "  const long long n_groups = (long long)gridDim.x * blockDim.x / G;\n"
+     "  const unsigned long long once = l2_policy(false), keep = l2_policy(true);\n"),
+    ("__ldg(&indices[base + j])", "ld_once(&indices[base + j], once)"),
+    ("__ldg(&data[base + j]) * __ldg(&x[c])", "ld_once(&data[base + j], once) * ld_keep(&x[c], keep)"),
+]
+
+# K5 candidate (b): one thread per row, the width a template parameter for
+# widths 1-16 (a generic loop beyond); all of a row's indices and data are
+# loaded (16 bytes at a time where the row fills whole vectors) before any
+# gather, streamed with __ldcs, x loaded with an L2 evict-last policy.  The
+# committed kernel's C interface (`lanes` unused).
+ELL_ROW_SOURCE = r"""
+#include <cuda_runtime.h>
+#include <cstring>
+
+namespace {
+
+__device__ __forceinline__ unsigned long long evict_last() {
+  unsigned long long p;
+  asm("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ float ld_keep(const float* p, unsigned long long pol) {
+  float v;
+  asm("ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;" : "=f"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+__device__ __forceinline__ double ld_keep(const double* p, unsigned long long pol) {
+  double v;
+  asm("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;" : "=d"(v) : "l"(p), "l"(pol));
+  return v;
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void load_row(const T* p, T (&out)[W]) {
+  constexpr int kV = 16 / sizeof(T);
+  if constexpr (W % kV == 0) {
+#pragma unroll
+    for (int v = 0; v < W / kV; ++v) {
+      const int4 q = __ldcs(reinterpret_cast<const int4*>(p) + v);
+      memcpy(&out[kV * v], &q, 16);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < W; ++j) out[j] = __ldcs(p + j);
+  }
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(256)
+ell_spmv_row_kernel(const int* __restrict__ indices, const T* __restrict__ data,
+                    const T* __restrict__ x, T* __restrict__ y, long long rows,
+                    long long cols, int width) {
+  const unsigned long long keep = evict_last();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < rows;
+       r += stride) {
+    T acc = 0;
+    if constexpr (W > 0) {
+      int c[W];
+      T d[W], v[W];
+      load_row<int, W>(indices + r * W, c);
+      load_row<T, W>(data + r * W, d);
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        v[j] = ld_keep(x + (c[j] < 0 ? 0 : (c[j] >= cols ? cols - 1 : (long long)c[j])), keep);
+#pragma unroll
+      for (int j = 0; j < W; ++j) acc += d[j] * v[j];
+    } else {
+      const long long base = r * width;
+      for (int j = 0; j < width; ++j) {
+        long long k = __ldcs(indices + base + j);
+        k = k < 0 ? 0 : (k >= cols ? cols - 1 : k);
+        acc += __ldcs(data + base + j) * ld_keep(x + k, keep);
+      }
+    }
+    y[r] = acc;
+  }
+}
+
+template <typename T>
+int launch(const void* indices, const void* data, const void* x, void* y,
+           long long rows, long long cols, int width, int grid, int block,
+           void* stream) {
+  if (width < 0 || cols < 1) return (int)cudaErrorInvalidValue;
+  auto* s = (cudaStream_t)stream;
+  const int* i = (const int*)indices;
+  const T* d = (const T*)data;
+  const T* v = (const T*)x;
+  T* out = (T*)y;
+#define ROW_CASE(W) case W: ell_spmv_row_kernel<T, W><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
+  switch (width) {
+    ROW_CASE(1) ROW_CASE(2) ROW_CASE(3) ROW_CASE(4) ROW_CASE(5) ROW_CASE(6) ROW_CASE(7) ROW_CASE(8)
+    ROW_CASE(9) ROW_CASE(10) ROW_CASE(11) ROW_CASE(12) ROW_CASE(13) ROW_CASE(14) ROW_CASE(15) ROW_CASE(16)
+    default: ell_spmv_row_kernel<T, 0><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width);
+  }
+#undef ROW_CASE
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int sprs_ell_spmv_f32(const void* indices, const void* data, const void* x, void* y,
+                                 long long rows, long long cols, int width, int lanes, int grid,
+                                 int block, void* stream) {
+  return launch<float>(indices, data, x, y, rows, cols, width, grid, block, stream);
+}
+
+extern "C" int sprs_ell_spmv_f64(const void* indices, const void* data, const void* x, void* y,
+                                 long long rows, long long cols, int width, int lanes, int grid,
+                                 int block, void* stream) {
+  return launch<double>(indices, data, x, y, rows, cols, width, grid, block, stream);
+}
+"""
+
+# name -> (kernel, source, replacements, params).  Source: a csrc name,
+# "baseline:<name>" (from --baseline) or "inline:<name>" (held here).
+# Params: K2 (CTAs per SM, rows per run); K5 (layout: "baseline", the
+# earlier C interface without `lanes` and a thread per row, "row", a
+# thread per row, or "group", a group of lanes per row; CTAs per SM); K6
+# (rows per CTA, CTAs per SM).
 VARIANTS = {
-    "k3 as committed (4 stages, 1 CTA/SM)": ("bsr_spmm", [], None, None),
-    "k3 pipelined": ("bsr_spmm", [K3_PIPELINED], None, None),
-    "k3 pipelined, 3 stages (2 CTAs/SM)": ("bsr_spmm", [K3_PIPELINED, stages(3)], None, None),
-    "k3 pipelined, 6 stages": ("bsr_spmm", [K3_PIPELINED, stages(6)], None, None),
-    "k2 as committed (3 CTAs/SM, 4-row runs)": ("dia_spmm", [], 3, 4),
-    "k2 2 CTAs/SM": ("dia_spmm", [min_blocks(2)], 2, 4),
-    "k2 4 CTAs/SM": ("dia_spmm", [min_blocks(4)], 4, 4),
-    "k2 2-row runs": ("dia_spmm", [("constexpr int kRun = 4; ", "constexpr int kRun = 2; ")], 3, 2),
+    "k3 as committed (4 stages, 1 CTA/SM)": ("k3", "bsr_spmm", [], None),
+    "k3 pipelined": ("k3", "bsr_spmm", [K3_PIPELINED], None),
+    "k3 pipelined, 3 stages (2 CTAs/SM)": ("k3", "bsr_spmm", [K3_PIPELINED, stages(3)], None),
+    "k3 pipelined, 6 stages": ("k3", "bsr_spmm", [K3_PIPELINED, stages(6)], None),
+    "k2 as committed (3 CTAs/SM, 4-row runs)": ("k2", "dia_spmm", [], (3, 4)),
+    "k2 2 CTAs/SM": ("k2", "dia_spmm", [min_blocks(2)], (2, 4)),
+    "k2 4 CTAs/SM": ("k2", "dia_spmm", [min_blocks(4)], (4, 4)),
+    "k2 2-row runs": ("k2", "dia_spmm", [("constexpr int kRun = 4; ", "constexpr int kRun = 2; ")], (3, 2)),
+    "k5 baseline (thread per row)": ("k5", "baseline:ell_spmv", [], ("baseline", 8)),
+    "k5 as committed (lane group per row)": ("k5", "ell_spmv", [], ("group", k5.BLOCKS_PER_SM)),
+    "k5 lane group per row, L2 cache policies": ("k5", "ell_spmv", K5_CACHE_POLICIES, ("group", 8)),
+    "k5 (b) thread per row, width template": ("k5", "inline:ell_row", [], ("row", 8)),
+    "k6 baseline (4 per lane, a warp per row)": ("k6", "baseline:sort_rows", [], (8, 8)),
+    "k6 as committed (8 per lane, 2 rows per warp)": (
+        "k6", "sort_rows", [], (k6.BLOCK // 32 * k6.ROWS_PER_WARP, k6.BLOCKS_PER_SM)),
+    "k6 4 per lane": ("k6", "sort_rows", [per_lane(4)], (8, k6.BLOCKS_PER_SM)),
+    "k6 16 per lane, min 3 CTAs/SM": ("k6", "sort_rows", [per_lane(16), k6_min_blocks(3)], (32, 3)),
 }
 
 
-def build_variants():
+def source_text(name, src, reps, baseline):
+    if src.startswith("inline:"):
+        text = {"ell_row": ELL_ROW_SOURCE}[src.split(":", 1)[1]]
+    elif src.startswith("baseline:"):
+        text = (Path(baseline) / f"{src.split(':', 1)[1]}.cu").read_text()
+    else:
+        text = (build.CSRC_DIR / f"{src}.cu").read_text()
+    for old, new in reps:
+        if old not in text:
+            raise RuntimeError(f"variant {name!r}: the source no longer holds {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variants(names, baseline, sass=False):
     OUT.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for i, (name, (src, reps, _, _)) in enumerate(VARIANTS.items()):
-        text = (build.CSRC_DIR / f"{src}.cu").read_text()
-        for old, new in reps:
-            if old not in text:
-                raise RuntimeError(f"variant {name!r}: the source no longer holds {old!r}")
-            text = text.replace(old, new)
+    for i, name in enumerate(VARIANTS):
+        if name not in names:
+            continue
+        _, src, reps, _ = VARIANTS[name]
         path = OUT / f"v{i}.cu"
-        path.write_text(text)
+        path.write_text(source_text(name, src, reps, baseline))
         cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(OUT / f"libv{i}.so"), str(path)]
         procs[name] = (i, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (i, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            _, src, reps, _ = VARIANTS[name]
+            if not reps and not src.startswith("inline:"):  # the committed source or the baseline
+                raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+            print(f"nvcc failed for {name}, left out:\n{log}", flush=True)
+            continue
         regs = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
         print(f"built {name}: {regs}", flush=True)
         libs[name] = ctypes.CDLL(str(OUT / f"libv{i}.so"))
+        if sass:
+            print(f"sass {name}: {sass_opcodes(OUT / f'libv{i}.so')}", flush=True)
     return libs
+
+
+def sass_opcodes(lib):
+    """Opcode counts of each kernel in ``lib`` (``cuobjdump -sass``), the
+    most frequent first; a count is of instructions in the code, not of
+    instructions run."""
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True).stdout
+    out = {}
+    for fn in text.split("Function : ")[1:]:
+        name = fn.split(None, 1)[0]
+        ops = collections.Counter(
+            m.group(1).split(".")[0]
+            for m in re.finditer(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", fn))
+        out[name] = dict(ops.most_common(12), total=sum(ops.values()))
+    return out
 
 
 LL, VP, I = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
@@ -124,44 +350,126 @@ def k2_call(lib, dia, x, blocks_per_sm, run):
     return y
 
 
+def k5_call(lib, ell, x, layout, blocks_per_sm):
+    fn = getattr(lib, "sprs_ell_spmv_f32" if x.dtype == torch.float32 else "sprs_ell_spmv_f64")
+    g = k5.group_lanes(ell.width) if layout == "group" else 1
+    lanes = [] if layout == "baseline" else [g]
+    fn.argtypes = [VP, VP, VP, VP, LL, LL, I] + [I] * len(lanes) + [I, I, VP]
+    y = torch.empty(ell.rows, dtype=x.dtype, device=x.device)
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid = min(-(-ell.rows // (256 // g)), n_sm * blocks_per_sm)
+    err = fn(ell.indices.data_ptr(), ell.data.data_ptr(), x.data_ptr(), y.data_ptr(), ell.rows,
+             ell.cols, ell.width, *lanes, grid, 256, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch failed: {err}")
+    return y
+
+
+def k6_call(lib, keys, vals, rows_per_block, blocks_per_sm):
+    fn = getattr(lib, "sprs_sort_rows_i32" if keys.dtype == torch.int32 else "sprs_sort_rows_f32")
+    fn.argtypes = [VP, VP, VP, VP, LL, I, I, VP]
+    ks, vs = torch.empty_like(keys), torch.empty_like(vals)
+    n_sm = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    grid = min(-(-keys.shape[0] // rows_per_block), n_sm * blocks_per_sm)
+    err = fn(keys.data_ptr(), vals.data_ptr(), ks.data_ptr(), vs.data_ptr(), keys.shape[0], grid, 256,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch failed: {err}")
+    return ks, vs
+
+
+def k3_cases():
+    bf = torch.bfloat16
+    out = []
+    for n, seed in ((cs.BSR_N, 40), (cs.BSR_BIG_N, 42)):
+        bsr = bsr_random(seed, (n, n), 128, 0.125, bf, device="cuda")
+        x = cs.rhs_block(n, cs.BSR_K, bf, seed + 1)
+        out.append((f"n={n} k={cs.BSR_K} bs=128 bf16", bsr, x, bsr_spmm_plain(bsr, x).float()))
+    return out
+
+
+def k2_cases():
+    lap2 = dia_tile(grid_laplacian(cs.SPMM_GRID, torch.float32, device="cuda").to_dia())
+    lap = dia_tile(grid_laplacian((cs.SOLVE_SIDE,) * 2, device="cuda").to_dia())
+    out = [("2048x1024 grid f32 k=128", lap2, cs.rhs_block(lap2.cols, 128, torch.float32, 30))]
+    out += [(f"1024^2 grid f64 k={k}", lap, cs.rhs_block(lap.cols, k, torch.float64, k)) for k in (24, 48, 256)]
+    return [(label, d, x, k2.dia_spmm_plain(d, x)) for label, d, x in out]
+
+
+def k5_cases():
+    """The mesh step as chip_smoke.py builds it (f64, width 7) and random8
+    (f32, width 8)."""
+    mesh_a = cs.mesh_step(*cs.permuted_mesh(cs.MESH_SIDE)[:2])[1]
+    ell = ell_from_csmat(mesh_a)
+    x = cs.rhs_block(mesh_a.cols, 1, torch.float64, 89)[:, 0].contiguous()
+    _, r8, x8 = cs.random8_operand()
+    return [(f"{cs.MESH_SIDE}^2 mesh step f64 width {ell.width}", ell, x, k5.ell_spmv_plain(ell, x)),
+            (f"random8 n={cs.RANDOM8_N} f32 width {r8.width}", r8, x8, k5.ell_spmv_plain(r8, x8))]
+
+
+def k6_cases():
+    out = []
+    for kind, seed in (("int32", 90), ("float32", 92)):
+        keys, vals = cs.sort_case(cs.SORT_ROWS, kind, seed)
+        out.append((f"{cs.SORT_ROWS}x128 {kind} keys", keys, vals, k6.sort_rows_plain(keys, vals)))
+    return out
+
+
+def checked(name, label, kernel, call, ref, x_dtype):
+    """Raise unless the variant's output agrees with the plain version."""
+    if kernel == "k3":
+        rel = float((call().float() - ref).abs().max() / ref.abs().max())
+        ok = rel <= 2.0**-7
+    elif kernel == "k6":
+        ks, vs = call()
+        ok = torch.equal(ks.view(torch.int32), ref[0].view(torch.int32)) and torch.equal(
+            vs.view(torch.int32), ref[1].view(torch.int32))
+        rel = 0.0 if ok else float("nan")
+    else:
+        err = float((call() - ref).abs().max())
+        rel = err / float(ref.abs().max())
+        ok = rel <= cs.GATE_LIMIT[x_dtype]
+    if not ok:
+        raise AssertionError(f"{name} {label}: rel {rel}")
+
+
+KEYS = {"k2": "dia_spmm_kernel", "k3": "bsr_spmm_tc_kernel", "k5": "ell_spmv", "k6": "sort_rows"}
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernels", nargs="+", default=["k2", "k3", "k5", "k6"], choices=["k2", "k3", "k5", "k6"])
+    ap.add_argument("--baseline", help="a csrc directory of an earlier tree (the baseline variants)")
+    ap.add_argument("--sass", action="store_true", help="count each variant's SASS opcodes")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
-    libs = build_variants()
-    bf = torch.bfloat16
-    k3_cases = []
-    for n, seed in ((cs.BSR_N, 40), (cs.BSR_BIG_N, 42)):
-        bsr = bsr_random(seed, (n, n), 128, 0.125, bf, device="cuda")
-        x = cs.rhs_block(n, cs.BSR_K, bf, seed + 1)
-        k3_cases.append((f"n={n} k={cs.BSR_K} bs=128 bf16", bsr, x, bsr_spmm_plain(bsr, x).float()))
-    lap2 = dia_tile(grid_laplacian(cs.SPMM_GRID, torch.float32, device="cuda").to_dia())
-    lap = dia_tile(grid_laplacian((cs.SOLVE_SIDE,) * 2, device="cuda").to_dia())
-    k2_cases = [("2048x1024 grid f32 k=128", lap2, cs.rhs_block(lap2.cols, 128, torch.float32, 30))]
-    k2_cases += [(f"1024^2 grid f64 k={k}", lap, cs.rhs_block(lap.cols, k, torch.float64, k))
-                 for k in (24, 48, 256)]
-    k2_refs = [k2.dia_spmm_plain(d, x) for _, d, x in k2_cases]
+    names = [n for n, v in VARIANTS.items() if v[0] in args.kernels
+             and (args.baseline or not v[1].startswith("baseline:"))]
+    libs = build_variants(names, args.baseline, args.sass)
+    cases = {"k2": k2_cases, "k3": k3_cases, "k5": k5_cases, "k6": k6_cases}
+    cases = {k: cases[k]() for k in args.kernels}
     for rnd in range(2):
-        for name, (src, _, blocks_per_sm, run) in VARIANTS.items():
-            if src == "bsr_spmm":
-                for label, bsr, x, ref in k3_cases:
-                    call = functools.partial(k3_call, libs[name], bsr, x)
-                    rel = float((call().float() - ref).abs().max() / ref.abs().max())
-                    if not rel <= 2.0**-7:
-                        raise AssertionError(f"{name} {label}: rel {rel}")
-                    ms = cs.device_ms(call, "bsr_spmm_tc_kernel", 30)
-                    print(f"round {rnd} {name} {label}: device ms {ms!r}", flush=True)
-            else:
-                for (label, d, x), ref in zip(k2_cases, k2_refs):
-                    call = functools.partial(k2_call, libs[name], d, x, blocks_per_sm, run)
-                    err = float((call() - ref).abs().max())
-                    if not err <= cs.GATE_LIMIT[x.dtype] * float(ref.abs().max()):
-                        raise AssertionError(f"{name} {label}: err {err}")
-                    ms = cs.device_ms(call, "dia_spmm_kernel", 30)
-                    print(f"round {rnd} {name} {label}: device ms {ms!r}", flush=True)
-
+        for name in names:
+            if name not in libs:
+                continue
+            kernel, _, _, params = VARIANTS[name]
+            for case in cases[kernel]:
+                label, ref = case[0], case[-1]
+                if kernel == "k3":
+                    call = functools.partial(k3_call, libs[name], case[1], case[2])
+                elif kernel == "k2":
+                    call = functools.partial(k2_call, libs[name], case[1], case[2], *params)
+                elif kernel == "k5":
+                    call = functools.partial(k5_call, libs[name], case[1], case[2], *params)
+                else:
+                    call = functools.partial(k6_call, libs[name], case[1], case[2], *params)
+                checked(name, label, kernel, call, ref, case[2].dtype)
+                ms = cs.device_ms(call, KEYS[kernel], 30)
+                print(f"round {rnd} {name} {label}: device ms {ms!r}", flush=True)
     return 0
 
 

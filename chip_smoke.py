@@ -22,20 +22,25 @@ and prints no result):
    past ``cols``, a sliced and unsorted operand, an empty block row,
    k = 200 and k = 70, the latter sent to the CUDA-core variant by the
    wrapper's rule, and the K4 repack); K5 (ELL SpMV) on the 1024² mesh step (float64), the
-   "random8" matrix (float32) and small odd ELLs; K6 (row sort) on
-   random, tied and float keys, bit for bit; the backwards of K1, K2, K3
-   and K5 against torch's autograd of the plain version on the CPU;
+   "random8" matrix (float32), small odd ELLs (rows not a multiple of a
+   warp's rows, an empty row, width 1, rows wider than 32 slots) and a
+   non-finite x[0], which reaches the pad slots as in the plain version;
+   K6 (row sort) on random, tied and float keys, float keys with +0.0,
+   -0.0 and other ties (also against the plain version on the CPU) and a
+   single row, bit for bit; the backwards of K1, K2, K3 and K5 against
+   torch's autograd of the plain version on the CPU;
 4. timing, with CUDA events, beside each kernel's bound, its plain
-   version and one library call (K2, K3 and K4 also with the profiler's
-   device time per launch, ``device_ms``): K1 at the 4096×4096-grid SpMV
+   version and one library call (K2-K6 also with the profiler's device
+   time per launch, ``device_ms``): K1 at the 4096×4096-grid SpMV
    and the 1024² float64 solve size; K2 at the 2048×1024 grid with 128
    RHS (float32) and at 1024² float64 with 24, 48 and 256 RHS (vector
    variant) and 3 RHS (scalar variant); K3 at n = 4096, k = 512,
    bs = 128, block densities 0.125/0.25/0.5 (bfloat16, tensor cores) and
    in float32 (CUDA cores), and at n = 16384 (bfloat16, float32); K4 at
    the first of those; K5
-   at "random8" (n = 2,097,152, 8 uniform slots per row, float32) and
-   the 1024² mesh step (float64); K6 at 43,750 × 128;
+   at the 1024² mesh step (float64, its main path) and "random8"
+   (n = 2,097,152, 8 uniform slots per row, float32), with the L2 sectors
+   its gathers read; K6 at 43,750 × 128 (int32 and float32 keys);
 5. main paths, each with the launch counts set to 0 just before and read
    just after:
    a. BiCGSTAB and CG at 1024² float64 through ``prepare_spmv`` and K1
@@ -478,18 +483,22 @@ def device_ms(fn, key, reps):
     holds ``key`` over ``reps`` calls of ``fn`` (the time of the kernel
     alone, without the wrapper's host cost that back-to-back calls may
     expose in ``time_ms``).  The average is over the launches the trace
-    recorded, which may miss one of a run."""
+    recorded, which may miss one of a run; a trace that recorded none is
+    taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        sync()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key]
-    launches = sum(e.count for e in events)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and key in e.key]
+        launches = sum(e.count for e in events)
+        if launches:
+            break
     if not 0 < launches <= reps:
         raise AssertionError(f"device_ms: {launches} launches of {key!r} for {reps} calls")
     return sum(e.self_device_time_total for e in events) / 1e3 / launches
@@ -1039,8 +1048,9 @@ def random8_operand():
 
 
 def small_ells():
-    """Odd ELL operands: rows not a multiple of 8, an empty row, width 1,
-    a rectangular shape."""
+    """Odd ELL operands: 45 rows (a multiple of no group's rows per
+    pass), an empty row, width 1, a rectangular shape, rows wider than 32
+    slots."""
     rng = np.random.default_rng(81)
     width1 = np.zeros((45, 37))
     for r in range(45):
@@ -1049,12 +1059,17 @@ def small_ells():
     wide = rng.standard_normal((45, 37))
     wide[rng.random((45, 37)) > 0.15] = 0.0
     wide[3] = 0.0
+    wider = rng.standard_normal((45, 120))
+    wider[rng.random((45, 120)) > 0.45] = 0.0
     out = []
     for dtype in (torch.float32, torch.float64):
-        for label, d in (("45x37 width 1, empty row", width1), ("45x37 random, empty row", wide)):
+        for label, d in (("45x37 width 1, empty row", width1), ("45x37 random, empty row", wide),
+                         ("45x120 rows over 32 slots", wider)):
             ell = from_dense(torch.from_numpy(d).to(dtype), device=DEVICE).to_ell()
-            x = torch.from_numpy(rng.standard_normal(37)).to(DEVICE, dtype)
+            x = torch.from_numpy(rng.standard_normal(d.shape[1])).to(DEVICE, dtype)
             out.append((f"{label} {dtype}", ell, x))
+    if out[2][1].width <= 32:
+        raise AssertionError(f"gate: the wide ELL has width {out[2][1].width}")
     return out
 
 
@@ -1068,10 +1083,29 @@ def gate_ell(name, ell, x):
     return check_rel(name, err, float(ref.abs().max()), GATE_LIMIT[ell.dtype])
 
 
+def gate_ell_nonfinite(name, ell, x):
+    """K5 with x[0] non-finite: every pad slot adds 0·x[0], so NaN and
+    inf land where the plain version puts them; the finite entries agree
+    within the gate's limit."""
+    y = ell_spmv_kernel(ell, x)
+    ref = ell_spmv_plain(ell, x)
+    sync()
+    fin = torch.isfinite(ref)
+    same = torch.equal(torch.isnan(y), torch.isnan(ref)) and torch.equal(
+        torch.isinf(y), torch.isinf(ref)) and torch.equal(y[torch.isinf(ref)], ref[torch.isinf(ref)])
+    log(f"gate {name}: non-finite entries where plain has them {same} "
+        f"({int((~fin).sum())} of {ref.numel()})")
+    if not same or bool(fin.all()):
+        raise AssertionError(f"gate {name}: non-finite entries differ from plain's")
+    err = float((y[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
+    return check_rel(name, err, float(ref[fin].abs().max()) if bool(fin.any()) else 1.0,
+                     GATE_LIMIT[ell.dtype])
+
+
 def gate_grad_ell():
     """K5's backward on the card against torch's autograd of the plain
     version on the CPU (float64, a small odd ELL)."""
-    _, ell, x = small_ells()[3]
+    _, ell, x = small_ells()[4]
     g = rhs_block(ell.rows, 1, torch.float64, 82)[:, 0]
     data = ell.data.clone().requires_grad_(True)
     xg = x.clone().requires_grad_(True)
@@ -1093,25 +1127,49 @@ def sort_case(rows, kind, seed):
         keys = rng.integers(0, 1 << 30, (rows, 128)).astype(np.int32)
     elif kind == "ties":
         keys = rng.integers(0, 8, (rows, 128)).astype(np.int32)
+    elif kind == "zeros":  # float ties, +0.0 against -0.0 among them
+        keys = rng.choice(np.array([-1.0, -0.0, 0.0, 1.0, 2.0], np.float32), (rows, 128))
+    elif kind == "nan":  # NaN and inf bit patterns among the numbers
+        keys = rng.standard_normal((rows, 128)).astype(np.float32)
+        odd = np.array(NAN_AND_INF_BITS, np.uint32).view(np.float32)
+        pick = rng.random((rows, 128)) < 0.2
+        keys[pick] = rng.choice(odd, int(pick.sum()))
     else:
         keys = rng.standard_normal((rows, 128)).astype(np.float32)
     vals = rng.random((rows, 128)).astype(np.float32)
     return torch.from_numpy(keys).to(DEVICE), torch.from_numpy(vals).to(DEVICE)
 
 
-def gate_sort(name, keys, vals):
+# +NaN with every mantissa bit set (the largest int of the order map), the
+# quiet NaN, their negatives (-NaN sorts first), +-inf, +-0.0
+NAN_AND_INF_BITS = (0x7FFFFFFF, 0x7FC00000, 0xFFFFFFFF, 0xFFC00000, 0x7F800000, 0xFF800000,
+                    0x00000000, 0x80000000)
+
+
+def gate_sort(name, keys, vals, on_cpu=False):
     """K6 against its plain version bit for bit (keys and values), and the
-    keys against ``torch.sort``."""
+    keys against ``torch.sort`` as numbers (it may put +0.0 and -0.0 in
+    either order) where no key is NaN (it puts every NaN last).
+    ``on_cpu``: also against the plain version on the CPU, which shows
+    that the function does not depend on the device."""
     ks, vs = sort_rows_kernel(keys, vals)
     pk, pv = sort_rows_plain(keys, vals)
-    lib = torch.sort(keys, dim=1).values
+    nan = bool(torch.isnan(keys).any())
+    lib = None if nan else torch.sort(keys, dim=1).values
     sync()
-    bits = [t.view(torch.int32) for t in (ks, pk, vs, pv, lib)]
+    bits = [t.view(torch.int32) for t in (ks, pk, vs, pv)]
     same = torch.equal(bits[0], bits[1]) and torch.equal(bits[2], bits[3])
-    err = max(float((ks.double() - pk.double()).abs().max()), float((vs.double() - pv.double()).abs().max()))
-    log(f"gate K6 {name}: equal to plain {same}, keys equal to torch.sort {torch.equal(bits[0], bits[4])}, "
-        f"max_abs_err {err!r}")
-    if not (same and torch.equal(bits[0], bits[4])):
+    if on_cpu:
+        ck, cv = sort_rows_plain(keys.cpu(), vals.cpu())
+        same = same and torch.equal(bits[0].cpu(), ck.view(torch.int32)) and torch.equal(
+            bits[2].cpu(), cv.view(torch.int32))
+    num = torch.isfinite(pk)  # NaN and inf keys count by their bits above
+    err = max(float((ks[num].double() - pk[num].double()).abs().nan_to_num(float("inf")).max()),
+              float((vs.double() - pv.double()).abs().max()))
+    lib_same = "not compared (NaN keys)" if nan else torch.equal(ks, lib)
+    log(f"gate K6 {name}: equal to plain {same}{' (card and CPU)' if on_cpu else ''}, keys equal to "
+        f"torch.sort {lib_same}, max_abs_err {err!r}")
+    if not (same and lib_same is not False):
         raise AssertionError(f"gate K6 {name}: differs")
     return err
 
@@ -1121,11 +1179,21 @@ def phase_gate_unstructured(mesh_a, random8):
                      rhs_block(mesh_a.cols, 1, torch.float64, 83)[:, 0].contiguous())]
     errs.append(gate_ell(f"K5 random8 n={RANDOM8_N} float32", random8[1], random8[2]))
     errs += [gate_ell(f"K5 {label}", ell, x) for label, ell, x in small_ells()]
+    for label, ell, x in (e for e in small_ells() if "random" in e[0]):  # ELLs with pad slots
+        for bad in (float("nan"), float("inf")):
+            xb = x.clone()
+            xb[0] = bad
+            errs.append(gate_ell_nonfinite(f"K5 {label} x[0] = {bad}", ell, xb))
     errs.append(gate_grad_ell())
     sort_errs = [
         gate_sort("65 rows int32", *sort_case(65, "int32", 84)),
         gate_sort("65 rows int32 keys in [0, 8)", *sort_case(65, "ties", 85)),
         gate_sort("10 rows float32", *sort_case(10, "float32", 86)),
+        gate_sort("33 rows float32 keys +-0.0 and ties", *sort_case(33, "zeros", 93), on_cpu=True),
+        gate_sort("1 row float32", *sort_case(1, "float32", 94), on_cpu=True),
+        gate_sort("1 row int32 keys in [0, 8)", *sort_case(1, "ties", 95), on_cpu=True),
+        gate_sort("40 rows float32 keys with NaN and inf bit patterns", *sort_case(40, "nan", 96),
+                  on_cpu=True),
         gate_sort(f"{SORT_ROWS} rows int32", *sort_case(SORT_ROWS, "int32", 87)),
         gate_sort(f"{SORT_ROWS} rows float32", *sort_case(SORT_ROWS, "float32", 88)),
     ]
@@ -1134,6 +1202,7 @@ def phase_gate_unstructured(mesh_a, random8):
 
 def timing_ell(label, mat, ell, x, reps):
     ms = time_ms(lambda: ell_spmv_kernel(ell, x), reps)
+    dev_ms = device_ms(lambda: ell_spmv_kernel(ell, x), "ell_spmv", reps)
     plain_ms = time_ms(lambda: ell_spmv_plain(ell, x), max(reps // 5, 3))
     csr = csr_twin(mat)
     lib_err = float((torch.mv(csr, x) - ell_spmv_plain(ell, x)).abs().max())
@@ -1142,9 +1211,12 @@ def timing_ell(label, mat, ell, x, reps):
     # as utils/profile.py::ell_spmv_bytes counts them
     nbytes = ell.rows_pad * ell.width * (4 + size) + (ell.cols + ell.rows_pad) * size
     flops = 2 * ell.rows_pad * ell.width
+    # a diagnostic beside the bound, not the bound: each gather of x (pad
+    # slots included) reads one 32-byte L2 sector
+    sectors = ell.rows * ell.width * 32
     return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, PEAK_FLOPS[ell.dtype],
-                      kernel="ell_spmv", library="torch.mv (CSR)", library_max_abs_err=lib_err,
-                      width=ell.width)
+                      kernel="ell_spmv", device_ms=dev_ms, library="torch.mv (CSR)",
+                      library_max_abs_err=lib_err, width=ell.width, gather_l2_sector_bytes=sectors)
 
 
 def timing_sort(keys, vals, reps):
@@ -1153,20 +1225,25 @@ def timing_sort(keys, vals, reps):
         return s, torch.gather(vals, 1, order)
 
     ms = time_ms(lambda: sort_rows_kernel(keys, vals), reps)
+    dev_ms = device_ms(lambda: sort_rows_kernel(keys, vals), "sort_rows", reps)
     plain_ms = time_ms(lambda: sort_rows_plain(keys, vals), 3)
     library_ms = time_ms(library, reps)
     nbytes = 2 * keys.numel() * (keys.element_size() + vals.element_size())
     flops = 28 * keys.numel()  # one comparison per element per stage
     return timing_row(f"{keys.shape[0]}x128 {keys.dtype} keys, {vals.dtype} vals", ms, plain_ms,
                       library_ms, nbytes, flops, PEAK_FLOPS[torch.float32], kernel="sort_rows",
-                      library="torch.sort(dim=1, stable) + torch.gather")
+                      device_ms=dev_ms, library="torch.sort(dim=1, stable) + torch.gather")
 
 
 def phase_timing_unstructured(mesh_a, random8):
-    rows = {"ell_spmv": timing_ell(f"random8 n={RANDOM8_N} float32", *random8, reps=50)}
-    timing_ell(f"{MESH_SIDE}^2 mesh step float64", mesh_a, ell_from_csmat(mesh_a),
-               rhs_block(mesh_a.cols, 1, torch.float64, 89)[:, 0].contiguous(), reps=200)
+    """K5's row in the kernels line is its main path's, the mesh step;
+    random8's goes beside it."""
+    rows = {"ell_spmv": timing_ell(f"{MESH_SIDE}^2 mesh step float64", mesh_a, ell_from_csmat(mesh_a),
+                                   rhs_block(mesh_a.cols, 1, torch.float64, 89)[:, 0].contiguous(),
+                                   reps=200)}
+    rows["ell_spmv"]["other_shapes"] = [timing_ell(f"random8 n={RANDOM8_N} float32", *random8, reps=50)]
     rows["sort_rows"] = timing_sort(*sort_case(SORT_ROWS, "int32", 90), reps=50)
+    rows["sort_rows"]["other_shapes"] = [timing_sort(*sort_case(SORT_ROWS, "float32", 92), reps=50)]
     return rows
 
 
@@ -1338,6 +1415,11 @@ def main() -> int:
             "shape": row["shape"],
             "card": smi,
         })
+        if "other_shapes" in row:
+            kernels[-1]["other_shapes"] = [
+                {key: other[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+                for other in row["other_shapes"]
+            ]
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

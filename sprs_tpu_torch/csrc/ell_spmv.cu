@@ -1,7 +1,7 @@
 // ELLPACK sparse matrix-vector product for Hopper (sm_90a).
 //
 //     y[r] = sum_j data[r * width + j] * x[indices[r * width + j]],
-//            0 <= r < rows, j = 0 .. width-1 in order,
+//            0 <= r < rows, j = 0 .. width-1,
 //
 // pad slots included (index 0, data 0: they add 0 * x[0], as the plain
 // torch version does, so a non-finite x[0] gives the same result in both).
@@ -17,66 +17,105 @@
 // Bound: bytes.  One call must move rows_pad * width * (4 + sizeof(T))
 // bytes of indices and data, x once and y once (the 1024^2 mesh operator
 // in f64, width 7: 104.9 MB, 31.3 us at 3.35 TB/s), against
-// 2 * rows * width flops.  Design: one thread per row in a grid-stride
-// loop.  A warp's 32 rows are 32 * width contiguous slots of indices and
-// of data, so the lines a warp touches on its first slot are the lines it
-// reads on the next ones: through L1 each byte crosses device memory
-// about once.  x (8 MB for one million f64 unknowns) sits in the 50 MB L2
-// and is read through the read-only path (__ldg); for a mesh whose
-// labels are permuted, each gather is a random 8-byte read that L2
-// serves.  Index math is 64-bit: rows * width overflows int32 above 2^31
-// slots.
+// 2 * rows * width flops.  What the card meets first is L2: each slot's
+// gather is a random read of x that L2 serves as a whole 32-byte sector,
+// 4 to 8 times the bytes it uses (at the mesh step 235 MB of sectors
+// beside the 105 MB streamed; at random8 537 MB).  Design:
+//
+// - a group of G lanes owns a row, G the smallest power of two >= width
+//   (at most 32, chosen by the wrapper; a wider row loops over 32-slot
+//   chunks).  Lane g takes slot g, so a warp's index and data loads are
+//   contiguous runs of the row-major arrays (at width 7: 4 rows x 7
+//   slots per instruction), each line is read by one instruction, every
+//   lane issues its gather at once, and a shuffle tree of log2(G) steps
+//   sums the row.  The tree sums in
+//   another order than the plain version's row sum: the results agree to
+//   rounding (1e-5 of max|y| in f32, 1e-12 in f64);
+// - a group takes one row per pass of its grid-stride loop and the grid
+//   is one wave at full occupancy (32 registers, 8 blocks of 256 per SM):
+//   2048 gathers in flight per SM keep L2 busy.  Cache policies that keep
+//   x in L2 ahead of the streamed operands, and a thread per row with the
+//   width as a template parameter, measured no faster
+//   (benches/torch_kernel_variants.py).
+// Index math is 64-bit: rows * width overflows int32 above 2^31 slots.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-template <typename T>
-__global__ void ell_spmv_kernel(const int* __restrict__ indices,
-                                const T* __restrict__ data,
-                                const T* __restrict__ x, T* __restrict__ y,
-                                long long rows, long long cols, int width) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       r < rows; r += stride) {
+constexpr int kThreads = 256;
+
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+ell_spmv_kernel(const int* __restrict__ indices, const T* __restrict__ data,
+                const T* __restrict__ x, T* __restrict__ y, long long rows,
+                long long cols, int width) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane & (G - 1);
+  // the lanes of this group: every shuffle below stays inside it, and all
+  // of them run the same passes (they share their rows)
+  const unsigned mask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
+  const long long group = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / G;
+  const long long n_groups = (long long)gridDim.x * blockDim.x / G;
+  for (long long r = group; r < rows; r += n_groups) {
     const long long base = r * width;
     T acc = 0;
-    for (int j = 0; j < width; ++j) {
-      long long c = __ldg(&indices[base + j]);
-      c = c < 0 ? 0 : (c >= cols ? cols - 1 : c);
-      acc += __ldg(&data[base + j]) * __ldg(&x[c]);
+    // j - g: the chunk's first slot, the same for every lane of the group
+    for (int j = g; j - g < width; j += G) {
+      if (j < width) {
+        long long c = __ldg(&indices[base + j]);
+        c = c < 0 ? 0 : (c >= cols ? cols - 1 : c);
+        acc += __ldg(&data[base + j]) * __ldg(&x[c]);
+      }
     }
-    y[r] = acc;
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(mask, acc, off);
+    if (g == 0) y[r] = acc;
   }
 }
 
 template <typename T>
 int launch(const void* indices, const void* data, const void* x, void* y,
-           long long rows, long long cols, int width, int grid, int block,
-           void* stream) {
-  if (width < 0 || cols < 1) return (int)cudaErrorInvalidValue;
-  ell_spmv_kernel<T><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int*)indices, (const T*)data, (const T*)x, (T*)y, rows, cols,
-      width);
+           long long rows, long long cols, int width, int lanes, int grid,
+           int block, void* stream) {
+  if (width < 0 || cols < 1 || block != kThreads) return (int)cudaErrorInvalidValue;
+  auto* s = (cudaStream_t)stream;
+  const int* i = (const int*)indices;
+  const T* d = (const T*)data;
+  const T* v = (const T*)x;
+  T* out = (T*)y;
+  switch (lanes) {
+    case 1: ell_spmv_kernel<T, 1><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
+    case 2: ell_spmv_kernel<T, 2><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
+    case 4: ell_spmv_kernel<T, 4><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
+    case 8: ell_spmv_kernel<T, 8><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
+    case 16: ell_spmv_kernel<T, 16><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
+    case 32: ell_spmv_kernel<T, 32><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface, bound with ctypes.  Returns cudaGetLastError() after
-// the launch (0 on success).
+// Plain C interface, bound with ctypes.  `lanes` is G, a power of two up
+// to 32, which the wrapper chooses (ops/cuda/ell_spmv.py::group_lanes) and
+// sizes the grid by; any such G computes the product.  `block` must be 256
+// (kThreads).  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int sprs_ell_spmv_f32(const void* indices, const void* data,
                                  const void* x, void* y, long long rows,
-                                 long long cols, int width, int grid,
-                                 int block, void* stream) {
-  return launch<float>(indices, data, x, y, rows, cols, width, grid, block,
+                                 long long cols, int width, int lanes,
+                                 int grid, int block, void* stream) {
+  return launch<float>(indices, data, x, y, rows, cols, width, lanes, grid, block,
                        stream);
 }
 
 extern "C" int sprs_ell_spmv_f64(const void* indices, const void* data,
                                  const void* x, void* y, long long rows,
-                                 long long cols, int width, int grid,
-                                 int block, void* stream) {
-  return launch<double>(indices, data, x, y, rows, cols, width, grid, block,
+                                 long long cols, int width, int lanes,
+                                 int grid, int block, void* stream) {
+  return launch<double>(indices, data, x, y, rows, cols, width, lanes, grid, block,
                         stream);
 }

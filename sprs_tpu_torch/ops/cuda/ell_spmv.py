@@ -31,16 +31,30 @@ import torch
 from ...errors import ShapeError
 from ...formats.ell import EllMat, ell_spmv
 from . import build
-from .dia_spmv import BLOCK, BLOCKS_PER_SM
+
+BLOCK = 256  # csrc/ell_spmv.cu: kThreads
+# Resident 256-thread blocks per SM at full occupancy (2048 threads).
+BLOCKS_PER_SM = 8
 
 _ENTRY = {torch.float32: "sprs_ell_spmv_f32", torch.float64: "sprs_ell_spmv_f64"}
 
 
-def launch_config(rows: int, n_sm: int) -> Tuple[int, int]:
-    """(grid, block) for ``rows`` output rows on a card with ``n_sm`` SMs:
-    one thread per row, at most one full wave of resident blocks; the
-    kernel's grid-stride loop covers the rest."""
-    blocks = -(-rows // BLOCK)
+def group_lanes(width: int) -> int:
+    """Lanes that share a row: the smallest power of two >= ``width``, at
+    most 32.  The kernel takes it as an argument and the grid is sized by
+    it, so the rule lives only here."""
+    g = 1
+    while g < width and g < 32:
+        g *= 2
+    return g
+
+
+def launch_config(rows: int, width: int, n_sm: int) -> Tuple[int, int]:
+    """(grid, block) for ``rows`` output rows of ``width`` slots on a card
+    with ``n_sm`` SMs: a group of :func:`group_lanes` lanes per row, at
+    most one full wave of resident blocks; the kernel's grid-stride loop
+    covers the rest."""
+    blocks = -(-rows // (BLOCK // group_lanes(width)))
     return max(1, min(blocks, n_sm * BLOCKS_PER_SM)), BLOCK
 
 
@@ -58,7 +72,7 @@ ell_spmv_plain.calls = 0
 def _entry(dtype: torch.dtype):
     fn = getattr(build.load("ell_spmv"), _ENTRY[dtype])
     ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, ll, ll, i, i, i, vp]
+    fn.argtypes = [vp, vp, vp, vp, ll, ll, i, i, i, i, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -96,7 +110,7 @@ def _launch(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
     if ell.cols == 0:
         return y.zero_()
     n_sm = torch.cuda.get_device_properties(data.device).multi_processor_count
-    grid, block = launch_config(ell.rows, n_sm)
+    grid, block = launch_config(ell.rows, ell.width, n_sm)
     err = _entry(data.dtype)(
         idx.data_ptr(),
         data.data_ptr(),
@@ -105,6 +119,7 @@ def _launch(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
         ell.rows,
         ell.cols,
         ell.width,
+        group_lanes(ell.width),
         grid,
         block,
         torch.cuda.current_stream(data.device).cuda_stream,

@@ -14,9 +14,17 @@ holds what surrounds it:
   tensors take the plain version, CUDA tensors launch the kernel or raise.
   Its ``launches`` attribute counts kernel launches.
 
-Both run the same 28 compare-exchange stages with the same tie rule, so
-they agree bit for bit, values under equal keys included.  Keys are
-ordered as numbers; NaN keys have no defined place.  The port's
+Both run the same 28 compare-exchange stages with the JAX package's rule,
+so they agree bit for bit, values under equal keys included.  Keys are
+compared as signed ints: float32 keys through a map of their bits whose
+order is the float order with -0.0 below +0.0, as ``jnp.minimum`` orders
+them; a value moves only where the keys differ as numbers, so -0.0
+against +0.0 moves the keys' bits and not the values (the JAX
+``swap = new_key != key``).  Neither version leans on how a device's
+``minimum`` breaks a tie of +0.0 and -0.0: torch's differs between its
+scalar and vectorised CPU paths.  Both use one map of the bits, so a NaN
+key sorts by its bits as well: after +inf with the sign bit clear, before
+-inf with it set (``torch.sort`` puts every NaN last).  The port's
 ``compress_coo`` sorts with ``torch.sort``, as the JAX one sorts with
 ``lax.sort``: this kernel is on no other path.
 """
@@ -33,25 +41,36 @@ from ...formats.util import round_up
 from . import build
 
 LANES = 128
-BLOCK = 256  # 8 warps, one row each
-# Resident 256-thread blocks per SM at full occupancy (2048 threads).
-BLOCKS_PER_SM = 8
+PER_LANE = 8  # csrc/sort_rows.cu: kPerLane, elements of a row per lane
+ROWS_PER_WARP = 32 // (LANES // PER_LANE)
+BLOCK = 256  # kThreads: 8 warps, 16 rows
+# Resident 256-thread blocks per SM (kMinBlocks).
+BLOCKS_PER_SM = 4
 
 _ENTRY = {torch.int32: "sprs_sort_rows_i32", torch.float32: "sprs_sort_rows_f32"}
 
 
 def launch_config(n_rows: int, n_sm: int) -> Tuple[int, int]:
-    """(grid, block) for ``n_rows`` rows on a card with ``n_sm`` SMs: one
-    warp per row, at most one full wave of resident blocks; the kernel's
-    grid-stride loop over rows covers the rest."""
-    blocks = -(-n_rows // (BLOCK // 32))
+    """(grid, block) for ``n_rows`` rows on a card with ``n_sm`` SMs: 16
+    lanes per row, two rows per warp, at most one full wave of resident
+    blocks; the kernel's grid-stride loop over rows covers the rest."""
+    blocks = -(-n_rows // (BLOCK // 32 * ROWS_PER_WARP))
     return max(1, min(blocks, n_sm * BLOCKS_PER_SM)), BLOCK
 
 
-def _stage(key, val, lane, j, k):
-    """One bitonic compare-exchange stage along the rows: element i meets
-    i ^ j, keeps the min where bits j and k of i agree, else the max, and
-    takes the partner's value only where its key changed."""
+def _order_map(bits: torch.Tensor) -> torch.Tensor:
+    """float32 bit patterns (as int32) -> ints whose signed order is the
+    float order with -0.0 (-1) below +0.0 (0); the map is its own
+    inverse."""
+    return bits ^ ((bits >> 31) & 0x7FFFFFFF)
+
+
+def _stage(key, val, lane, j, k, floats):
+    """One bitonic compare-exchange stage along the rows on ordered keys:
+    element i meets i ^ j, keeps the min where bits j and k of i agree,
+    else the max, and takes the partner's value only where its key
+    changed as a number (for float keys, -0.0 and +0.0 are one number:
+    ordered, they are -1 and 0)."""
     use_lo = (lane & j) == 0
     pk = torch.where(use_lo, torch.roll(key, -j, 1), torch.roll(key, j, 1))
     pv = torch.where(use_lo, torch.roll(val, -j, 1), torch.roll(val, j, 1))
@@ -59,7 +78,10 @@ def _stage(key, val, lane, j, k):
     tk = k.bit_length() - 1
     keep_min = (((lane >> tj) ^ (lane >> tk)) & 1) == 0
     new_key = torch.where(keep_min, torch.minimum(key, pk), torch.maximum(key, pk))
-    return new_key, torch.where(new_key != key, pv, val)
+    changed = new_key != key
+    if floats:
+        changed &= ((new_key ^ (new_key >> 31)) | (key ^ (key >> 31))) != 0
+    return new_key, torch.where(changed, pv, val)
 
 
 def _pad_rows(keys, vals, rows_blk):
@@ -81,14 +103,19 @@ def sort_rows_plain(keys: torch.Tensor, vals: torch.Tensor, *, rows_blk: int = 5
     _check_width(keys, vals)
     n_rows = keys.shape[0]
     key, val = _pad_rows(keys, vals, rows_blk)
+    floats = keys.dtype == torch.float32
+    if floats:
+        key = _order_map(key.view(torch.int32))
     lane = torch.arange(LANES, dtype=torch.int32, device=keys.device).expand(key.shape[0], -1)
     k = 2
     while k <= LANES:
         j = k // 2
         while j >= 1:
-            key, val = _stage(key, val, lane, j, k)
+            key, val = _stage(key, val, lane, j, k, floats)
             j //= 2
         k *= 2
+    if floats:
+        key = _order_map(key).view(torch.float32)
     return key[:n_rows], val[:n_rows]
 
 
@@ -163,9 +190,9 @@ def sort_rows_kernel(keys: torch.Tensor, vals: torch.Tensor, *, rows_blk: int = 
     segments with INT32_MAX / +inf); ``vals`` (4-byte) ride the same
     permutation.  Raises ValueError on another width.  On the CPU the
     plain version pads the rows to a multiple of ``rows_blk`` as the JAX
-    package does; the kernel needs no padding (a warp per row, and no
-    warp for a row that does not exist), so on a CUDA device ``rows_blk``
-    changes nothing.
+    package does; the kernel needs no padding (16 lanes per row, and
+    the lanes of a row that does not exist load and store nothing), so on
+    a CUDA device ``rows_blk`` changes nothing.
     """
     _check_width(keys, vals)
     if keys.device.type == "cpu" and vals.device.type == "cpu":

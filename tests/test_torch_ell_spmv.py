@@ -112,11 +112,36 @@ def test_nonfinite_x0_reaches_pad_slots_as_in_plain():
 
 
 @pytest.mark.parametrize(
-    "rows,n_sm,grid",
-    [(1, 132, 1), (256, 132, 1), (257, 132, 2), (1_048_576, 132, 1056), (2_097_152, 114, 912)],
+    "rows,width,n_sm,grid",
+    [
+        (1, 7, 132, 1),
+        (32, 7, 132, 1),  # 8 lanes per row: 32 rows per block
+        (33, 7, 132, 2),
+        (1_048_576, 7, 132, 1056),  # the mesh step: one wave of 8 blocks per SM
+        (2_097_152, 8, 114, 912),
+        (45, 45, 132, 6),  # a row of 32 lanes: 8 rows per block
+        (300, 1, 132, 2),  # a lane per row: 256 rows per block
+    ],
 )
-def test_launch_config(rows, n_sm, grid):
-    assert launch_config(rows, n_sm) == (grid, k5.BLOCK)
+def test_launch_config(rows, width, n_sm, grid):
+    assert launch_config(rows, width, n_sm) == (grid, k5.BLOCK)
+
+
+@pytest.mark.parametrize(
+    "width,lanes", [(0, 1), (1, 1), (2, 2), (3, 4), (7, 8), (8, 8), (9, 16), (32, 32), (33, 32), (100, 32)]
+)
+def test_group_lanes(width, lanes):
+    assert k5.group_lanes(width) == lanes
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_rows_wider_than_a_warp_match_pallas(dtype):
+    """A row of more than 32 slots (the kernel loops over 32-slot chunks)
+    on 45 rows, not a multiple of any group's rows per pass."""
+    ell, tell, x = operands(45, 120, 0.45, 17, dtype)
+    assert tell.width > 32
+    want = ell_spmv_pallas(ell, x, interpret=True)
+    assert_close(ell_spmv_kernel(tell, torch.from_numpy(x)).numpy(), want, dtype)
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
@@ -156,14 +181,16 @@ def test_launch_checks_refuse_types_and_layouts():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("density", [0.05, 0.2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernel_matches_plain_on_card(dtype):
-    """K5 on the card against its plain version (run where a GPU is)."""
+def test_kernel_matches_plain_on_card(dtype, density):
+    """K5 on the card against its plain version (run where a GPU is); at
+    density 0.2 the rows are wider than 32 slots."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from sprs_tpu_torch import from_dense
 
-    d = torch.from_numpy(random_sparse(300, 257, 0.05, 20, np.float64)).to(dtype)
+    d = torch.from_numpy(random_sparse(300, 257, density, 20, np.float64)).to(dtype)
     ell = from_dense(d, device="cuda").to_ell()
     x = torch.randn(257, dtype=dtype, device="cuda")
     before = ell_spmv_kernel.launches

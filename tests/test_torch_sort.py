@@ -18,20 +18,40 @@ from sprs_tpu_torch.ops.cuda import sort as k6
 from sprs_tpu_torch.ops.cuda.sort import launch_config, sort_rows_kernel, sort_rows_plain
 
 
+# +NaN with every mantissa bit set, the quiet NaN, their negatives,
+# +-inf, +-0.0
+NAN_AND_INF = np.array([0x7FFFFFFF, 0x7FC00000, 0xFFFFFFFF, 0xFFC00000, 0x7F800000, 0xFF800000,
+                        0x00000000, 0x80000000], np.uint32).view(np.float32)
+
+
 def case(kind, rows, seed):
     rng = np.random.default_rng(seed)
     if kind == "int32":
         keys = rng.integers(0, 1 << 30, (rows, 128)).astype(np.int32)
     elif kind == "ties":
         keys = rng.integers(0, 8, (rows, 128)).astype(np.int32)
+    elif kind == "zeros":  # float ties, +0.0 against -0.0 among them
+        keys = rng.choice(np.array([-1.0, -0.0, 0.0, 1.0, 2.0], np.float32), (rows, 128))
+    elif kind == "nan":  # NaN and inf bit patterns among the numbers
+        keys = rng.standard_normal((rows, 128)).astype(np.float32)
+        pick = rng.random((rows, 128)) < 0.2
+        keys[pick] = rng.choice(NAN_AND_INF, int(pick.sum()))
     else:
         keys = rng.standard_normal((rows, 128)).astype(np.float32)
     return keys, rng.random((rows, 128)).astype(np.float32)
 
 
 # the cases of tests/test_pallas.py::TestSortRows, then rows that are not
-# a multiple of a smaller row block
-CASES = [("int32", 65, 40, 512), ("ties", 16, 41, 512), ("float32", 10, 42, 512), ("ties", 37, 43, 16)]
+# a multiple of a smaller row block, float keys with signed zeros and
+# ties, and a single row
+CASES = [
+    ("int32", 65, 40, 512),
+    ("ties", 16, 41, 512),
+    ("float32", 10, 42, 512),
+    ("ties", 37, 43, 16),
+    ("zeros", 16, 48, 512),
+    ("float32", 1, 49, 512),
+]
 
 
 @pytest.mark.parametrize("kind,rows,seed,rows_blk", CASES)
@@ -47,6 +67,42 @@ def test_kernel_on_cpu_equals_pallas(kind, rows, seed, rows_blk):
     for r in range(rows):  # each key keeps its own value
         assert sorted(zip(keys[r].tolist(), vals[r].tolist())) == sorted(
             zip(got_k[r].tolist(), got_v[r].tolist())
+        )
+
+
+def test_plain_orders_signed_zeros_as_jax():
+    """On float keys with +0.0, -0.0 and other ties, the plain version
+    equals the JAX kernel bit for bit: -0.0 sorts below +0.0 as
+    ``jnp.minimum`` orders them, while the values stay where the keys are
+    equal as numbers (the JAX ``swap = new_key != key``)."""
+    keys, vals = case("zeros", 24, 50)
+    want_k, want_v = sort_rows_pallas(jnp.asarray(keys), jnp.asarray(vals), rows_blk=8, interpret=True)
+    got_k, got_v = sort_rows_plain(torch.from_numpy(keys), torch.from_numpy(vals), rows_blk=8)
+    np.testing.assert_array_equal(got_k.numpy().view(np.int32), np.asarray(want_k).view(np.int32))
+    np.testing.assert_array_equal(got_v.numpy(), np.asarray(want_v))
+    for row in got_k.numpy():
+        zeros = np.signbit(row[row == 0])
+        assert zeros.size and np.array_equal(zeros, np.sort(zeros)[::-1])  # every -0.0 first
+
+
+def test_plain_sorts_nan_and_inf_by_the_order_map():
+    """A NaN key has a place: its bits, mapped as every float key is, so
+    +NaN with every mantissa bit set (the largest int of the map) sorts
+    last and -NaN first, and the kernel, which uses the same map, must put
+    it there too.  Each key keeps its own value (+0.0 and -0.0 as one
+    key: between them the bits move and the values stay)."""
+    keys, vals = case("nan", 12, 51)
+    got_k, got_v = sort_rows_plain(torch.from_numpy(keys), torch.from_numpy(vals))
+    bits = keys.view(np.int32)
+    order = np.sort(bits ^ ((bits >> 31) & 0x7FFFFFFF), axis=1)
+    np.testing.assert_array_equal(got_k.numpy().view(np.int32), order ^ ((order >> 31) & 0x7FFFFFFF))
+    assert (got_k.numpy().view(np.uint32)[:, 0] >= 0xFFC00000).all()  # a -NaN in every row
+    one_zero = np.where(bits == np.int32(-(2**31)), 0, bits)
+    got_bits = got_k.numpy().view(np.int32)
+    got_zero = np.where(got_bits == np.int32(-(2**31)), 0, got_bits)
+    for r in range(12):
+        assert sorted(zip(one_zero[r].tolist(), vals[r].tolist())) == sorted(
+            zip(got_zero[r].tolist(), got_v[r].tolist())
         )
 
 
@@ -92,13 +148,13 @@ def test_launch_refusals():
             k6._check(bad_k, bad_v)
 
 
-@pytest.mark.parametrize("rows,n_sm,grid", [(1, 132, 1), (8, 132, 1), (9, 132, 2), (43_750, 132, 1056)])
+@pytest.mark.parametrize("rows,n_sm,grid", [(1, 132, 1), (16, 132, 1), (17, 132, 2), (43_750, 132, 528)])
 def test_launch_config(rows, n_sm, grid):
     assert launch_config(rows, n_sm) == (grid, k6.BLOCK)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["int32", "ties", "float32"])
+@pytest.mark.parametrize("kind", ["int32", "ties", "float32", "zeros", "nan"])
 def test_kernel_equals_plain_on_card(kind):
     """K6 on the card against its plain version, bit for bit (run where a
     GPU is)."""
