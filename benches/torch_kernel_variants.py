@@ -45,7 +45,8 @@ from sprs_tpu_torch.utils import grid_laplacian  # noqa: E402
 
 OUT = build.BUILD_DIR / "variants"
 
-# K3: keep one wgmma group in flight and release the previous stage
+# K3 (wgmma variant): keep one wgmma group in flight and release the
+# previous stage
 K3_PIPELINED = (
     '''    asm volatile("wgmma.wait_group.sync.aligned 0;\\n" ::: "memory");
     if (lane == 0) mbar_arrive(&empty[s]);
@@ -61,6 +62,54 @@ K3_PIPELINED = (
 
 def stages(n):
     return ("constexpr int kTcStages = 4;", f"constexpr int kTcStages = {n};")
+
+
+# K3 (3xTF32 variant): columns per CTA and ring depth
+def tf32_tile(n):
+    return ("constexpr int kTf32TileN = 128;", f"constexpr int kTf32TileN = {n};")
+
+
+def tf32_stages(n):
+    return ("constexpr int kTf32Stages = 3;", f"constexpr int kTf32Stages = {n};")
+
+
+def tf32_threads(n):
+    return ("constexpr int kTf32Threads = 512;", f"constexpr int kTf32Threads = {n};")
+
+
+def tf32_min_blocks(n):
+    return ("constexpr int kTf32MinBlocks = 1;", f"constexpr int kTf32MinBlocks = {n};")
+
+
+# Diagnostics of the 3xTF32 kernel's time (their sums are wrong and are
+# not checked): the split cut out (every part is the raw bits: three MMAs,
+# no split arithmetic), and float32 taken in one pass (one MMA per
+# fragment pair, no split).
+TF32_NO_SPLIT = ("""  if (PASSES == 1) {
+    hi = __float_as_uint(v);
+    return;
+  }""", """  hi = hx = lo = __float_as_uint(v);
+  return;""")
+TF32_ONE_PASS = ("SPRS_BSR_SPMM_TF32_ENTRY(sprs_bsr_spmm_tf32x3_f32, float, 3)",
+                 "SPRS_BSR_SPMM_TF32_ENTRY(sprs_bsr_spmm_tf32x3_f32, float, 1)")
+# Candidates: no per-slice finite check (every slice through the split
+# with the non-finite rule); the k8 loop with its runtime exit on every
+# slice; both together, at 8 warps, are the design of PR 6's variants
+# runs 2 and 3.
+# With them, the split without its non-finite rule (right on finite data
+# only), and every MMA into the row's accumulator with no 32-deep partial
+# sums (its error is reported, not gated).
+TF32_NO_CHECK = (
+    "    const bool mine_finite = fast && PASSES == 3 && fast_stage.finite(stage_a(it), stage_x(it), bs);",
+    "    const bool mine_finite = false;")
+TF32_RUNTIME_DEPTH = [("mma_slice<T, PASSES, true, true>", "mma_slice<T, PASSES, true, false>"),
+                      ("mma_slice<T, PASSES, false, true>", "mma_slice<T, PASSES, false, false>")]
+TF32_FINITE_ONLY = ("  const bool finite = r == r;", "  const bool finite = true;")
+TF32_NO_FLUSH = [
+    ("  if (first) {\n    asm(", "  if (false) {\n    asm("),
+    ("    float part[2][kNTiles][4];\n", "    float (&part)[2][kNTiles][4] = acc;\n"),
+    ("for (int j = 0; j < 4; ++j) acc[mt][nt][j] += part[mt][nt][j];", "for (int j = 0; j < 4; ++j) {}"),
+]
 
 
 def min_blocks(n):
@@ -233,15 +282,35 @@ extern "C" int sprs_ell_spmv_f64(const void* indices, const void* data, const vo
 
 # name -> (kernel, source, replacements, params).  Source: a csrc name,
 # "baseline:<name>" (from --baseline) or "inline:<name>" (held here).
-# Params: K2 (CTAs per SM, rows per run); K5 (layout: "baseline", the
+# Params: K3 (kind: "tc", "tf32x3" or "cuda_core"; columns per CTA; the
+# check against the plain version: "gate" raises past the gate, "report"
+# prints the error, None skips it); K2 (CTAs per SM, rows per run); K5 (layout: "baseline", the
 # earlier C interface without `lanes` and a thread per row, "row", a
 # thread per row, or "group", a group of lanes per row; CTAs per SM); K6
 # (rows per CTA, CTAs per SM).
 VARIANTS = {
-    "k3 as committed (4 stages, 1 CTA/SM)": ("k3", "bsr_spmm", [], None),
-    "k3 pipelined": ("k3", "bsr_spmm", [K3_PIPELINED], None),
-    "k3 pipelined, 3 stages (2 CTAs/SM)": ("k3", "bsr_spmm", [K3_PIPELINED, stages(3)], None),
-    "k3 pipelined, 6 stages": ("k3", "bsr_spmm", [K3_PIPELINED, stages(6)], None),
+    "k3 wgmma as committed (4 stages, 1 CTA/SM)": ("k3", "bsr_spmm", [], ("tc", 128, "gate")),
+    "k3 wgmma pipelined": ("k3", "bsr_spmm", [K3_PIPELINED], ("tc", 128, "gate")),
+    "k3 wgmma pipelined, 3 stages (2 CTAs/SM)": (
+        "k3", "bsr_spmm", [K3_PIPELINED, stages(3)], ("tc", 128, "gate")),
+    "k3 wgmma pipelined, 6 stages": ("k3", "bsr_spmm", [K3_PIPELINED, stages(6)], ("tc", 128, "gate")),
+    "k3 baseline (CUDA cores)": ("k3", "baseline:bsr_spmm", [], ("cuda_core", 64, "gate")),
+    "k3 3xTF32 as committed (16 warps, 128 columns, 3 stages)": ("k3", "bsr_spmm", [], ("tf32x3", 128, "gate")),
+    "k3 3xTF32 8 warps": ("k3", "bsr_spmm", [tf32_threads(256)], ("tf32x3", 128, "gate")),
+    "k3 3xTF32 64 columns": ("k3", "bsr_spmm", [tf32_tile(64)], ("tf32x3", 64, "gate")),
+    "k3 3xTF32 8 warps, 64 columns, 2 CTAs/SM": (
+        "k3", "bsr_spmm", [tf32_threads(256), tf32_tile(64), tf32_min_blocks(2)], ("tf32x3", 64, "gate")),
+    "k3 3xTF32 2 stages": ("k3", "bsr_spmm", [tf32_stages(2)], ("tf32x3", 128, "gate")),
+    "k3 3xTF32 diagnostic: no split": ("k3", "bsr_spmm", [TF32_NO_SPLIT], ("tf32x3", 128, None)),
+    "k3 3xTF32 diagnostic: one pass": ("k3", "bsr_spmm", [TF32_ONE_PASS], ("tf32x3", 128, None)),
+    "k3 3xTF32 no finite check": ("k3", "bsr_spmm", [TF32_NO_CHECK], ("tf32x3", 128, "gate")),
+    "k3 3xTF32 runtime depth": ("k3", "bsr_spmm", TF32_RUNTIME_DEPTH, ("tf32x3", 128, "gate")),
+    "k3 3xTF32 8 warps, no finite check, runtime depth": (
+        "k3", "bsr_spmm", [tf32_threads(256), TF32_NO_CHECK] + TF32_RUNTIME_DEPTH, ("tf32x3", 128, "gate")),
+    "k3 3xTF32 8 warps, finite-only split": (
+        "k3", "bsr_spmm", [tf32_threads(256), TF32_NO_CHECK, TF32_FINITE_ONLY] + TF32_RUNTIME_DEPTH,
+        ("tf32x3", 128, "gate")),
+    "k3 3xTF32 no partial sums": ("k3", "bsr_spmm", TF32_NO_FLUSH, ("tf32x3", 128, "report")),
     "k2 as committed (3 CTAs/SM, 4-row runs)": ("k2", "dia_spmm", [], (3, 4)),
     "k2 2 CTAs/SM": ("k2", "dia_spmm", [min_blocks(2)], (2, 4)),
     "k2 4 CTAs/SM": ("k2", "dia_spmm", [min_blocks(4)], (4, 4)),
@@ -311,7 +380,7 @@ def sass_opcodes(lib):
         name = fn.split(None, 1)[0]
         ops = collections.Counter(
             m.group(1).split(".")[0]
-            for m in re.finditer(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", fn))
+            for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)", fn))
         out[name] = dict(ops.most_common(12), total=sum(ops.values()))
     return out
 
@@ -319,16 +388,31 @@ def sass_opcodes(lib):
 LL, VP, I = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 
 
-def k3_call(lib, bsr, x):
-    fn = lib.sprs_bsr_spmm_tc_bf16
-    fn.argtypes = [VP, VP, VP, VP, VP, VP, LL, LL, LL, I, LL, I, I, VP]
+# K3's kinds: the operand types each takes, its profiler key and its
+# entry point by type
+K3_DTYPES = {"tc": (torch.bfloat16,), "tf32x3": (torch.float32, torch.float64),
+             "cuda_core": (torch.float32, torch.float64)}
+K3_KEYS = {"tc": "bsr_spmm_tc_kernel", "tf32x3": "bsr_spmm_tf32x3_kernel",
+           "cuda_core": "bsr_spmm_kernel<"}
+K3_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+
+
+def k3_call(lib, bsr, x, kind, tile_n, _check):
+    """One launch of a K3 kind: "tc" (wgmma), "tf32x3", or "cuda_core"
+    (PR 5's CUDA-core kernel, in a baseline tree), ``tile_n`` columns
+    per CTA."""
+    tc = kind == "tc"
+    prefix = {"tc": "sprs_bsr_spmm_tc_", "tf32x3": "sprs_bsr_spmm_tf32x3_",
+              "cuda_core": "sprs_bsr_spmm_"}[kind]
+    fn = getattr(lib, prefix + K3_SUFFIX[x.dtype])
+    fn.argtypes = [VP, VP, VP, VP, VP, VP, LL, LL, LL, I] + ([LL] if tc else []) + [I, I, VP]
     k = x.shape[1]
     y = torch.empty((bsr.rows, k), dtype=x.dtype, device=x.device)
     row_ptr, order = bsr.row_order
-    (gx, gy), _ = k3.launch_config(bsr.n_block_rows, k, "tc", bsr.block_size)
+    gx, gy = max(bsr.n_block_rows, 1), max(-(-k // tile_n), 1)
     err = fn(bsr.blocks.data_ptr(), bsr.bcols.data_ptr(), row_ptr.data_ptr(), order.data_ptr(),
-             x.data_ptr(), y.data_ptr(), bsr.rows, bsr.cols, k, bsr.block_size, bsr.cap, gx, gy,
-             torch.cuda.current_stream().cuda_stream)
+             x.data_ptr(), y.data_ptr(), bsr.rows, bsr.cols, k, bsr.block_size,
+             *([bsr.cap] if tc else []), gx, gy, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"launch failed: {err}")
     return y
@@ -379,12 +463,17 @@ def k6_call(lib, keys, vals, rows_per_block, blocks_per_sm):
 
 
 def k3_cases():
-    bf = torch.bfloat16
+    """chip_smoke.py's timing shapes: n 4096 and 16384 in bf16 and f32,
+    n 4096 in f64."""
     out = []
-    for n, seed in ((cs.BSR_N, 40), (cs.BSR_BIG_N, 42)):
-        bsr = bsr_random(seed, (n, n), 128, 0.125, bf, device="cuda")
-        x = cs.rhs_block(n, cs.BSR_K, bf, seed + 1)
-        out.append((f"n={n} k={cs.BSR_K} bs=128 bf16", bsr, x, bsr_spmm_plain(bsr, x).float()))
+    for dtype, ns in ((torch.bfloat16, (cs.BSR_N, cs.BSR_BIG_N)), (torch.float32, (cs.BSR_N, cs.BSR_BIG_N)),
+                      (torch.float64, (cs.BSR_N,))):
+        for n in ns:
+            seed = 40 if n == cs.BSR_N else 42
+            bsr = bsr_random(seed, (n, n), 128, 0.125, dtype, device="cuda")
+            x = cs.rhs_block(n, cs.BSR_K, dtype, seed + 1)
+            out.append((f"n={n} k={cs.BSR_K} bs=128 {K3_SUFFIX[dtype]}", bsr, x,
+                        bsr_spmm_plain(bsr, x).float()))
     return out
 
 
@@ -415,11 +504,13 @@ def k6_cases():
     return out
 
 
-def checked(name, label, kernel, call, ref, x_dtype):
-    """Raise unless the variant's output agrees with the plain version."""
+def checked(name, label, kernel, call, ref, x_dtype, strict=True):
+    """Raise unless the variant's output agrees with the plain version
+    (with ``strict`` false, only print the error)."""
     if kernel == "k3":
         rel = float((call().float() - ref).abs().max() / ref.abs().max())
-        ok = rel <= 2.0**-7
+        ok = rel <= cs.BSR_GATE_LIMIT[x_dtype]
+        print(f"check {name} {label}: rel {rel!r}", flush=True)
     elif kernel == "k6":
         ks, vs = call()
         ok = torch.equal(ks.view(torch.int32), ref[0].view(torch.int32)) and torch.equal(
@@ -429,11 +520,11 @@ def checked(name, label, kernel, call, ref, x_dtype):
         err = float((call() - ref).abs().max())
         rel = err / float(ref.abs().max())
         ok = rel <= cs.GATE_LIMIT[x_dtype]
-    if not ok:
+    if not ok and strict:
         raise AssertionError(f"{name} {label}: rel {rel}")
 
 
-KEYS = {"k2": "dia_spmm_kernel", "k3": "bsr_spmm_tc_kernel", "k5": "ell_spmv", "k6": "sort_rows"}
+KEYS = {"k2": "dia_spmm_kernel", "k5": "ell_spmv", "k6": "sort_rows"}
 
 
 def main() -> int:
@@ -459,16 +550,22 @@ def main() -> int:
             kernel, _, _, params = VARIANTS[name]
             for case in cases[kernel]:
                 label, ref = case[0], case[-1]
+                key = KEYS.get(kernel)
                 if kernel == "k3":
-                    call = functools.partial(k3_call, libs[name], case[1], case[2])
+                    if case[2].dtype not in K3_DTYPES[params[0]]:
+                        continue
+                    call = functools.partial(k3_call, libs[name], case[1], case[2], *params)
+                    key = K3_KEYS[params[0]]
                 elif kernel == "k2":
                     call = functools.partial(k2_call, libs[name], case[1], case[2], *params)
                 elif kernel == "k5":
                     call = functools.partial(k5_call, libs[name], case[1], case[2], *params)
                 else:
                     call = functools.partial(k6_call, libs[name], case[1], case[2], *params)
-                checked(name, label, kernel, call, ref, case[2].dtype)
-                ms = cs.device_ms(call, KEYS[kernel], 30)
+                if kernel != "k3" or params[2] is not None:
+                    checked(name, label, kernel, call, ref, case[2].dtype,
+                            strict=kernel != "k3" or params[2] == "gate")
+                ms = cs.device_ms(call, key, 30)
                 print(f"round {rnd} {name} {label}: device ms {ms!r}", flush=True)
     return 0
 

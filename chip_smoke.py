@@ -17,11 +17,16 @@ and prints no result):
    and scalar variants, each gate checking which one ran); K3 and K4
    (block-sparse SpMM) at block size 8 (odd shapes, an empty block row,
    padding blocks, unsorted blocks) and 128 in float32, bfloat16 and
-   float64, and K3's tensor-core variant in bfloat16 at block sizes 64
-   and 128 (a 1000×900 shape with a partial last block row and X rows
-   past ``cols``, a sliced and unsorted operand, an empty block row,
-   k = 200 and k = 70, the latter sent to the CUDA-core variant by the
-   wrapper's rule, and the K4 repack); K5 (ELL SpMV) on the 1024² mesh step (float64), the
+   float64; K3's wgmma variant in bfloat16 at block sizes 64 and 128 (a
+   1000×900 shape with a partial last block row and X rows past
+   ``cols``, a sliced and unsorted operand, an empty block row, k = 200
+   and k = 70, the latter sent to the 3xTF32 variant by the wrapper's
+   rule, and the K4 repack); K3's 3xTF32 variant in float32 and float64
+   at block sizes 8, 16, 64 and 128 (the 1000×900 shape at an odd k,
+   k = 1 and an aligned k, an X off a 16-byte boundary, a sliced and
+   unsorted operand, an empty block row, the K4 repack), on blocks of
+   magnitudes 2⁻²⁰ to 2²⁰, and on inf and NaN entries, which must land
+   where the plain version puts them; K5 (ELL SpMV) on the 1024² mesh step (float64), the
    "random8" matrix (float32), small odd ELLs (rows not a multiple of a
    warp's rows, an empty row, width 1, rows wider than 32 slots) and a
    non-finite x[0], which reaches the pad slots as in the plain version;
@@ -35,9 +40,9 @@ and prints no result):
    and the 1024² float64 solve size; K2 at the 2048×1024 grid with 128
    RHS (float32) and at 1024² float64 with 24, 48 and 256 RHS (vector
    variant) and 3 RHS (scalar variant); K3 at n = 4096, k = 512,
-   bs = 128, block densities 0.125/0.25/0.5 (bfloat16, tensor cores) and
-   in float32 (CUDA cores), and at n = 16384 (bfloat16, float32); K4 at
-   the first of those; K5
+   bs = 128, block densities 0.125/0.25/0.5 (bfloat16, wgmma) and in
+   float32 and float64 (3xTF32), and at n = 16384 (bfloat16, float32); K4
+   at the first of those; K5
    at the 1024² mesh step (float64, its main path) and "random8"
    (n = 2,097,152, 8 uniform slots per row, float32), with the L2 sectors
    its gathers read; K6 at 43,750 × 128 (int32 and float32 keys);
@@ -52,9 +57,9 @@ and prints no result):
       scalar variant); LOBPCG at 1024² for a fixed 50 iterations (2·50+2
       launches), with a profiler window; the plain versions' call counts
       stay at 0;
-   c. block-sparse products ``BsrMat @ X`` (K3's tensor-core variant)
-      and the grouped product (K4) at n = 4096, k = 512, bs = 128,
-      bfloat16, and ``BsrMat @ X`` in float32 (K3's CUDA-core variant);
+   c. block-sparse products ``BsrMat @ X`` (K3's wgmma variant) and the
+      grouped product (K4) at n = 4096, k = 512, bs = 128, bfloat16, and
+      ``BsrMat @ X`` in float32 (K3's 3xTF32 variant);
    d. the unstructured path: an implicit heat step I + 10·L on a 1024²
       vertex triangle mesh with permuted labels, assembled on the card
       (``tri_mesh_graph_laplacian``, ``eye``, ``+``, ``*``) and held
@@ -113,12 +118,14 @@ from sprs_tpu_torch.ops.cuda.sort import sort_rows_kernel, sort_rows_plain
 from sprs_tpu_torch.utils import dirichlet_laplacian, grid_laplacian, tri_mesh_graph_laplacian
 
 DEVICE = "cuda"
-# H100 SXM data sheet: HBM3 rate; CUDA-core peaks (K1, K2) and the peaks
-# taken for K3's bound (bf16 dense tensor cores, f32 CUDA cores, f64
-# tensor cores).
+# H100 SXM data sheet: HBM3 rate; CUDA-core peaks (K1, K2) and the
+# tensor-core peaks taken for K3's bound: bf16 dense for the wgmma
+# variant, TF32 for the 3xTF32 variant, which takes every product three
+# times (once for bf16, whose values are exact in TF32).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
-BSR_PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.float64: 67e12}
+BF16_TC_FLOPS = 989e12
+TF32_TC_FLOPS = 495e12
 # K1/K2 vs plain: the same sum order over the diagonals; only FMA
 # contraction differs.  Relative to max |y|.
 GATE_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-12}
@@ -152,8 +159,10 @@ BSR_N, BSR_K, BSR_BS = 4096, 512, 128
 BSR_DENSITIES = (0.125, 0.25, 0.5)
 BSR_BIG_N = 16384
 BSR_GROUP = 8
-# the tensor-core variant's gates: both block sizes it takes
+# the wgmma variant's gates: both block sizes it takes
 TC_BLOCK_SIZES = (64, 128)
+# the 3xTF32 variant's gates
+TF32_BLOCK_SIZES = (8, 16, 64, 128)
 # The unstructured path: a 1024² vertex mesh, labels permuted, step
 # I + τL with τ = 10 (scipy's CG took 85 iterations to 1e-8 at this size).
 MESH_SIDE = 1024
@@ -358,7 +367,7 @@ def gate_grads():
                   float(b.abs().max()), 1e-5)
         for label, a, b in (("dblocks", db, db_c), ("dX", dx, dx_c))
     )
-    GATE_ERRS["bsr_spmm_cuda_core"].append(errs["K3"])
+    GATE_ERRS["bsr_spmm_tf32x3"].append(errs["K3"])
     return errs
 
 
@@ -373,29 +382,106 @@ def odd_block_dense(dtype):
     return torch.from_numpy(dense[:45, :37]).to(dtype)
 
 
+def unsorted_slice(bsr, seed):
+    """Block rows 1 and on of ``bsr``, with the blocks shuffled out of
+    row order."""
+    bs = bsr.block_size
+    sliced = bsr.slice_block_rows(bs, bsr.rows)
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(sliced.cap)).to(DEVICE)
+    return BsrMat(sliced.brows[perm], sliced.bcols[perm], sliced.blocks[perm],
+                  sliced.shape, sliced.n_blocks)
+
+
+def without_row_one(bsr):
+    """``bsr`` with block row 1 left with no block."""
+    keep = torch.nonzero(bsr.brows[: bsr.n_blocks] != 1)[:, 0]
+    holed = BsrMat(bsr.brows[keep], bsr.bcols[keep], bsr.blocks[keep], bsr.shape, int(keep.numel()))
+    if int(holed.row_order[0][2] - holed.row_order[0][1]) != 0:
+        raise AssertionError("gate: block row 1 still holds a block")
+    return holed
+
+
+def gate_tf32x3(bs, dtype):
+    """K3's 3xTF32 variant at block size ``bs`` (float32 or float64): the
+    1000×900 shape (a partial last block row, X rows past ``cols``) at
+    k = 201 (rows of X not whole 16 bytes, a partial 128-column tile),
+    k = 256 (16-byte copies) and k = 1 (the SpMV); an X one element off
+    a 16-byte boundary; a sliced and unsorted operand; an empty block
+    row; the K4 repack."""
+    big = bsr_random(80 + bs, (1000, 900), bs, 0.3, dtype, device=DEVICE)
+    x = rhs_block(900, 256, dtype, 81)
+    for k in (201, 256, 1):
+        gate_bsr(f"K3 bs{bs} 1000x900 k={k} {dtype}", bsr_spmm_kernel, big,
+                 x[:, :k].contiguous(), expect="tf32x3")
+    gate_bsr(f"K3 bs{bs} misaligned X {dtype}", bsr_spmm_kernel, big, misaligned_copy(x),
+             expect="tf32x3")
+    gate_bsr(f"K3 bs{bs} sliced+unsorted {dtype}", bsr_spmm_kernel, unsorted_slice(big, 82), x,
+             expect="tf32x3")
+    gate_bsr(f"K3 bs{bs} empty block row {dtype}", bsr_spmm_kernel, without_row_one(big), x,
+             expect="tf32x3")
+    gate_bsr(f"K4 bs{bs} group 4 {dtype}", lambda b, v: bsr_spmm_grouped_kernel(b, v, 4),
+             bsr_group(big, 4), x, counter=bsr_spmm_grouped_kernel, expect="tf32x3")
+
+
+def wide_magnitude(bsr, seed):
+    """``bsr`` with its block entries replaced by ±2^e, e uniform in
+    [-20, 20]."""
+    rng = np.random.default_rng(seed)
+    shape = tuple(bsr.blocks.shape)
+    vals = rng.choice([-1.0, 1.0], shape) * 2.0 ** rng.uniform(-20, 20, shape)
+    blocks = torch.from_numpy(vals).to(DEVICE, bsr.dtype)
+    return BsrMat(bsr.brows, bsr.bcols, blocks, bsr.shape, bsr.n_blocks)
+
+
+def gate_nonfinite(dtype):
+    """K3's 3xTF32 variant on blocks holding +inf, -inf and NaN, against
+    X of small integers with zeros among them (exact in TF32, so their lo
+    is 0: inf·0 must stay out of the cross terms): NaN and ±inf where
+    the plain version puts them, the finite entries within 1e-5 of their
+    max."""
+    bsr = bsr_random(90, (1000, 900), 128, 0.3, dtype, device=DEVICE)
+    blocks = bsr.blocks.clone()
+    blocks[0, 3, 5] = float("inf")
+    blocks[1, 7, 2] = float("-inf")
+    blocks[2, 0, 0] = float("nan")
+    bsr = BsrMat(bsr.brows, bsr.bcols, blocks, bsr.shape, bsr.n_blocks)
+    rng = np.random.default_rng(91)
+    x = torch.from_numpy(rng.integers(-3, 4, (900, 256)).astype(np.float64)).to(DEVICE, dtype)
+    name = f"K3 bs128 inf/NaN {dtype}"
+    before = bsr_spmm_kernel.launches_tf32x3
+    y = bsr_spmm_kernel(bsr, x)
+    ref = bsr_spmm_plain(bsr, x)
+    sync()
+    if bsr_spmm_kernel.launches_tf32x3 != before + 1:
+        raise AssertionError(f"gate {name}: the tf32x3 variant did not launch")
+    for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(mask(y), mask(ref)):
+            raise AssertionError(f"gate {name}: {mask.__name__} differs from the plain version")
+    fin = torch.isfinite(ref)
+    if not (bool(torch.isnan(ref).any()) and bool(torch.isinf(ref).any())):
+        raise AssertionError(f"gate {name}: the fixture gives no NaN or no inf")
+    err = float((y.float() - ref.float())[fin].abs().max())
+    GATE_ERRS["bsr_spmm_tf32x3"].append(
+        check_rel(f"{name} (finite entries)", err, float(ref.float()[fin].abs().max()), 1e-5))
+
+
 def gate_tc(bs):
-    """K3's tensor-core variant at block size ``bs`` (bfloat16): a
-    1000×900 shape with a partial last block row and X rows past
-    ``cols``, at k = 200 (a partial 128-column tile) and k = 70 (rows
-    of X not whole 16 bytes: the rule sends it to the CUDA-core
-    variant); a slice with its blocks shuffled out of row order; block
-    row 1 left with no block; the K4 repack."""
+    """K3's wgmma variant at block size ``bs`` (bfloat16): a 1000×900
+    shape with a partial last block row and X rows past ``cols``, at
+    k = 200 (a partial 128-column tile) and k = 70 (rows of X not whole
+    16 bytes: the rule sends it to the 3xTF32 variant); a slice with its
+    blocks shuffled out of row order; block row 1 left with no block; the
+    K4 repack."""
     bf = torch.bfloat16
     big = bsr_random(25, (1000, 900), bs, 0.3, bf, device=DEVICE)
     for k in (200, 70):
         gate_bsr(f"K3 bs{bs} 1000x900 k={k} bfloat16", bsr_spmm_kernel, big,
-                 rhs_block(900, k, bf, 26 + k), expect="tc" if k % 8 == 0 else "cuda_core")
+                 rhs_block(900, k, bf, 26 + k), expect="tc" if k % 8 == 0 else "tf32x3")
     x = rhs_block(900, 200, bf, 27)
-    sliced = big.slice_block_rows(bs, 1000)
-    perm = torch.from_numpy(np.random.default_rng(28).permutation(sliced.cap)).to(DEVICE)
-    unsorted = BsrMat(sliced.brows[perm], sliced.bcols[perm], sliced.blocks[perm],
-                      sliced.shape, sliced.n_blocks)
-    gate_bsr(f"K3 bs{bs} sliced+unsorted bfloat16", bsr_spmm_kernel, unsorted, x, expect="tc")
-    keep = torch.nonzero(big.brows[: big.n_blocks] != 1)[:, 0]
-    holed = BsrMat(big.brows[keep], big.bcols[keep], big.blocks[keep], big.shape, int(keep.numel()))
-    if int(holed.row_order[0][2] - holed.row_order[0][1]) != 0:
-        raise AssertionError("gate: block row 1 still holds a block")
-    gate_bsr(f"K3 bs{bs} empty block row bfloat16", bsr_spmm_kernel, holed, x, expect="tc")
+    gate_bsr(f"K3 bs{bs} sliced+unsorted bfloat16", bsr_spmm_kernel, unsorted_slice(big, 28), x,
+             expect="tc")
+    gate_bsr(f"K3 bs{bs} empty block row bfloat16", bsr_spmm_kernel, without_row_one(big), x,
+             expect="tc")
     gate_bsr(f"K4 bs{bs} group 4 bfloat16", lambda b, v: bsr_spmm_grouped_kernel(b, v, 4),
              bsr_group(big, 4), x, counter=bsr_spmm_grouped_kernel, expect="tc")
 
@@ -453,6 +539,14 @@ def phase_gate(lap_spmv):
                  bsr_group(big, 4), xb, counter=bsr_spmm_grouped_kernel)
     for bs in TC_BLOCK_SIZES:
         gate_tc(bs)
+    for tdt in (torch.float32, torch.float64):
+        for bs in TF32_BLOCK_SIZES:
+            gate_tf32x3(bs, tdt)
+        for bs in (16, 128):
+            wide = wide_magnitude(bsr_random(85, (1000, 900), bs, 0.3, tdt, device=DEVICE), 86)
+            gate_bsr(f"K3 bs{bs} magnitudes 2^-20..2^20 {tdt}", bsr_spmm_kernel, wide,
+                     rhs_block(900, 256, tdt, 87), expect="tf32x3")
+        gate_nonfinite(tdt)
     grad = gate_grads()
     errs = {name: max(v) for name, v in GATE_ERRS.items()}
     errs["dia_spmv"] = max(k1_errs + [spmv_err, grad["K1"]])
@@ -566,14 +660,22 @@ def torch_bsr_twin(bsr):
     )
 
 
+def bsr_peak(kind, dtype):
+    """The operation rate K3's bound takes: the bf16 tensor cores for the
+    wgmma variant; for the 3xTF32 variant the TF32 tensor cores over its
+    passes (three; one for bfloat16)."""
+    if kind == "tc":
+        return BF16_TC_FLOPS
+    return TF32_TC_FLOPS / (1 if dtype == torch.bfloat16 else 3)
+
+
 def timing_bsr(label, name, fn, bsr, x, reps, product=None):
     """``product``: the matrix whose product ``fn`` computes, where
     ``bsr`` is a repack of it with zero padding blocks; the bound counts
     the product's blocks, not the padding."""
     kind = k3.variant(x.dtype, bsr.block_size, x.shape[1], x.data_ptr(), bsr.blocks.data_ptr())
     ms = time_ms(lambda: fn(bsr, x), reps)
-    key = "bsr_spmm_tc_kernel" if kind == "tc" else "bsr_spmm_kernel<"
-    dev_ms = device_ms(lambda: fn(bsr, x), key, reps)
+    dev_ms = device_ms(lambda: fn(bsr, x), f"bsr_spmm_{kind}_kernel", reps)
     plain_ms = time_ms(lambda: bsr_spmm_plain(bsr, x), max(reps // 5, 3))
     dense = bsr.to_dense()
     library_ms = time_ms(lambda: torch.matmul(dense, x), reps)
@@ -592,7 +694,7 @@ def timing_bsr(label, name, fn, bsr, x, reps, product=None):
     n_blocks = (bsr if product is None else product).n_blocks
     nbytes = (n_blocks * bs * bs + bsr.cols * k + bsr.rows * k) * size
     flops = 2 * n_blocks * bs * bs * k
-    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, BSR_PEAK_FLOPS[x.dtype],
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, bsr_peak(kind, x.dtype),
                       kernel=name, variant=kind, device_ms=dev_ms, library="torch.matmul (dense A)",
                       torch_bsr_ms=lib_bsr_ms, torch_bsr_max_abs_err=lib_bsr_err,
                       torch_bsr_error=lib_bsr, n_blocks=bsr.n_blocks,
@@ -637,16 +739,21 @@ def phase_timing(lap_spmv, spmv_operand):
                 lambda b, v: bsr_spmm_grouped_kernel(b, v, BSR_GROUP), grouped, x, reps=50,
                 product=bsr,
             )
-    bsr = bsr_random(40, (BSR_N, BSR_N), BSR_BS, BSR_DENSITIES[0], torch.float32, device=DEVICE)
-    rows["bsr_spmm_cuda_core"] = timing_bsr(
-        f"n={BSR_N} k={BSR_K} bs={BSR_BS} density {BSR_DENSITIES[0]} float32", "bsr_spmm",
-        bsr_spmm_kernel, bsr, rhs_block(BSR_N, BSR_K, torch.float32, 41), reps=20,
-    )
-    for tdt in (torch.bfloat16, torch.float32):
+    tf32 = []
+    for tdt in (torch.float32, torch.float64):
+        bsr = bsr_random(40, (BSR_N, BSR_N), BSR_BS, BSR_DENSITIES[0], tdt, device=DEVICE)
+        tf32.append(timing_bsr(
+            f"n={BSR_N} k={BSR_K} bs={BSR_BS} density {BSR_DENSITIES[0]} {tdt}", "bsr_spmm",
+            bsr_spmm_kernel, bsr, rhs_block(BSR_N, BSR_K, tdt, 41), reps=20,
+        ))
+    for tdt, row in ((torch.bfloat16, rows["bsr_spmm_tc"]), (torch.float32, tf32[0])):
         bsr = bsr_random(42, (BSR_BIG_N, BSR_BIG_N), BSR_BS, BSR_DENSITIES[0], tdt, device=DEVICE)
         x = rhs_block(BSR_BIG_N, BSR_K, tdt, 43)
-        timing_bsr(f"n={BSR_BIG_N} k={BSR_K} bs={BSR_BS} density {BSR_DENSITIES[0]} {tdt}",
-                   "bsr_spmm", bsr_spmm_kernel, bsr, x, reps=5 if tdt == torch.float32 else 20)
+        big = timing_bsr(f"n={BSR_BIG_N} k={BSR_K} bs={BSR_BS} density {BSR_DENSITIES[0]} {tdt}",
+                         "bsr_spmm", bsr_spmm_kernel, bsr, x, reps=20)
+        row.setdefault("other_shapes", []).append(big)
+    rows["bsr_spmm_tf32x3"] = tf32[0]
+    tf32[0]["other_shapes"].insert(0, tf32[1])
     return rows
 
 
@@ -781,7 +888,7 @@ def reset_counts():
         fn.launches = 0
     dia_spmm_kernel.launches_vector = dia_spmm_kernel.launches_scalar = 0
     for fn in (bsr_spmm_kernel, bsr_spmm_grouped_kernel):
-        fn.launches_tc = fn.launches_cuda_core = 0
+        fn.launches_tc = fn.launches_tf32x3 = 0
     for fn in (dia_spmm_plain, bsr_spmm_plain, ell_spmv_plain, sort_rows_plain):
         fn.calls = 0
 
@@ -894,8 +1001,8 @@ def phase_main_block():
 
 def phase_main_bsr():
     """Block-sparse products at the JAX bench's shape: ``BsrMat @ X``
-    (K3, tensor cores) and the grouped product (K4), four of each, in
-    bfloat16; then ``BsrMat @ X`` in float32 (K3 on the CUDA cores), two."""
+    (K3, wgmma) and the grouped product (K4), four of each, in bfloat16;
+    then ``BsrMat @ X`` in float32 (K3, 3xTF32), two."""
     bsr = bsr_random(60, (BSR_N, BSR_N), BSR_BS, BSR_DENSITIES[0], torch.bfloat16, device=DEVICE)
     grouped = bsr_group(bsr, BSR_GROUP)
     x = rhs_block(BSR_N, BSR_K, torch.bfloat16, 61)
@@ -913,13 +1020,13 @@ def phase_main_bsr():
     wall = time.perf_counter() - t0
     launches = {
         "bsr_spmm_tc": bsr_spmm_kernel.launches_tc,
-        "bsr_spmm_cuda_core": bsr_spmm_kernel.launches_cuda_core,
+        "bsr_spmm_tf32x3": bsr_spmm_kernel.launches_tf32x3,
         "bsr_spmm_grouped": bsr_spmm_grouped_kernel.launches_tc,
     }
-    others = bsr_spmm_grouped_kernel.launches_cuda_core + bsr_spmm_plain.calls
+    others = bsr_spmm_grouped_kernel.launches_tf32x3 + bsr_spmm_plain.calls
     log(f"bsr main path n={BSR_N} k={BSR_K} bs={BSR_BS} bfloat16 and float32: wall {wall!r} s, "
-        f"launches {launches}, K4 on the CUDA cores and plain calls {others}")
-    expected = {"bsr_spmm_tc": 4, "bsr_spmm_cuda_core": 2, "bsr_spmm_grouped": 4}
+        f"launches {launches}, K4 on the 3xTF32 variant and plain calls {others}")
+    expected = {"bsr_spmm_tc": 4, "bsr_spmm_tf32x3": 2, "bsr_spmm_grouped": 4}
     if launches != expected or others != 0:
         raise AssertionError(f"bsr: launches {launches}, expected {expected}; others {others}")
     for y, ref, dtype, limit in [(y, want, torch.bfloat16, 2.0**-7) for y in ys] + [
@@ -1350,7 +1457,7 @@ KERNELS = {
     "dia_spmm_vector": ("sprs_tpu_torch/csrc/dia_spmm.cu", "sprs_tpu/ops/pallas/dia_spmm.py:93"),
     "dia_spmm_scalar": ("sprs_tpu_torch/csrc/dia_spmm.cu", "sprs_tpu/ops/pallas/dia_spmm.py:93"),
     "bsr_spmm_tc": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:69"),
-    "bsr_spmm_cuda_core": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:69"),
+    "bsr_spmm_tf32x3": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:69"),
     "bsr_spmm_grouped": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:258"),
     "ell_spmv": ("sprs_tpu_torch/csrc/ell_spmv.cu", "sprs_tpu/ops/pallas/spmv.py:72"),
     "sort_rows": ("sprs_tpu_torch/csrc/sort_rows.cu", "sprs_tpu/ops/pallas/sort.py:97"),

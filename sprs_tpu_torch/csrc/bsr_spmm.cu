@@ -20,8 +20,9 @@
 // accumulator across steps, so here one CTA owns one output tile (a block
 // row by a tile of X's columns) and walks the row's blocks through the
 // row pointer; K4's grouped layout is one more input of the same kernels.
-// Two variants, chosen by the wrapper's rule (ops/cuda/bsr_spmm.py:
-// ``variant``), each with its own entry points:
+// Both variants run on the tensor cores; the wrapper's rule
+// (ops/cuda/bsr_spmm.py: ``variant``) picks one, each with its own entry
+// points:
 //
 // * bsr_spmm_tc_kernel (bfloat16, bs 64 or 128, k a multiple of 8, X and
 //   the blocks 16-byte aligned).  Bound: bytes at the main shape.  One
@@ -49,16 +50,58 @@
 //   cuTensorMapEncodeTiled is reached through cudaGetDriverEntryPoint, so
 //   the library needs no link against libcuda.
 //
-// * bsr_spmm_kernel (every other case: float32 and float64 operands, any
-//   block size that is a multiple of 8 up to 128, odd widths k, unaligned
-//   X).  It runs on the CUDA cores in float32 (TF32 tensor cores would
-//   put float32 results about 1e-3 off), so it is bound by FMA issue and
-//   shared-memory traffic, not by bytes: 256 threads as 16 x 16, each
-//   holding up to 8 rows x 4 columns of a 64-column tile in registers.
-//   For each block it stages an 8-deep slice of the block (transposed,
-//   padded against bank conflicts) and of the X tile in shared memory,
-//   converting to float32 on the way, then does 32 FMAs per 12
-//   shared-memory reads.
+// * bsr_spmm_tf32x3_kernel (every other case: float32 and float64
+//   operands, bfloat16 that misses TMA's conditions, any block size that
+//   is a multiple of 8 up to 128, any k, any alignment).  Bound:
+//   operations.  The same call in f32 is 2.5 GFLOP against 26.6 MB; the
+//   CUDA cores (67 TFLOP/s) would need 38 us for it.  The tensor cores
+//   take TF32, whose 10-bit mantissa alone puts float32 results about
+//   1e-3 off.  So each operand element v (converted to float32) is split
+//   into hi = v with its low 13 mantissa bits cleared (truncation: hi
+//   never rounds up to inf near FLT_MAX) and lo = v - hi (exact in
+//   float32), rounded to TF32 with cvt.rna; a * b is then taken as
+//   lo_a * hi_b + hi_a * lo_b + hi_a * hi_b, three TF32 MMAs (the scheme
+//   CUTLASS calls 3xTF32), small terms first.  The dropped lo_a * lo_b and
+//   the rounding of lo leave about 2^-21 of each product, float32's own
+//   order, where one pass left 2^-11.  3 x 2.5 GFLOP at the 495 TFLOP/s
+//   TF32 peak is 15.2 us.  wgmma takes TF32 only with both operands
+//   K-major in shared memory, and X is N-major; so warps run mma.sync
+//   m16n8k8, whose fragments are built in registers, and the split is
+//   done as each fragment is read from shared memory.  Design: one CTA of
+//   16 warps per (block row, 128 columns of X); warps tile the bs x 128
+//   output as 4 x 4 tiles of 32 x 32 (two m16 by four n8 MMA tiles; tiles
+//   on rows >= bs are skipped; 16 warps of 32 x 32 hid latency better
+//   than 8 of 32 x 64, within 128 registers).  The row's block indices are
+//   staged in shared memory once.  A 3-stage cp.async ring carries, for each
+//   32-deep slice of a block, the raw A slice (bs x 32) and X slice
+//   (32 x 128) in the operand type, 16 bytes per copy from offsets each
+//   thread fixes at the start (4 or 8 bytes per copy where X or the
+//   blocks are not 16-byte aligned or bs is not a multiple of 32; plain
+//   loads for such bfloat16), X's rows past ``cols`` and columns past k
+//   zero-filled.  Shared rows are padded so that the fragment reads of a
+//   warp hit no bank twice, and within each 8-deep step the MMA's k slots
+//   t and t + 4 take A's columns 2t and 2t + 1 (X's rows likewise), so
+//   A's two slots are one paired read.  The tensor cores truncate when
+//   they add into the float32 accumulator: with one accumulator over a
+//   whole row (up to 1,280 terms at the main shape) the result drifted to
+//   1.3e-5 of max|Y| at n 4096 and 2.3e-5 at n 16384 on the H100, past
+//   the 1e-5 gate; so each 32-deep slice is summed into a fresh partial
+//   accumulator, which is then added into the row's accumulator with
+//   round-to-nearest FADDs (6e-7).  Non-finite operands: lo of +-inf
+//   would be inf - inf = NaN, and hi_a * lo_b with a = inf and a
+//   TF32-exact b (lo_b = 0) would be inf * 0 = NaN where a * b is inf;
+//   so where v is not finite lo = 0 and the hi taken into the cross terms
+//   is 0, and hi_a * hi_b carries inf and NaN as IEEE does (v + 0 first
+//   makes a NaN the canonical NaN, whose payload survives the dropped
+//   bits).  That rule costs three instructions per fragment element, so
+//   each thread checks the copies it made of a slice once they land, the
+//   slice's barrier ORs the answers, and a slice with no inf or NaN takes
+//   the split without it.  On the 16-byte path every slice is 32 deep and
+//   the 8-deep steps unroll without a runtime exit.  bfloat16 values are
+//   exact in TF32: one pass.  What holds it back
+//   (benches/torch_kernel_variants.py): mma.sync's TF32 rate, about 40 %
+//   of wgmma's, three times over; the split; and block rows of unequal
+//   length in a single wave of CTAs.
 //
 // Index math into blocks, X and Y is 64-bit in both.
 
@@ -68,17 +111,6 @@
 #include <stdint.h>
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// CUDA-core variant
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kTileN = 64;     // output columns per CTA
-constexpr int kDepth = 8;      // depth of one staged slice; divides bs
-constexpr int kMaxBs = 128;
-constexpr int kRowsPerThread = kMaxBs / 16;
-constexpr int kColsPerThread = kTileN / 16;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(double v) { return (float)v; }
@@ -99,83 +131,449 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    bsr_spmm_kernel(const T* __restrict__ blocks,
-                    const int* __restrict__ bcols,
-                    const int* __restrict__ row_ptr,
-                    const int* __restrict__ order, const T* __restrict__ x,
-                    T* __restrict__ y, long long rows, long long cols,
-                    long long k, int bs) {
-  __shared__ float a_s[kDepth][kMaxBs + 1];
-  __shared__ float x_s[kDepth][kTileN];
-  const int br = blockIdx.x;
-  const long long c0 = (long long)blockIdx.y * kTileN;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float acc[kRowsPerThread][kColsPerThread];
-#pragma unroll
-  for (int m = 0; m < kRowsPerThread; ++m)
-#pragma unroll
-    for (int n = 0; n < kColsPerThread; ++n) acc[m][n] = 0.f;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int p_end = row_ptr[br + 1];
-  for (int p = row_ptr[br]; p < p_end; ++p) {
-    const int b = order[p];
-    const T* blk = blocks + (long long)b * bs * bs;
-    const long long xrow0 = (long long)bcols[b] * bs;
-    for (int kk = 0; kk < bs; kk += kDepth) {
-      for (int e = threadIdx.x; e < bs * kDepth; e += kThreads) {
-        const int r = e / kDepth, q = e % kDepth;
-        a_s[q][r] = to_f32(blk[(long long)r * bs + kk + q]);
-      }
-      for (int e = threadIdx.x; e < kDepth * kTileN; e += kThreads) {
-        const int q = e / kTileN, cc = e % kTileN;
-        const long long xr = xrow0 + kk + q, xc = c0 + cc;
-        x_s[q][cc] = (xr < cols && xc < k) ? to_f32(x[xr * k + xc]) : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int q = 0; q < kDepth; ++q) {
-        float a[kRowsPerThread], xv[kColsPerThread];
-#pragma unroll
-        for (int m = 0; m < kRowsPerThread; ++m)
-          a[m] = (ty + 16 * m < bs) ? a_s[q][ty + 16 * m] : 0.f;
-#pragma unroll
-        for (int n = 0; n < kColsPerThread; ++n) xv[n] = x_s[q][tx + 16 * n];
-#pragma unroll
-        for (int m = 0; m < kRowsPerThread; ++m)
-#pragma unroll
-          for (int n = 0; n < kColsPerThread; ++n) acc[m][n] += a[m] * xv[n];
-      }
-      __syncthreads();
+// ---------------------------------------------------------------------------
+// 3xTF32 variant (float32, float64; bfloat16 in one pass)
+// ---------------------------------------------------------------------------
+
+constexpr int kTf32Threads = 512;  // 16 warps: 4 along the rows x 4 along the columns
+constexpr int kTf32MinBlocks = 1;  // CTAs per SM the registers are sized for
+constexpr int kTf32TileN = 128;    // output columns per CTA
+constexpr int kTf32Stages = 3;     // depth of the cp.async ring
+constexpr int kTf32Depth = 32;     // depth of one staged slice of a block
+constexpr int kMaxBs = 128;
+constexpr int kWarpRows = 32;  // two m16 tiles
+constexpr int kWarpsN = kTf32Threads / 32 / (kMaxBs / kWarpRows);
+constexpr int kWarpCols = kTf32TileN / kWarpsN;
+constexpr int kNTiles = kWarpCols / 8;
+constexpr int kIdxCache = 256;  // a row's first block indices, staged once
+
+// Shared-row padding in elements.  Within each 8-deep step the MMA's k
+// slots t and t + 4 (t = lane % 4) are taken from columns 2t and 2t + 1
+// of A and rows 2t and 2t + 1 of X (the same permutation of k on both
+// sides, so the product is unchanged): A's two slots are then one paired
+// read.  With these strides the reads of a warp (g = lane / 4 on A's rows
+// and X's columns) fall on distinct banks, within each half warp for
+// 8-byte reads and each quarter warp for 16-byte ones.
+template <typename T>
+struct Tf32Pad {
+  static constexpr int kA = 8, kX = 4;
+};
+template <>
+struct Tf32Pad<double> {
+  static constexpr int kA = 8, kX = 2;
+};
+template <>
+struct Tf32Pad<__nv_bfloat16> {
+  static constexpr int kA = 8, kX = 8;
+};
+
+template <typename T>
+struct Tf32Shape {
+  static constexpr int kSA = kTf32Depth + Tf32Pad<T>::kA;  // A row stride
+  static constexpr int kSX = kTf32TileN + Tf32Pad<T>::kX;  // X row stride
+  static constexpr int kABytes = kMaxBs * kSA * (int)sizeof(T);
+  static constexpr int kStageBytes = kABytes + kTf32Depth * kSX * (int)sizeof(T);
+  static constexpr int kSmem = kTf32Stages * kStageBytes;
+};
+
+// 16 bytes (or ``bytes`` of them, the rest zero-filled) from global to
+// shared memory, asynchronously.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// One element, or a zero where ``ok`` is false.
+__device__ __forceinline__ void copy_elem(float* dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void copy_elem(double* dst, const double* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(ok ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void copy_elem(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                          bool ok) {
+  *dst = ok ? *src : __float2bfloat16(0.f);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Two neighbouring elements of shared memory, as float32.
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const double* p) {
+  const double2 d = *reinterpret_cast<const double2*>(p);
+  return make_float2((float)d.x, (float)d.y);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+// Stages slice [kc, kc + depth) of block ``blk`` (all bs rows) and rows
+// [xrow, xrow + depth) x columns [c0, c0 + kTf32TileN) of X.
+template <typename T>
+__device__ __forceinline__ void stage_slice(T* a_s, T* x_s, const T* blk, const T* x,
+                                            long long xrow, long long cols, long long k,
+                                            long long c0, int bs, int kc, int depth,
+                                            bool vec_a, bool vec_x) {
+  using S = Tf32Shape<T>;
+  constexpr int kV = 16 / sizeof(T);  // elements per 16-byte copy
+  if (vec_a) {
+    const int per_row = depth / kV;
+    for (int e = threadIdx.x; e < bs * per_row; e += kTf32Threads) {
+      const int r = e / per_row, v = e - r * per_row;
+      cp_async16(a_s + r * S::kSA + v * kV, blk + (long long)r * bs + kc + v * kV, 16);
+    }
+  } else {
+    for (int e = threadIdx.x; e < bs * depth; e += kTf32Threads) {
+      const int r = e / depth, q = e - r * depth;
+      copy_elem(a_s + r * S::kSA + q, blk + (long long)r * bs + kc + q, true);
     }
   }
-
-#pragma unroll
-  for (int m = 0; m < kRowsPerThread; ++m) {
-    const int r = ty + 16 * m;
-    const long long row = (long long)br * bs + r;
-    if (r >= bs || row >= rows) continue;
-#pragma unroll
-    for (int n = 0; n < kColsPerThread; ++n) {
-      const long long c = c0 + tx + 16 * n;
-      if (c < k) y[row * k + c] = from_f32<T>(acc[m][n]);
+  if (vec_x) {
+    constexpr int per_row = kTf32TileN / kV;
+    for (int e = threadIdx.x; e < depth * per_row; e += kTf32Threads) {
+      const int q = e / per_row, v = e % per_row;
+      const long long xr = xrow + q, xc = c0 + v * kV;
+      // k is a multiple of kV here, so a vector lies wholly inside or outside
+      const bool ok = xr < cols && xc < k;
+      cp_async16(x_s + q * S::kSX + v * kV, ok ? x + xr * k + xc : x, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < depth * kTf32TileN; e += kTf32Threads) {
+      const int q = e / kTf32TileN, cc = e % kTf32TileN;
+      const long long xr = xrow + q, xc = c0 + cc;
+      const bool ok = xr < cols && xc < k;
+      copy_elem(x_s + q * S::kSX + cc, ok ? x + xr * k + xc : x, ok);
     }
   }
 }
 
+// The same for the common case (X and the blocks 16-byte aligned, k a
+// multiple of 16 bytes, bs a multiple of kTf32Depth): every thread copies
+// fixed 16-byte columns of fixed rows, so its offsets are set once.
 template <typename T>
-int launch(const void* blocks, const int* bcols, const int* row_ptr,
-           const int* order, const void* x, void* y, long long rows,
-           long long cols, long long k, int bs, int grid_x, int grid_y,
-           void* stream) {
-  if (bs < kDepth || bs > kMaxBs || bs % kDepth != 0)
-    return (int)cudaErrorInvalidValue;
+struct FastStage {
+  static constexpr int kV = 16 / sizeof(T);
+  static constexpr int kAVecs = kTf32Depth / kV;  // copies per A row
+  static constexpr int kARows = kTf32Threads / kAVecs;  // A rows per pass
+  static constexpr int kXVecs = kTf32TileN / kV;  // copies per X row
+  static constexpr int kXRows = kTf32Threads / kXVecs;  // X rows per pass
+  int a_src, a_dst, x_dst;
+  long long x_col;
+
+  __device__ FastStage(long long c0, int bs) {
+    using S = Tf32Shape<T>;
+    const int ar = threadIdx.x / kAVecs, av = threadIdx.x % kAVecs;
+    const int xq = threadIdx.x / kXVecs, xv = threadIdx.x % kXVecs;
+    a_src = ar * bs + av * kV;
+    a_dst = ar * S::kSA + av * kV;
+    x_dst = xq * S::kSX + xv * kV;
+    x_col = c0 + xv * kV;
+  }
+
+  __device__ __forceinline__ void operator()(T* a_s, T* x_s, const T* blk, const T* x,
+                                             long long xrow, long long cols, long long k,
+                                             int bs) const {
+    using S = Tf32Shape<T>;
+    const T* src = blk + a_src;
+    for (int r = threadIdx.x / kAVecs; r < bs; r += kARows, src += (long long)kARows * bs)
+      cp_async16(a_s + a_dst + (r - threadIdx.x / kAVecs) * S::kSA, src, 16);
+    const long long xr0 = xrow + threadIdx.x / kXVecs;
+    const T* xsrc = x + xr0 * k + x_col;
+#pragma unroll
+    for (int i = 0; i < kTf32Depth / kXRows; ++i) {
+      const bool ok = x_col < k && xr0 + i * kXRows < cols;
+      cp_async16(x_s + x_dst + i * kXRows * S::kSX, ok ? xsrc + i * kXRows * k : x, ok ? 16 : 0);
+    }
+  }
+
+  // Whether this thread's own copies of a slice are finite as float32
+  // (zero fill is); cp.async.wait_group has made them visible to it.
+  __device__ __forceinline__ bool finite(const T* a_s, const T* x_s, int bs) const {
+    using S = Tf32Shape<T>;
+    const int ar = threadIdx.x / kAVecs;
+    float z = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxBs / kARows; ++i)
+      if (ar + i * kARows < bs) z += zeros(a_s + a_dst + i * kARows * S::kSA);
+#pragma unroll
+    for (int i = 0; i < kTf32Depth / kXRows; ++i) z += zeros(x_s + x_dst + i * kXRows * S::kSX);
+    return z == 0.f;
+  }
+
+  // The sum of v * 0 over one copy's elements: 0, or NaN where any is
+  // +-inf or NaN (summed as a tree, short chains).
+  __device__ __forceinline__ static float zeros(const T* p) {
+    float z[kV / 2];
+#pragma unroll
+    for (int j = 0; j < kV / 2; ++j) {
+      const float2 v = load2(p + 2 * j);
+      z[j] = fmaf(v.y, 0.f, v.x * 0.f);
+    }
+#pragma unroll
+    for (int w = 1; w < kV / 2; w *= 2)
+#pragma unroll
+      for (int j = 0; j + w < kV / 2; j += 2 * w) z[j] += z[j + w];
+    return z[0];
+  }
+};
+
+// The TF32 parts of one operand: hi (low 13 mantissa bits cleared), hx
+// (hi, or 0 where v is not finite: the hi taken into the cross terms) and
+// lo (v - hi rounded to TF32, 0 where v is not finite).  kSafe false: v is
+// known to be finite.  With one pass only hi is used, and a bfloat16 value
+// is its own hi.
+template <int PASSES, bool kSafe>
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& hx, uint32_t& lo) {
+  if (PASSES == 1) {
+    hi = __float_as_uint(v);
+    return;
+  }
+  if (!kSafe) {
+    hi = __float_as_uint(v) & 0xFFFFE000u;
+    hx = hi;
+    asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+    return;
+  }
+  const float w = v + 0.f;  // a NaN becomes the canonical NaN, whose payload TF32 keeps
+  hi = __float_as_uint(w) & 0xFFFFE000u;
+  const float r = w - __uint_as_float(hi);  // exact; NaN where v is +-inf or NaN
+  const bool finite = r == r;
+  hx = finite ? hi : 0u;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(finite ? r : 0.f));
+}
+
+// d (+)= a * b, m16n8k8, TF32 in, float32 accumulate; ``first`` starts
+// from zero instead of d.
+template <bool first>
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if (first) {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f), "f"(0.f),
+          "f"(0.f), "f"(0.f));
+  } else {
+    asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* __restrict__ y, long long row, long long col,
+                                           long long rows, long long k, float v0, float v1) {
+  if (row >= rows) return;
+  if (col < k) y[row * k + col] = from_f32<T>(v0);
+  if (col + 1 < k) y[row * k + col + 1] = from_f32<T>(v1);
+}
+
+// One 32-deep slice (``depth`` deep where kFull is false) of the warp's
+// tile: part = the slice's products, in three passes (or one).  a_s and
+// x_s point at the lane's first A row and X column of the slice; m_ok1:
+// the warp's second m16 tile lies on rows < bs.
+template <typename T, int PASSES, bool kSafe, bool kFull>
+__device__ __forceinline__ void mma_slice(const T* a_s, const T* x_s, int depth, bool m_ok1,
+                                          float (&part)[2][kNTiles][4]) {
+  using S = Tf32Shape<T>;
+#pragma unroll
+  for (int ks = 0; ks < kTf32Depth / 8; ++ks) {
+    if (!kFull && ks * 8 >= depth) break;
+    uint32_t ah[2][4], ax[2][4], al[2][4];
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (mt == 1 && !m_ok1) continue;
+      // a0, a2: row g, k slots t and t + 4; a1, a3: row g + 8
+      const T* p = a_s + mt * 16 * S::kSA + ks * 8;
+      const float2 top = load2(p), bottom = load2(p + 8 * S::kSA);
+      split<PASSES, kSafe>(top.x, ah[mt][0], ax[mt][0], al[mt][0]);
+      split<PASSES, kSafe>(bottom.x, ah[mt][1], ax[mt][1], al[mt][1]);
+      split<PASSES, kSafe>(top.y, ah[mt][2], ax[mt][2], al[mt][2]);
+      split<PASSES, kSafe>(bottom.y, ah[mt][3], ax[mt][3], al[mt][3]);
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) {
+      const T* q = x_s + ks * 8 * S::kSX + nt * 8;
+      uint32_t bh0, bx0, bl0, bh1, bx1, bl1;
+      split<PASSES, kSafe>(to_f32(q[0]), bh0, bx0, bl0);  // k slot t: row 2t
+      split<PASSES, kSafe>(to_f32(q[S::kSX]), bh1, bx1, bl1);  // k slot t + 4: row 2t + 1
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        if (mt == 1 && !m_ok1) continue;
+        if (PASSES == 3) {
+          if (ks == 0)
+            mma_tf32<true>(part[mt][nt], al[mt], bx0, bx1);
+          else
+            mma_tf32<false>(part[mt][nt], al[mt], bx0, bx1);
+          mma_tf32<false>(part[mt][nt], ax[mt], bl0, bl1);
+          mma_tf32<false>(part[mt][nt], ah[mt], bh0, bh1);
+        } else if (ks == 0) {
+          mma_tf32<true>(part[mt][nt], ah[mt], bh0, bh1);
+        } else {
+          mma_tf32<false>(part[mt][nt], ah[mt], bh0, bh1);
+        }
+      }
+    }
+  }
+}
+
+// PASSES: 3 (lo_a hi_b, hi_a lo_b, hi_a hi_b) or 1 (hi_a hi_b: bfloat16).
+template <typename T, int PASSES>
+__global__ void __launch_bounds__(kTf32Threads, kTf32MinBlocks)
+    bsr_spmm_tf32x3_kernel(const T* __restrict__ blocks, const int* __restrict__ bcols,
+                           const int* __restrict__ row_ptr, const int* __restrict__ order,
+                           const T* __restrict__ x, T* __restrict__ y, long long rows,
+                           long long cols, long long k, int bs, bool vec_a, bool vec_x) {
+  using S = Tf32Shape<T>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const bool fast = vec_a && vec_x && bs % kTf32Depth == 0;
+  __shared__ int s_blk[kIdxCache];
+  __shared__ int s_bcol[kIdxCache];
+
+  const int br = blockIdx.x;
+  const long long c0 = (long long)blockIdx.y * kTf32TileN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int wrow = (warp / kWarpsN) * kWarpRows;  // the warp's first row in the block row
+  const int wcol = (warp % kWarpsN) * kWarpCols;  // and first column in the tile
+  const int p0 = row_ptr[br];
+  const int nb = row_ptr[br + 1] - p0;
+  const int chunks = (bs + kTf32Depth - 1) / kTf32Depth;
+  const int n_iters = nb * chunks;
+
+  for (int i = threadIdx.x; i < min(nb, kIdxCache); i += kTf32Threads) {
+    const int b = order[p0 + i];
+    s_blk[i] = b;
+    s_bcol[i] = bcols[b];
+  }
+  __syncthreads();
+
+  auto stage_a = [&](int it) {
+    return reinterpret_cast<T*>(smem + (it % kTf32Stages) * S::kStageBytes);
+  };
+  auto stage_x = [&](int it) {
+    return reinterpret_cast<T*>(smem + (it % kTf32Stages) * S::kStageBytes + S::kABytes);
+  };
+  const FastStage<T> fast_stage(c0, bs);
+  auto issue = [&](int it) {
+    const int p = it / chunks;
+    const int kc = (it - p * chunks) * kTf32Depth;
+    int b, bc;
+    if (p < kIdxCache) {
+      b = s_blk[p];
+      bc = s_bcol[p];
+    } else {
+      b = order[p0 + p];
+      bc = bcols[b];
+    }
+    const T* blk = blocks + (long long)b * bs * bs;
+    if (fast)
+      fast_stage(stage_a(it), stage_x(it), blk + kc, x, (long long)bc * bs + kc, cols, k, bs);
+    else
+      stage_slice<T>(stage_a(it), stage_x(it), blk, x, (long long)bc * bs + kc, cols, k, c0, bs,
+                     kc, min(kTf32Depth, bs - kc), vec_a, vec_x);
+  };
+
+  const bool m_ok[2] = {wrow < bs, wrow + 16 < bs};
+  float acc[2][kNTiles][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kTf32Stages - 1; ++s) {
+    if (s < n_iters) issue(s);
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_iters; ++it) {
+    cp_async_wait<kTf32Stages - 2>();
+    // Slice ``it`` has landed and slice it - 1 is no longer read.  A slice
+    // with no inf or NaN (each thread checks its own copies) takes the
+    // plain split; the generic staging always takes the full one.
+    const bool mine_finite = fast && PASSES == 3 && fast_stage.finite(stage_a(it), stage_x(it), bs);
+    const bool safe = __syncthreads_or(!mine_finite);
+    if (it + kTf32Stages - 1 < n_iters) issue(it + kTf32Stages - 1);
+    cp_async_commit();
+    if (!m_ok[0]) continue;  // a warp wholly on rows >= bs
+    const int depth = min(kTf32Depth, bs - (it % chunks) * kTf32Depth);
+    const T* a_s = stage_a(it) + (wrow + g) * S::kSA + 2 * t;
+    const T* x_s = stage_x(it) + 2 * t * S::kSX + wcol + g;
+    float part[2][kNTiles][4];
+    if (!fast)
+      mma_slice<T, PASSES, true, false>(a_s, x_s, depth, m_ok[1], part);
+    else if (PASSES == 1 || safe)
+      mma_slice<T, PASSES, true, true>(a_s, x_s, depth, m_ok[1], part);
+    else
+      mma_slice<T, PASSES, false, true>(a_s, x_s, depth, m_ok[1], part);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      if (!m_ok[mt]) continue;
+#pragma unroll
+      for (int nt = 0; nt < kNTiles; ++nt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[mt][nt][j] += part[mt][nt][j];
+    }
+  }
+
+  // accumulator j of tile (mt, nt): row wrow + 16 mt + g (+ 8 for j >= 2),
+  // column wcol + 8 nt + 2 t (+ 1 for odd j)
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = wrow + mt * 16 + g;
+    if (!m_ok[mt]) continue;
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) {
+      const long long col = c0 + wcol + nt * 8 + 2 * t;
+      if (r < bs)
+        store_pair<T>(y, (long long)br * bs + r, col, rows, k, acc[mt][nt][0], acc[mt][nt][1]);
+      if (r + 8 < bs)
+        store_pair<T>(y, (long long)br * bs + r + 8, col, rows, k, acc[mt][nt][2],
+                      acc[mt][nt][3]);
+    }
+  }
+}
+
+template <typename T, int PASSES>
+int launch_tf32(const void* blocks, const int* bcols, const int* row_ptr, const int* order,
+                const void* x, void* y, long long rows, long long cols, long long k, int bs,
+                int grid_x, int grid_y, void* stream) {
+  using S = Tf32Shape<T>;
+  if (bs < 8 || bs > kMaxBs || bs % 8 != 0) return (int)cudaErrorInvalidValue;
+  const bool vec_a = reinterpret_cast<uintptr_t>(blocks) % 16 == 0;
+  const bool vec_x = reinterpret_cast<uintptr_t>(x) % 16 == 0 && (k * sizeof(T)) % 16 == 0;
+  static bool attr_set = false;
+  if (!attr_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bsr_spmm_tf32x3_kernel<T, PASSES>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::kSmem);
+    if (err != cudaSuccess) return (int)err;
+    attr_set = true;
+  }
   dim3 grid(grid_x, grid_y);
-  bsr_spmm_kernel<T><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)blocks, bcols, row_ptr, order, (const T*)x, (T*)y, rows, cols,
-      k, bs);
+  bsr_spmm_tf32x3_kernel<T, PASSES><<<grid, kTf32Threads, S::kSmem, (cudaStream_t)stream>>>(
+      (const T*)blocks, bcols, row_ptr, order, (const T*)x, (T*)y, rows, cols, k, bs, vec_a,
+      vec_x);
   return (int)cudaGetLastError();
 }
 
@@ -198,10 +596,6 @@ struct TcShape {
   // ring + the 1024-byte alignment that 128-byte swizzle needs + barriers
   static constexpr int kSmem = kTcStages * kStageBytes + 1024 + 256;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -465,18 +859,19 @@ int launch_tc(const void* blocks, const int* bcols, const int* row_ptr,
 // Plain C interface, bound with ctypes.  All pointers are device
 // pointers; ``row_ptr`` has grid_x + 1 entries (one per block row).
 // Returns cudaGetLastError() after the launch (0 on success).
-#define SPRS_BSR_SPMM_ENTRY(NAME, T)                                        \
-  extern "C" int NAME(const void* blocks, const int* bcols,                 \
-                      const int* row_ptr, const int* order, const void* x,  \
-                      void* y, long long rows, long long cols, long long k, \
-                      int bs, int grid_x, int grid_y, void* stream) {       \
-    return launch<T>(blocks, bcols, row_ptr, order, x, y, rows, cols, k,    \
-                     bs, grid_x, grid_y, stream);                           \
+#define SPRS_BSR_SPMM_TF32_ENTRY(NAME, T, PASSES)                                \
+  extern "C" int NAME(const void* blocks, const int* bcols, const int* row_ptr, \
+                      const int* order, const void* x, void* y, long long rows, \
+                      long long cols, long long k, int bs, int grid_x,          \
+                      int grid_y, void* stream) {                               \
+    return launch_tf32<T, PASSES>(blocks, bcols, row_ptr, order, x, y, rows,    \
+                                  cols, k, bs, grid_x, grid_y, stream);         \
   }
 
-SPRS_BSR_SPMM_ENTRY(sprs_bsr_spmm_f32, float)
-SPRS_BSR_SPMM_ENTRY(sprs_bsr_spmm_bf16, __nv_bfloat16)
-SPRS_BSR_SPMM_ENTRY(sprs_bsr_spmm_f64, double)
+// The 3xTF32 variant: float32 and float64 in three passes, bfloat16 in one.
+SPRS_BSR_SPMM_TF32_ENTRY(sprs_bsr_spmm_tf32x3_f32, float, 3)
+SPRS_BSR_SPMM_TF32_ENTRY(sprs_bsr_spmm_tf32x3_f64, double, 3)
+SPRS_BSR_SPMM_TF32_ENTRY(sprs_bsr_spmm_tf32x3_bf16, __nv_bfloat16, 1)
 
 // The tensor-core variant: bf16 only, bs 64 or 128, ``cap`` the number of
 // stored blocks (the blocks are read as a (cap * bs, bs) matrix).

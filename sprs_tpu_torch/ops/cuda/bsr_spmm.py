@@ -17,13 +17,14 @@ about it.  This module holds what surrounds it:
 
 The plain version is ``formats/bsr.py::bsr_spmm_plain``.  Each wrapper
 takes it for tensors on the CPU; tensors on a CUDA device launch a
-kernel or raise — never both.  The source has two kernels, and
-:func:`variant` picks one by an explicit rule: the tensor-core kernel
-("tc": bfloat16, block size 64 or 128, k a multiple of 8, X and the
-blocks 16-byte aligned, as TMA needs) or the CUDA-core kernel
-("cuda_core": everything else, float32 and float64 among it).  Each
-wrapper's ``launches`` counts its launches, and ``launches_tc`` and
-``launches_cuda_core`` those of each variant.  The kernels read the
+kernel or raise — never both.  The source has two kernels, both on the
+tensor cores, and :func:`variant` picks one by an explicit rule: the
+wgmma kernel ("tc": bfloat16, block size 64 or 128, k a multiple of 8,
+X and the blocks 16-byte aligned, as TMA needs) or the 3xTF32 kernel
+("tf32x3": everything else, float32 and float64 among it, in three TF32
+passes that hold float32 accuracy; bfloat16 in one).  Each wrapper's
+``launches`` counts its launches, and ``launches_tc`` and
+``launches_tf32x3`` those of each variant.  The kernels read the
 block-row pointer that :attr:`BsrMat.row_order` builds once per matrix,
 so they take the blocks in any order.  The launch configuration is
 computed here in Python (:func:`launch_config`) so the CPU tests reach
@@ -44,26 +45,25 @@ from ...formats.bsr import BsrMat, bsr_spmm_plain
 from ...formats.util import INDEX_DTYPE
 from . import build
 
-THREADS = 256
-TILE_N = 64  # output columns per CTA (csrc/bsr_spmm.cu: kTileN)
-DEPTH = 8  # depth of one staged slice: bs must be a multiple of it
+THREADS = 512  # 16 warps in the 3xTF32 kernel (csrc/bsr_spmm.cu: kTf32Threads)
+TILE_N = 128  # output columns per CTA of both kernels (kTf32TileN, kTcTileN)
+BLOCK_MULTIPLE = 8  # block sizes are multiples of an MMA's depth
 MAX_BLOCK = 128
-TC_TILE_N = 128  # output columns per CTA of the tensor-core kernel
 TC_BLOCK_SIZES = (64, 128)  # one or two 64-row wgmma tiles
 
 _ENTRY = {
-    torch.float32: "sprs_bsr_spmm_f32",
-    torch.bfloat16: "sprs_bsr_spmm_bf16",
-    torch.float64: "sprs_bsr_spmm_f64",
+    torch.float32: "sprs_bsr_spmm_tf32x3_f32",
+    torch.bfloat16: "sprs_bsr_spmm_tf32x3_bf16",
+    torch.float64: "sprs_bsr_spmm_tf32x3_f64",
 }
 _TC_ENTRY = "sprs_bsr_spmm_tc_bf16"
 
 
 def variant(dtype: torch.dtype, bs: int, k: int, x_ptr: int, blocks_ptr: int) -> str:
-    """"tc" (the tensor-core kernel) for bfloat16 at block size 64 or 128
+    """"tc" (the wgmma kernel) for bfloat16 at block size 64 or 128
     when TMA can read X and the blocks: rows of X of whole 16 bytes (k a
     multiple of 8) and both starting on 16-byte boundaries; else
-    "cuda_core"."""
+    "tf32x3"."""
     if (
         dtype == torch.bfloat16
         and bs in TC_BLOCK_SIZES
@@ -72,17 +72,15 @@ def variant(dtype: torch.dtype, bs: int, k: int, x_ptr: int, blocks_ptr: int) ->
         and blocks_ptr % 16 == 0
     ):
         return "tc"
-    return "cuda_core"
+    return "tf32x3"
 
 
 def launch_config(n_block_rows: int, k: int, kind: str, bs: int) -> Tuple[Tuple[int, int], int]:
     """((grid_x, grid_y), block): one CTA per (block row, column tile of
-    X): 64 columns and 256 threads on the CUDA cores; 128 columns and
-    bs / 64 consumer warpgroups plus one producer warp on the tensor
-    cores."""
-    if kind == "tc":
-        return (max(n_block_rows, 1), max(-(-k // TC_TILE_N), 1)), 128 * (bs // 64) + 32
-    return (max(n_block_rows, 1), max(-(-k // TILE_N), 1)), THREADS
+    X): 128 columns in both; 16 warps in the 3xTF32 kernel, bs / 64
+    consumer warpgroups plus one producer warp in the wgmma kernel."""
+    grid = (max(n_block_rows, 1), max(-(-k // TILE_N), 1))
+    return grid, 128 * (bs // 64) + 32 if kind == "tc" else THREADS
 
 
 @functools.lru_cache(maxsize=None)
@@ -113,9 +111,9 @@ def _launch(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, counter) -> torc
             f"X of the same type, got {blocks.dtype} and {x.dtype}"
         )
     bs = bsr.block_size
-    if bs % DEPTH or not DEPTH <= bs <= MAX_BLOCK:
+    if bs % BLOCK_MULTIPLE or not BLOCK_MULTIPLE <= bs <= MAX_BLOCK:
         raise ShapeError(
-            f"bsr_spmm kernel takes block sizes that are multiples of {DEPTH} "
+            f"bsr_spmm kernel takes block sizes that are multiples of {BLOCK_MULTIPLE} "
             f"up to {MAX_BLOCK}, got {bs}"
         )
     if not (blocks.is_contiguous() and x.is_contiguous() and bsr.bcols.is_contiguous()):
@@ -149,7 +147,7 @@ def _launch(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, counter) -> torc
     if kind == "tc":
         counter.launches_tc += 1
     else:
-        counter.launches_cuda_core += 1
+        counter.launches_tf32x3 += 1
     return y
 
 
@@ -202,7 +200,7 @@ def bsr_spmm_kernel(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
 
 bsr_spmm_kernel.launches = 0
 bsr_spmm_kernel.launches_tc = 0
-bsr_spmm_kernel.launches_cuda_core = 0
+bsr_spmm_kernel.launches_tf32x3 = 0
 
 
 def bsr_spmv_kernel(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
@@ -253,4 +251,4 @@ def bsr_spmm_grouped_kernel(bsr: BsrMat, x: torch.Tensor, group: int = 8) -> tor
 
 bsr_spmm_grouped_kernel.launches = 0
 bsr_spmm_grouped_kernel.launches_tc = 0
-bsr_spmm_grouped_kernel.launches_cuda_core = 0
+bsr_spmm_grouped_kernel.launches_tf32x3 = 0

@@ -328,10 +328,12 @@ def test_from_arrays_round_trip():
         from_arrays("bsr", (8, 8), (np.zeros(1), np.zeros(1), np.zeros((1, 8, 8))), device="cpu")
 
 
-@pytest.mark.parametrize("nbr,k,grid", [(1, 1, (1, 1)), (32, 512, (32, 8)), (4, 65, (4, 2))])
+@pytest.mark.parametrize("nbr,k,grid", [(1, 1, (1, 1)), (32, 512, (32, 4)), (4, 65, (4, 1))])
 def test_launch_config(nbr, k, grid):
-    assert launch_config(nbr, k, "cuda_core", 8) == (grid, k3.THREADS)
-    assert launch_config(nbr, k, "cuda_core", 128) == (grid, k3.THREADS)
+    """The 3xTF32 kernel: one CTA of 16 warps per (block row, 128 columns
+    of X), whatever the block size."""
+    assert launch_config(nbr, k, "tf32x3", 8) == (grid, k3.THREADS)
+    assert launch_config(nbr, k, "tf32x3", 128) == (grid, k3.THREADS)
 
 
 @pytest.mark.parametrize(
@@ -355,20 +357,108 @@ def test_launch_config_tensor_cores(nbr, k, bs, grid, threads):
         (torch.bfloat16, 128, 512, 0, 0, "tc"),
         (torch.bfloat16, 64, 200, 0, 0, "tc"),
         (torch.bfloat16, 128, 8, 16, 32, "tc"),
-        (torch.bfloat16, 128, 70, 0, 0, "cuda_core"),  # rows of 140 bytes
-        (torch.bfloat16, 128, 1, 0, 0, "cuda_core"),  # bsr_spmv_kernel
-        (torch.bfloat16, 8, 64, 0, 0, "cuda_core"),
-        (torch.bfloat16, 32, 64, 0, 0, "cuda_core"),
-        (torch.float32, 128, 512, 0, 0, "cuda_core"),  # TF32 would cost 1e-3
-        (torch.float64, 128, 512, 0, 0, "cuda_core"),
-        (torch.bfloat16, 128, 512, 2, 0, "cuda_core"),  # X off 16 bytes
-        (torch.bfloat16, 128, 512, 0, 8, "cuda_core"),  # blocks off 16 bytes
+        (torch.bfloat16, 128, 70, 0, 0, "tf32x3"),  # rows of 140 bytes
+        (torch.bfloat16, 128, 1, 0, 0, "tf32x3"),  # bsr_spmv_kernel
+        (torch.bfloat16, 8, 64, 0, 0, "tf32x3"),
+        (torch.bfloat16, 32, 64, 0, 0, "tf32x3"),
+        (torch.float32, 128, 512, 0, 0, "tf32x3"),
+        (torch.float64, 128, 512, 0, 0, "tf32x3"),
+        (torch.bfloat16, 128, 512, 2, 0, "tf32x3"),  # X off 16 bytes
+        (torch.bfloat16, 128, 512, 0, 8, "tf32x3"),  # blocks off 16 bytes
+        (torch.float32, 8, 512, 0, 0, "tf32x3"),
+        (torch.float64, 16, 512, 0, 0, "tf32x3"),
+        (torch.float32, 128, 1, 0, 0, "tf32x3"),
+        (torch.float32, 64, 512, 4, 0, "tf32x3"),  # X off 16 bytes
     ],
 )
 def test_variant_rule(dtype, bs, k, x_off, b_off, kind):
-    """The tensor-core kernel takes bfloat16 at bs 64 or 128 when TMA can
-    read X and the blocks; the rest goes to the CUDA-core kernel."""
+    """The wgmma kernel takes bfloat16 at bs 64 or 128 when TMA can read X
+    and the blocks; the rest goes to the 3xTF32 kernel."""
     assert k3.variant(dtype, bs, k, 4096 + x_off, 8192 + b_off) == kind
+
+
+def tf32_parts(v):
+    """The 3xTF32 kernel's split of float32 values (csrc/bsr_spmm.cu,
+    ``split``): hi with the low 13 mantissa bits cleared, hx (hi, or 0
+    where v is not finite) and lo = v - hi rounded to TF32 (to nearest,
+    ties away from zero), 0 where v is not finite; a NaN's hi is the
+    canonical NaN."""
+    finite = torch.isfinite(v)
+    hi = (v.view(torch.int32) & -0x2000).view(torch.float32)
+    lo = torch.where(finite, v - hi, torch.zeros_like(v))
+    lo = ((lo.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    hx = torch.where(finite, hi, torch.zeros_like(v))
+    hi = torch.where(torch.isnan(v), torch.full_like(v, float("nan")), hi)
+    return hi, hx, lo
+
+
+def tf32x3_model(bsr, x, passes=3):
+    """The kernel's arithmetic in plain torch: per block, lo_a·hx_x +
+    hx_a·lo_x + hi_a·hi_x (or hi_a·hi_x alone, one pass), each product
+    and sum in float32, then summed per block row.  Products are taken
+    elementwise, so inf·0 gives NaN as on the tensor cores."""
+    bs, k = bsr.block_size, x.shape[1]
+    xp = x.new_zeros((bsr.n_block_cols * bs, k))
+    xp[: bsr.cols] = x
+    xb = xp.reshape(bsr.n_block_cols, bs, k)[bsr.bcols.long()].float()
+    (ah, ax, al), (bh, bx, bl) = tf32_parts(bsr.blocks.float()), tf32_parts(xb)
+
+    def prod(a, b):
+        return (a[:, :, :, None] * b[:, None, :, :]).sum(2)
+
+    prods = prod(ah, bh)
+    if passes == 3:
+        prods = prod(al, bx) + prod(ax, bl) + prods
+    out = prods.new_zeros((bsr.n_block_rows, bs, k))
+    out.index_add_(0, bsr.brows.long(), prods)
+    return out.reshape(-1, k)[: bsr.rows]
+
+
+def wide_magnitude_dense(seed):
+    """Block entries sign·2^e, e uniform in [-20, 20]."""
+    rng = np.random.default_rng(seed)
+    d = random_block_dense(4, 5, 16, 0.6, seed)[:60, :75]
+    mag = 2.0 ** rng.uniform(-20, 20, d.shape)
+    return (np.sign(d) * mag).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["normal", "wide"])
+def test_tf32x3_model_holds_the_float32_gate(case):
+    """Three TF32 passes hold 1e-5 of max|Y| against the JAX reference
+    taken in float64; one pass does not."""
+    if case == "normal":
+        d = random_block_dense(4, 5, 16, 0.6, seed=30)[:60, :75]
+    else:
+        d = wide_magnitude_dense(31)
+    x = np.random.default_rng(32).standard_normal((75, 12))
+    want = np.asarray(bsr_spmm_xla(jax_bsr_from_dense(d.astype(np.float64), 16), x))
+    t = bsr_from_dense(d, 16, device="cpu")
+    xt = torch.from_numpy(x.astype(np.float32))
+    scale = float(np.abs(want).max())
+    err3 = float(np.abs(tf32x3_model(t, xt).numpy() - want).max())
+    err1 = float(np.abs(tf32x3_model(t, xt, passes=1).numpy() - want).max())
+    assert err3 <= 1e-5 * scale
+    assert err1 > 1e-5 * scale
+
+
+def test_tf32x3_model_puts_inf_and_nan_where_plain_does():
+    """An inf and a NaN block entry against X of small integers (exact in
+    TF32, so lo = 0: a naive split would give inf·0 = NaN where the
+    product is inf), zeros among them (inf·0 = NaN as IEEE)."""
+    d = random_block_dense(4, 5, 16, 0.6, seed=33)[:60, :75]
+    rows, cols = np.nonzero(d)
+    d[rows[3], cols[3]] = np.inf
+    d[rows[-5], cols[-5]] = -np.inf
+    d[rows[40], cols[40]] = np.nan
+    x = np.random.default_rng(34).integers(-3, 4, (75, 12)).astype(np.float32)
+    t = bsr_from_dense(d, 16, device="cpu")
+    xt = torch.from_numpy(x)
+    got, want = tf32x3_model(t, xt), bsr_spmm_plain(t, xt)
+    for mask in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(mask(got), mask(want))
+    assert bool(torch.isinf(want).any()) and bool(torch.isnan(want).any())
+    fin = torch.isfinite(want)
+    assert float((got - want)[fin].abs().max()) <= 1e-5 * float(want[fin].abs().max())
 
 
 def test_launch_refuses_what_the_kernel_does_not_take():
@@ -376,11 +466,11 @@ def test_launch_refuses_what_the_kernel_does_not_take():
     x = torch.zeros((16, 2))
     with pytest.raises(ValueError, match="CUDA"):
         k3._launch(t, t.blocks, x, bsr_spmm_kernel)
-    counts = [(f.launches, f.launches_tc, f.launches_cuda_core)
+    counts = [(f.launches, f.launches_tc, f.launches_tf32x3)
               for f in (bsr_spmm_kernel, bsr_spmm_grouped_kernel)]
     bsr_spmm_kernel(t, x)  # CPU tensors: the plain version, no launch
     bsr_spmm_grouped_kernel(bsr_group(t, 2), x, group=2)
-    assert counts == [(f.launches, f.launches_tc, f.launches_cuda_core)
+    assert counts == [(f.launches, f.launches_tc, f.launches_tf32x3)
                       for f in (bsr_spmm_kernel, bsr_spmm_grouped_kernel)]
     with pytest.raises(ShapeError):
         bsr_spmm_kernel(t, torch.zeros((15, 2)))
@@ -436,3 +526,30 @@ def test_tensor_core_variant_matches_plain_on_card(bs):
         assert fn.launches_tc == before + 1
         err = float((y.float() - ref.float()).abs().max())
         assert err <= 2.0**-7 * float(ref.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("bs", [8, 16, 64, 128])
+def test_tf32x3_variant_matches_plain_on_card(bs, dtype):
+    """K3's 3xTF32 variant on the card against the plain version, within
+    1e-5 of max|Y|: an odd k, k = 1, an X off a 16-byte boundary,
+    shuffled blocks and the K4 repack (run where a GPU is)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    t = bsr_random(4, (1000, 900), bs, 0.3, dtype, device="cuda")
+    perm = torch.randperm(t.cap, device="cuda")
+    shuffled = BsrMat(t.brows[perm], t.bcols[perm], t.blocks[perm], t.shape, t.n_blocks)
+    x = torch.randn((900, 201), device="cuda").to(dtype)
+    off = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")[1:].view(x.shape)
+    off.copy_(x)  # one element past a 16-byte boundary
+    for fn, b, xx in ((bsr_spmm_kernel, t, x), (bsr_spmm_kernel, t, x[:, :1].contiguous()),
+                      (bsr_spmm_kernel, t, off), (bsr_spmm_kernel, shuffled, x),
+                      (bsr_spmm_grouped_kernel, bsr_group(t, 4), x)):
+        before = fn.launches_tf32x3
+        y = fn(b, xx)
+        ref = bsr_spmm_plain(b, xx)
+        torch.cuda.synchronize()
+        assert fn.launches_tf32x3 == before + 1
+        err = float((y.float() - ref.float()).abs().max())
+        assert err <= 1e-5 * float(ref.float().abs().max())
