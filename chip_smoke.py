@@ -45,7 +45,8 @@ and prints no result):
    at the first of those; K5
    at the 1024² mesh step (float64, its main path) and "random8"
    (n = 2,097,152, 8 uniform slots per row, float32), with the L2 sectors
-   its gathers read; K6 at 43,750 × 128 (int32 and float32 keys);
+   its gathers read; K6 at 43,750 × 128 (int32 and float32 keys); SpGEMM
+   (not a kernel) at the JAX bench's three points;
 5. main paths, each with the launch counts set to 0 just before and read
    just after:
    a. BiCGSTAB and CG at 1024² float64 through ``prepare_spmv`` and K1
@@ -68,12 +69,28 @@ and prints no result):
       against the same CG over the plain version, then a profiler
       window;
    e. K6 through its own entry point on 43,750 rows of 128;
+   f. the SpGEMM path: L = kron(I, T) + kron(T, I) at side 1024 (equal to
+      ``dirichlet_laplacian``), the biharmonic step A = I + L @ L through
+      ``spgemm`` (equal to scipy's), A permuted by ``transform_mat_papt``
+      (symmetric), GMRES(30) on the permuted A through K5 (ELL, width 13)
+      and on A through K1 (DIA), each with 1 + cycles·31 launches and the
+      plain versions' calls 0; the JAX bench's SpGEMM points against
+      scipy, the 140.6M-product one also in at least 4 row chunks (the
+      same arrays), and its dense-route BSR product times X through K3's
+      3xTF32 variant (1 launch);
 6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
    step against a dense solve;
    LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
    2·iters+2 K2 launches) and ``svds(k=4)`` on the random band against
-   ``torch.linalg.svdvals`` (4·iters+5 K2 launches);
-7. the kernels line, then the last line
+   ``torch.linalg.svdvals`` (4·iters+5 K2 launches); GMRES on a
+   convection–diffusion operator at 32², LSQR on a Tikhonov system at 32²
+   and the sparse-iterate BiCGSTAB at 16² against dense solves, and the
+   stacks and permutations against their dense equivalents;
+7. the SpGEMM line (phase 4's SpGEMM rows: the port at the JAX bench's
+   three points beside ``torch.sparse.mm`` and scipy, the split of its
+   device time, its peak memory per product, and at the densest point
+   the dense route and the break-even that sets
+   ``AUTO_DENSE_PRODUCTS_PER_MAC``), the kernels line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -91,14 +108,40 @@ import numpy as np
 import torch
 
 from sprs_tpu_torch.formats.bsr import BsrMat, bsr_from_dense, bsr_random, bsr_spmm_plain
-from sprs_tpu_torch.formats.csmat import eye, from_dense
+from sprs_tpu_torch.formats.csmat import diags, eye, from_dense
+from sprs_tpu_torch.formats.csvec import csvec
 from sprs_tpu_torch.formats.dia import dia_to_csmat
 from sprs_tpu_torch.formats.ell import EllMat, ell_from_csmat
 from sprs_tpu_torch.formats.triplet import coo_to_csmat
-from sprs_tpu_torch.formats.util import round_up
+from sprs_tpu_torch.formats.util import compress_coo, round_up
 from sprs_tpu_torch.interop import from_arrays
-from sprs_tpu_torch.linalg import bicgstab, cg, expm_multiply, lobpcg, svds
-from sprs_tpu_torch.ops import prepare_spmm, prepare_spmv
+from sprs_tpu_torch.linalg import (
+    bicgstab,
+    bicgstab_sparse,
+    cg,
+    expm_multiply,
+    gmres,
+    lobpcg,
+    lsqr,
+    svds,
+)
+from sprs_tpu_torch.ops import (
+    Permutation,
+    block_diag,
+    bmat,
+    hstack,
+    is_symmetric,
+    kronecker_product,
+    permute_cols,
+    permute_rows,
+    prepare_spmm,
+    prepare_spmv,
+    spgemm,
+    spmv,
+    transform_mat_papt,
+    transform_mat_paq,
+    vstack,
+)
 from sprs_tpu_torch.ops.cuda import build
 from sprs_tpu_torch.ops.cuda import bsr_spmm as k3
 from sprs_tpu_torch.ops.cuda import dia_spmm as k2
@@ -115,7 +158,17 @@ from sprs_tpu_torch.ops.cuda.dia_spmv import (
 )
 from sprs_tpu_torch.ops.cuda.ell_spmv import ell_spmv_kernel, ell_spmv_plain
 from sprs_tpu_torch.ops.cuda.sort import sort_rows_kernel, sort_rows_plain
-from sprs_tpu_torch.utils import dirichlet_laplacian, grid_laplacian, tri_mesh_graph_laplacian
+from sprs_tpu_torch.ops.spgemm import (
+    _exact_prod_count,
+    _expand_products,
+    _matmul_precision,
+    _free_bytes,
+    _spgemm_chunked,
+    chunk_bounds,
+    chunk_product_budget,
+    dense_bytes_budget,
+)
+from sprs_tpu_torch.utils import dirichlet_laplacian, grid_laplacian, rand_csr, tri_mesh_graph_laplacian
 
 DEVICE = "cuda"
 # H100 SXM data sheet: HBM3 rate; CUDA-core peaks (K1, K2) and the
@@ -174,6 +227,28 @@ RANDOM8_N = 2**21
 RANDOM8_SLOTS = 8
 # The row count of the JAX sort kernel's TPU measurement (5.6M elements).
 SORT_ROWS = 43750
+# SpGEMM at the JAX bench's points (benches/spgemm_bench.py), on its own
+# operands rand_csr(shape_a, d, seed=0) @ rand_csr(shape_b, d, seed=1) in
+# float32 (:111-113): the largest point of the quick shape sweep, density
+# 4/n (:391-395), and the density sweep at (15000, 25000) @ (25000, 15000)
+# (:372-389).
+SPGEMM_POINTS = (
+    ((150000, 150000), (150000, 150000), 4.0 / 150000),
+    ((15000, 25000), (25000, 15000), 1e-3),
+    ((15000, 25000), (25000, 15000), 5e-3),
+)
+SPGEMM_REPS = 5
+# the forced-chunk run at the last point: at least this many row chunks
+SPGEMM_MIN_CHUNKS = 4
+# the bench's tolerance against scipy (spgemm_bench.py:212-213)
+SPGEMM_RTOL, SPGEMM_ATOL = 1e-4, 1e-5
+# X of the chained product C_bsr @ X at the last point
+CHAIN_K = 256
+# The implicit biharmonic step I + τL² (τ = 1) on the side² Dirichlet
+# grid: L @ L is 26M products, 13.6M entries; cond(A) <= 1 + 8² = 65.
+BIHARM_SIDE = 1024
+GMRES_RESTART = 30
+GMRES_MAX_ITER = 3000
 
 
 def log(msg: str) -> None:
@@ -889,7 +964,7 @@ def reset_counts():
     dia_spmm_kernel.launches_vector = dia_spmm_kernel.launches_scalar = 0
     for fn in (bsr_spmm_kernel, bsr_spmm_grouped_kernel):
         fn.launches_tc = fn.launches_tf32x3 = 0
-    for fn in (dia_spmm_plain, bsr_spmm_plain, ell_spmv_plain, sort_rows_plain):
+    for fn in (dia_spmv_plain, dia_spmm_plain, bsr_spmm_plain, ell_spmv_plain, sort_rows_plain):
         fn.calls = 0
 
 
@@ -1451,6 +1526,414 @@ def check_small_mesh():
         raise AssertionError(f"small cg mesh: route {route}, rel err {rel}, launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# the sparse-ops slice: SpGEMM, the biharmonic step, the dense-route chain
+# ---------------------------------------------------------------------------
+
+
+def median_ms(fn, reps):
+    """Median of ``reps`` CUDA-event timings of ``fn``, after one call."""
+    fn()
+    sync()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        sync()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def peak_bytes(fn):
+    """(result of ``fn``, the device memory it allocated at its peak above
+    what was allocated before)."""
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    sync()
+    return out, torch.cuda.max_memory_allocated() - base
+
+
+def top_device_ops(fn, n=8):
+    """The profiler's ``n`` largest device operations over one call of
+    ``fn``: [name, count, ms]."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    return [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in ops[:n]]
+
+
+def check_spgemm_against_scipy(label, c, ref):
+    """C's indptr and indices equal scipy's after ``sort_indices``, its data
+    within the JAX bench's rtol / atol."""
+    ref.sort_indices()
+    nnz = c.nnz
+    same = (c.cap == nnz and np.array_equal(c.indptr.cpu().numpy(), ref.indptr)
+            and np.array_equal(c.indices[:nnz].cpu().numpy(), ref.indices))
+    data = c.data[:nnz].cpu().numpy()
+    err = float(np.abs(data - ref.data).max()) if nnz else 0.0
+    close = bool(np.allclose(data, ref.data, rtol=SPGEMM_RTOL, atol=SPGEMM_ATOL))
+    log(f"spgemm {label} vs scipy: nnz {nnz}, indptr and indices equal {same}, data max_abs_err "
+        f"{err!r} within rtol {SPGEMM_RTOL} / atol {SPGEMM_ATOL}: {close}")
+    if not (same and close):
+        raise AssertionError(f"spgemm {label}: differs from scipy")
+
+
+def spgemm_point(shape_a, shape_b, density):
+    """The timing row of one bench point (phase 4) and its check against
+    scipy (phase 5f); returns (row, a, b, C)."""
+    label = f"{shape_a[0]}x{shape_a[1]} @ {shape_b[0]}x{shape_b[1]} d={density:g} float32"
+    t0 = time.perf_counter()
+    a = rand_csr(shape_a, density, seed=0, dtype=np.float32, device=DEVICE)
+    b = rand_csr(shape_b, density, seed=1, dtype=np.float32, device=DEVICE)
+    sync()
+    setup_s = time.perf_counter() - t0
+    prods = _exact_prod_count(a, b)
+    c, peak = peak_bytes(lambda: spgemm(a, b))
+    ms = median_ms(lambda: spgemm(a, b), SPGEMM_REPS)
+    expand_ms = median_ms(lambda: _expand_products(a, b, prods), 3)
+    rows, cols, vals, _ = _expand_products(a, b, prods)
+    compress_ms = median_ms(lambda: compress_coo(rows, cols, (vals,), prods, a.rows, b.cols, prods), 3)
+    del rows, cols, vals
+    top = top_device_ops(lambda: spgemm(a, b))
+    ta, tb = csr_twin(a), csr_twin(b)
+    lib = torch.sparse.mm(ta, tb)
+    lib_nnz = int(lib._nnz())
+    del lib
+    library_ms = median_ms(lambda: torch.sparse.mm(ta, tb), SPGEMM_REPS)
+    del ta, tb
+    a_sp, b_sp = a.to_scipy(), b.to_scipy()
+    scipy_s = []
+    for _ in range(1 if prods > 5e7 else 3):
+        t0 = time.perf_counter()
+        ref = a_sp @ b_sp
+        scipy_s.append(time.perf_counter() - t0)
+    row = {
+        "shape": label,
+        "nnz_a": a.nnz,
+        "nnz_b": b.nnz,
+        "products": prods,
+        "nnz_c": c.nnz,
+        "ms": ms,
+        "expand_ms": expand_ms,
+        "sort_compress_ms": compress_ms,
+        "esc_products_per_s": prods / (ms / 1e3),
+        "peak_bytes": peak,
+        "peak_bytes_per_product": peak / max(prods, 1),
+        "library_ms": library_ms,
+        "library": "torch.sparse.mm (CSR @ CSR)",
+        "library_nnz": lib_nnz,
+        "scipy_ms": float(np.median(scipy_s)) * 1e3,
+        "operands_setup_s": setup_s,
+        "top_device_ops": top,
+    }
+    check_spgemm_against_scipy(label, c, ref)
+    return row, a, b, c
+
+
+def phase_spgemm():
+    """Phase 4's SpGEMM rows and phase 5f's SpGEMM checks at the JAX
+    bench's points; at the densest one the forced-chunk run, the dense
+    route with the break-even it gives, and the chain C_bsr @ X through
+    K3.  Returns (rows, K3's 3xTF32 launches on the chain)."""
+    rows = []
+    for shape_a, shape_b, density in SPGEMM_POINTS[:-1]:
+        row, *_ = spgemm_point(shape_a, shape_b, density)
+        log(f"timing spgemm {json.dumps(row)}")
+        rows.append(row)
+    row, a, b, c = spgemm_point(*SPGEMM_POINTS[-1])
+
+    # the same product in at least SPGEMM_MIN_CHUNKS row chunks
+    budget = -(-row["products"] // SPGEMM_MIN_CHUNKS)
+    n_chunks = len(chunk_bounds(a, b, budget))
+    t0 = time.perf_counter()
+    chunked = _spgemm_chunked(a, b, budget)
+    sync()
+    chunked_s = time.perf_counter() - t0
+    same = chunked.cap == c.cap and all(
+        torch.equal(x, y) for x, y in ((chunked.indptr, c.indptr), (chunked.indices, c.indices),
+                                       (chunked.data, c.data)))
+    log(f"spgemm {row['shape']} in {n_chunks} chunks of at most {budget} products: {chunked_s!r} s, "
+        f"arrays equal to the one-shot result {same}")
+    if n_chunks < SPGEMM_MIN_CHUNKS or not same:
+        raise AssertionError(f"spgemm chunked: {n_chunks} chunks, equal {same}")
+    del chunked
+    row["chunked_s"], row["chunks"] = chunked_s, n_chunks
+
+    # the dense route and the break-even products / multiply-add
+    m, k = a.shape
+    n = b.cols
+    macs = m * k * n
+    c_bsr, dense_peak = peak_bytes(lambda: spgemm(a, b, method="dense", out_format="bsr"))
+    dense_ms = median_ms(lambda: spgemm(a, b, method="dense", out_format="bsr"), SPGEMM_REPS)
+    ad, bd = a.to_dense(), b.to_dense()
+    with _matmul_precision("highest"):
+        matmul_ms = median_ms(lambda: torch.matmul(ad, bd), SPGEMM_REPS)
+    del ad, bd
+    row.update({
+        "dense_bsr_ms": dense_ms,
+        "dense_peak_bytes": dense_peak,
+        "dense_peak_per_byte": dense_peak / ((m * k + k * n + m * n) * 4),
+        "dense_matmul_ms": matmul_ms,
+        "dense_mac_per_s": macs / (matmul_ms / 1e3),
+        "products_per_mac_break_even": (dense_ms / macs) / (row["ms"] / row["products"]),
+        # the budgets spgemm takes from the card's free memory now
+        "free_bytes": _free_bytes(a.device),
+        "chunk_product_budget": chunk_product_budget(a.device),
+        "dense_bytes_budget": dense_bytes_budget(a.device),
+    })
+    log(f"timing spgemm {json.dumps(row)}")
+    rows.append(row)
+    launches = phase_main_dense_chain(c_bsr, c)
+    return rows, launches
+
+
+def phase_main_dense_chain(c_bsr, c_esc):
+    """C_bsr (the dense route's block result, bs 128, 15000 rows: a
+    partial last block row) times X of CHAIN_K float32 columns through
+    ``matmul``: K3's 3xTF32 variant, one launch; Y against the plain
+    version (K3's 1e-5 gate) and C_bsr against the ESC result."""
+    if c_bsr.block_size != 128 or c_bsr.rows % 128 == 0:
+        raise AssertionError(f"dense chain: block size {c_bsr.block_size}, rows {c_bsr.rows}")
+    x = rhs_block(c_bsr.cols, CHAIN_K, torch.float32, 95)
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    y = c_bsr @ x
+    sync()
+    wall = time.perf_counter() - t0
+    launches = bsr_spmm_kernel.launches_tf32x3
+    others = bsr_spmm_kernel.launches_tc + bsr_spmm_plain.calls
+    ref = bsr_spmm_plain(c_bsr, x)
+    err = float((y - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    close = bool(torch.allclose(c_bsr.to_dense(), c_esc.to_dense(), rtol=SPGEMM_RTOL, atol=SPGEMM_ATOL))
+    log(f"dense chain C_bsr ({c_bsr.n_blocks} blocks of 128) @ X {c_bsr.cols}x{CHAIN_K} float32: "
+        f"wall {wall!r} s, K3 3xTF32 launches {launches}, other launches and plain calls {others}, "
+        f"vs plain rel {rel!r} (limit 1e-5); C_bsr within rtol {SPGEMM_RTOL} / atol {SPGEMM_ATOL} "
+        f"of the ESC product: {close}")
+    if launches != 1 or others != 0:
+        raise AssertionError(f"dense chain: {launches} tf32x3 launches, {others} others")
+    if y.shape != (c_bsr.rows, CHAIN_K) or not rel <= 1e-5 or not close:
+        raise AssertionError(f"dense chain: rel {rel}, C_bsr close {close}")
+    GATE_ERRS.setdefault("bsr_spmm_tf32x3", []).append(err)
+    return launches
+
+
+def check_exact_against_scipy(name, mat, ref):
+    ref.sort_indices()
+    nnz = mat.nnz
+    same = (mat.cap == nnz and np.array_equal(mat.indptr.cpu().numpy(), ref.indptr)
+            and np.array_equal(mat.indices[:nnz].cpu().numpy(), ref.indices)
+            and np.array_equal(mat.data[:nnz].cpu().numpy(), ref.data))
+    log(f"{name} vs scipy: nnz {nnz}, indptr, indices and data equal {same}")
+    if not same:
+        raise AssertionError(f"{name}: differs from scipy")
+
+
+def gmres_launch_count(res):
+    """The products GMRES makes: one for A·x0, then per cycle one per
+    Arnoldi step and one residual."""
+    return 1 + (res.iterations // GMRES_RESTART) * (GMRES_RESTART + 1)
+
+
+def phase_main_biharmonic():
+    """Phase 5f's biharmonic step (see the module note).  Returns the
+    launches of K5 (permuted step) and K1 (the step itself)."""
+    import scipy.sparse as sp
+
+    side = BIHARM_SIDE
+    n = side * side
+    sync()
+    t0 = time.perf_counter()
+    t = diags([-1.0, 2.0, -1.0], [-1, 0, 1], (side, side), device=DEVICE)
+    i = eye(side, torch.float64, device=DEVICE)
+    lap = kronecker_product(i, t) + kronecker_product(t, i)
+    sync()
+    t1 = time.perf_counter()
+    lap2 = lap @ lap
+    sync()
+    t2 = time.perf_counter()
+    a = eye(n, torch.float64, device=DEVICE) + 1.0 * lap2
+    sync()
+    t3 = time.perf_counter()
+    ref_lap = dirichlet_laplacian((side, side), device=DEVICE)
+    same = lap.cap == ref_lap.cap and all(torch.equal(x, y) for x, y in (
+        (lap.indptr, ref_lap.indptr), (lap.indices, ref_lap.indices), (lap.data, ref_lap.data)))
+    log(f"biharmonic {side}^2: kron(I,T) + kron(T,I) {t1 - t0!r} s, equal to dirichlet_laplacian "
+        f"{same}; L @ L {t2 - t1!r} s ({lap2.nnz} entries); I + L@L {t3 - t2!r} s")
+    if not same:
+        raise AssertionError("biharmonic: the Kronecker sum differs from dirichlet_laplacian")
+    del ref_lap, lap2
+    ls = lap.to_scipy()
+    ref_a = (sp.identity(n, format="csr") + ls @ ls).tocsr()
+    check_exact_against_scipy(f"biharmonic A = I + L@L {side}^2", a, ref_a)
+    del ls, ref_a
+
+    perm = Permutation.from_array(np.random.default_rng(96).permutation(n), device=DEVICE)
+    t0 = time.perf_counter()
+    ap = transform_mat_papt(a, perm)
+    sym = is_symmetric(ap)
+    sync()
+    log(f"biharmonic P·A·Pᵀ: {time.perf_counter() - t0!r} s (symmetry check included), symmetric {sym}")
+    if not sym:
+        raise AssertionError("biharmonic: P·A·Pᵀ is not symmetric")
+    b = torch.from_numpy(np.random.default_rng(97).standard_normal(n)).to(DEVICE)
+    bp = perm @ b  # A x = b  <=>  (P·A·Pᵀ)(P x) = P b
+    b_norm = float(torch.linalg.vector_norm(b))
+
+    fn, prepared = prepare_spmv(ap)
+    route = ROUTE_OF[type(prepared).__name__]
+    if route != "ell" or prepared.width != 13:
+        raise AssertionError(f"biharmonic P·A·Pᵀ routed to {route}, width {getattr(prepared, 'width', None)}")
+    if ROUTE_OF[type(prepare_spmv(a)[1]).__name__] != "dia":
+        raise AssertionError("biharmonic A does not route to dia")
+    sync()
+    out = {}
+    for label, mat, rhs, kernel, plain in (
+        ("permuted, ELL (K5)", ap, bp, ell_spmv_kernel, ell_spmv_plain),
+        ("unpermuted, DIA (K1)", a, b, dia_spmv_kernel, dia_spmv_plain),
+    ):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = gmres(mat, rhs, tol=SOLVE_TOL, restart=GMRES_RESTART, max_iter=GMRES_MAX_ITER)
+        sync()
+        wall = time.perf_counter() - t0
+        launches, plain_calls = kernel.launches, plain.calls
+        # the same solve over an operator prepared beforehand: the loop's
+        # own time, without the host routing that gmres(mat) runs first
+        mv, op = prepare_spmv(mat)
+        sync()
+        t0 = time.perf_counter()
+        gmres(lambda v: mv(op, v), rhs, tol=SOLVE_TOL, restart=GMRES_RESTART, max_iter=GMRES_MAX_ITER)
+        sync()
+        loop_ms = (time.perf_counter() - t0) / max(res.iterations, 1) * 1e3
+        true_res = float(torch.linalg.vector_norm(rhs - spmv(mat, res.x)))
+        expected = gmres_launch_count(res)
+        log(f"gmres({GMRES_RESTART}) biharmonic {side}^2 {label}: iterations {res.iterations} converged "
+            f"{res.converged} wall {wall!r} s (prepare_spmv included), {loop_ms!r} ms per iteration "
+            f"over the prepared operator, true residual {true_res!r} "
+            f"(limit {SOLVE_TOL * b_norm!r}), launches {launches} (expected {expected}), plain calls "
+            f"{plain_calls}")
+        if not (res.converged and true_res <= SOLVE_TOL * b_norm and bool(torch.isfinite(res.x).all())):
+            raise AssertionError(f"gmres biharmonic {label}: converged {res.converged}, residual {true_res}")
+        if launches != expected or plain_calls != 0:
+            raise AssertionError(f"gmres biharmonic {label}: {launches} launches, {plain_calls} plain calls")
+        out[label] = (res, launches)
+    res_p, k5 = out["permuted, ELL (K5)"]
+    res_a, k1 = out["unpermuted, DIA (K1)"]
+    ref = gmres(lambda v: ell_spmv_plain(prepared, v), bp, tol=SOLVE_TOL, restart=GMRES_RESTART,
+                max_iter=GMRES_MAX_ITER)
+    scale = float(res_p.x.abs().max())
+    rel_plain = float((res_p.x - ref.x).abs().max()) / scale
+    rel_carried = float((res_p.x - perm @ res_a.x).abs().max()) / scale
+    log(f"gmres biharmonic permuted x vs the GMRES over ell_spmv_plain ({ref.iterations} iterations): "
+        f"rel {rel_plain!r}; vs the unpermuted solution carried through p: rel {rel_carried!r} "
+        f"(limits 1e-6)")
+    if not (rel_plain <= 1e-6 and rel_carried <= 1e-6):
+        raise AssertionError(f"gmres biharmonic: rel {rel_plain}, {rel_carried}")
+    return k5, k1
+
+
+def check_small_sparse_ops():
+    """Phase 6's sparse-ops checks on the card, each against a dense
+    equivalent: GMRES on a convection–diffusion operator (32²), LSQR on a
+    Tikhonov system (32²), the sparse-iterate BiCGSTAB from a point source
+    (16²), and the stacks and permutations."""
+    def conv_diff(side):
+        i = eye(side, torch.float64, device=DEVICE)
+        d = diags([1.0, -1.0], [0, -1], (side, side), device=DEVICE)
+        return dirichlet_laplacian((side, side), device=DEVICE) + (
+            kronecker_product(i, d) + kronecker_product(d, i)) * 0.4
+
+    rng = np.random.default_rng(98)
+    k = conv_diff(32)
+    b = torch.from_numpy(rng.standard_normal(k.rows)).to(DEVICE)
+    res = gmres(k, b, tol=SOLVE_TOL, restart=GMRES_RESTART, max_iter=GMRES_MAX_ITER)
+    ref = torch.linalg.solve(k.to_dense(), b)
+    rel = float((res.x - ref).abs().max() / ref.abs().max())
+    log(f"small gmres 32^2 convection-diffusion vs dense solve: iterations {res.iterations}, rel err {rel!r}")
+    if not (res.converged and rel <= 1e-5):
+        raise AssertionError(f"small gmres: rel {rel}")
+
+    lam = 0.5
+    lap = dirichlet_laplacian((32, 32), device=DEVICE)
+    tik = vstack([lap, eye(lap.rows, torch.float64, device=DEVICE) * math.sqrt(lam)])
+    bt = torch.from_numpy(rng.standard_normal(tik.rows)).to(DEVICE)
+    res = lsqr(tik, bt, tol=SOLVE_TOL)
+    ref = torch.linalg.lstsq(tik.to_dense(), bt[:, None]).solution[:, 0]
+    rel = float((res.x - ref).abs().max() / ref.abs().max())
+    log(f"small lsqr Tikhonov [L; sqrt({lam}) I] 32^2 vs torch.linalg.lstsq: iterations {res.iterations}, "
+        f"rel err {rel!r}")
+    if not (res.converged and rel <= 1e-6):
+        raise AssertionError(f"small lsqr: rel {rel}")
+
+    # rectangular operators through prepare_spmv, as LSQR binds A and Aᵀ:
+    # a tall and a wide one on each of the DIA (K1) and ELL (K5) routes
+    lp = transform_mat_papt(lap, Permutation.from_array(rng.permutation(lap.rows), device=DEVICE))
+    tall_ell = vstack([lp, lp])
+    for name, mat, route, kernel in (
+        ("tall DIA", tik, "dia", dia_spmv_kernel), ("wide DIA", tik.T.to_csr(), "dia", dia_spmv_kernel),
+        ("tall ELL", tall_ell, "ell", ell_spmv_kernel), ("wide ELL", tall_ell.T.to_csr(), "ell", ell_spmv_kernel),
+    ):
+        fn, prepared = prepare_spmv(mat)
+        x = torch.from_numpy(rng.standard_normal(mat.cols)).to(DEVICE)
+        reset_counts()
+        y = fn(prepared, x)
+        sync()
+        launches, plain_calls = kernel.launches, dia_spmv_plain.calls + ell_spmv_plain.calls
+        ref = mat.to_dense() @ x
+        rel = float((y - ref).abs().max() / ref.abs().max())
+        got = ROUTE_OF[type(prepared).__name__]
+        log(f"small rectangular {name} {mat.shape}: route {got}, launches {launches}, plain calls "
+            f"{plain_calls}, rel err {rel!r} against the dense product")
+        if got != route or launches != 1 or plain_calls != 0 or y.shape != (mat.rows,) or not rel <= 1e-12:
+            raise AssertionError(f"small rectangular {name}: route {got}, launches {launches}, rel {rel}")
+
+    k16 = conv_diff(16)
+    src = 8 * 16 + 8
+    res = bicgstab_sparse(k16, csvec(k16.rows, [src], [1.0], device=DEVICE), tol=SOLVE_TOL, max_iter=500)
+    e = torch.zeros(k16.rows, dtype=torch.float64, device=DEVICE)
+    e[src] = 1.0
+    ref = torch.linalg.solve(k16.to_dense(), e)
+    rel = float((res.x.to_dense() - ref).abs().max() / ref.abs().max())
+    log(f"small bicgstab_sparse 16^2 point source vs dense solve: iterations {res.iterations}, "
+        f"support {res.x.nnz}, rel err {rel!r}")
+    if not (res.converged and rel <= 1e-5):
+        raise AssertionError(f"small bicgstab_sparse: rel {rel}")
+
+    blocks = [rand_csr(shape, 0.3, seed=s, device=DEVICE) for s, shape in
+              enumerate(((20, 15), (20, 9), (11, 15), (11, 9)))]
+    d = [m.to_dense() for m in blocks]
+    p = Permutation.from_array(rng.permutation(20), device=DEVICE)
+    q = Permutation.from_array(rng.permutation(15), device=DEVICE)
+    pi, qi = p.perm.long(), q.perm.long()
+    z = torch.zeros_like(d[1])
+    for name, got, want in (
+        ("bmat", bmat([[blocks[0], None], [blocks[2], blocks[3]]]),
+         torch.cat([torch.cat([d[0], z], 1), torch.cat([d[2], d[3]], 1)])),
+        ("block_diag", block_diag([blocks[0], blocks[3]]), torch.block_diag(d[0], d[3])),
+        ("hstack", hstack([blocks[0], blocks[1]]), torch.cat([d[0], d[1]], 1)),
+        ("permute_rows", permute_rows(blocks[0], p), d[0][pi]),
+        ("permute_cols", permute_cols(blocks[0], q), d[0][:, qi]),
+        ("transform_mat_paq", transform_mat_paq(blocks[0], p, q), d[0][pi][:, qi]),
+    ):
+        same = torch.equal(got.to_dense(), want)
+        log(f"small {name} vs its dense equivalent: equal {same}")
+        if not same:
+            raise AssertionError(f"small {name} differs from its dense equivalent")
+
+
 # name in the kernels line -> (source, TPU kernel it replaces)
 KERNELS = {
     "dia_spmv": ("sprs_tpu_torch/csrc/dia_spmv.cu", "sprs_tpu/ops/pallas/dia_spmv.py:232"),
@@ -1498,6 +1981,14 @@ def main() -> int:
     launches["ell_spmv"] = phase_main_mesh()
     launches["sort_rows"] = phase_main_sort()
     phase_eigen_checks()
+    spgemm_rows, chain_launches = phase_spgemm()
+    k5, k1 = phase_main_biharmonic()
+    check_small_sparse_ops()
+    for kname, n in (("bsr_spmm_tf32x3", chain_launches), ("ell_spmv", k5), ("dia_spmv", k1)):
+        if n == 0:
+            raise AssertionError(f"the SpGEMM path launched no {kname} kernel")
+        launches[kname] += n
+    errs["bsr_spmm_tf32x3"] = max(GATE_ERRS["bsr_spmm_tf32x3"])
     for kname, n in launches.items():
         if n == 0:
             raise AssertionError(f"the main path launched no {kname} kernel")
@@ -1527,6 +2018,7 @@ def main() -> int:
                 {key: other[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
                 for other in row["other_shapes"]
             ]
+    print(json.dumps({"spgemm": spgemm_rows, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -8,7 +8,10 @@ DIA format, BiCGSTAB, CG, Jacobi and Gauss–Seidel), the multi-RHS
 path (the DIA SpMM and BSR SpMM kernels, ``@`` on CsMat and BsrMat,
 LOBPCG, svds and expm_multiply) and the unstructured path (triplet
 assembly, the mesh Laplacian, sparse ``+ - *``, and the ELL SpMV kernel
-under CG; the row-sort kernel beside it).
+under CG; the row-sort kernel beside it) and the sparse-ops slice (the
+rest of ``CsMat``, ``CsVec``, stacking, Kronecker products,
+permutations, symmetry, SpGEMM with its dense and block-sparse routes,
+GMRES, LSQR and the sparse-iterate BiCGSTAB).
 Public constructors place tensors on ``"cuda"`` unless the caller
 passes ``device=``.
 
@@ -39,25 +42,52 @@ from .formats import (
     INDEX_DTYPE,
     BsrMat,
     CsMat,
+    CsVec,
     TriMat,
     coo_to_csmat,
+    csc,
     csmat,
     csmat_from_unsorted,
+    csr,
+    csvec,
+    csvec_from_dense,
+    csvec_from_unsorted,
+    diag_csmat,
+    diags,
+    empty,
+    empty_csvec,
     eye,
     from_dense,
+    from_scipy,
 )
 from .interop import from_arrays
 from .ops import (
+    Permutation,
     add,
+    assign_to_dense,
+    block_diag,
+    bmat,
     dense_matmul_sparse,
     elementwise_mul,
+    hstack,
+    is_symmetric,
+    kronecker_product,
     matmul,
+    permute_cols,
+    permute_rows,
     prepare_spmm,
     prepare_spmv,
     rmatmul,
+    spgemm,
+    spgemm_caps,
+    spgemm_dense,
+    spgemm_dense_bsr,
     spmm,
     spmv,
     sub,
+    transform_mat_papt,
+    transform_mat_paq,
+    vstack,
 )
 
 __version__ = "0.1.0"

@@ -63,3 +63,17 @@ class CapacityError(SprsError):
             or f"operation requires capacity {required} but only {cap} "
             "provided"
         )
+
+    @classmethod
+    def index_limit(cls, what: str, value: int, hint: str = None) -> "CapacityError":
+        """A size crossed the i32 index ceiling, where i32 positions would
+        wrap; ``hint`` names the way around it."""
+        from .formats.util import MAX_INDEX
+
+        return cls(
+            int(value),
+            MAX_INDEX,
+            f"{what}={int(value)} exceeds the i32 index limit "
+            f"{MAX_INDEX}; i32 positions would wrap silently"
+            + (f". {hint}" if hint else ""),
+        )

@@ -294,6 +294,39 @@ def bsr_from_csmat(
     )
 
 
+def bsr_from_dense_device(arr: torch.Tensor, block_size: int = 128, *, eps: float = 0.0) -> BsrMat:
+    """Dense → BSR on the array's device, with no per-element placement:
+    the block mask is a reduction, the kept blocks one gather of whole
+    tiles.  Only the (block rows × block columns) mask is read back, to
+    fix the block list; the dense array never leaves the device.  Rows
+    and columns are zero-padded to a block multiple; an empty block row
+    gets an explicit zero block, as :func:`bsr_from_dense` gives it."""
+    if arr.ndim != 2:
+        raise ShapeError("bsr_from_dense_device expects a 2-D array")
+    r, c = arr.shape
+    bs = block_size
+    nbr, nbc = round_up(r, bs) // bs, round_up(c, bs) // bs
+    pad = arr
+    if (nbr * bs, nbc * bs) != (r, c):
+        pad = arr.new_zeros((nbr * bs, nbc * bs))
+        pad[:r, :c] = arr
+    tiles = pad.reshape(nbr, bs, nbc, bs).transpose(1, 2)  # (nbr, nbc, bs, bs), a view
+    keep = (tiles.abs().amax(dim=(2, 3)) > eps).cpu().numpy()
+    bi, bj = np.nonzero(keep)  # row-major: sorted by (block row, block column)
+    empty = np.nonzero(~keep.any(1))[0]
+    brows = np.concatenate([bi, empty])
+    bcols = np.concatenate([bj, np.zeros(empty.size, np.int64)])
+    live = np.concatenate([np.ones(bi.size, bool), np.zeros(empty.size, bool)])
+    order = np.lexsort((bcols, brows))
+    brows, bcols, live = brows[order], bcols[order], live[order]
+    dev = arr.device
+    br = torch.from_numpy(brows.astype(np.int32)).to(dev)
+    bc = torch.from_numpy(bcols.astype(np.int32)).to(dev)
+    blocks = tiles[br.to(torch.int64), bc.to(torch.int64)]
+    blocks *= torch.from_numpy(live).to(dev)[:, None, None]
+    return BsrMat(br, bc, blocks, (int(r), int(c)), int(brows.size))
+
+
 def bsr_spmm_plain(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X, plain torch: batched block products and an index-add
     over block rows, in float32 for every operand type (the counterpart

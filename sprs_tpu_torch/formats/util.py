@@ -166,9 +166,11 @@ def compress_coo(
 
     One ``torch.sort`` on an int64 key ``row * n_inner + col``: it holds
     every i32 index space, so the JAX package's i32 / i64 / two-key cases
-    are one case here.  The sort is stable, so duplicates are summed in
-    input order; the JAX sort is unstable, which can change the last bit
-    of a sum of three or more duplicates.  ``sort_batches`` is accepted
+    are one case here.  The sort is stable, and each group of duplicates
+    is summed in input order on the CPU and in one fixed order on the
+    card, so a result is the same bits from run to run; the JAX sort is
+    unstable, which can change the last bit of a sum of three or more
+    duplicates against it.  ``sort_batches`` is accepted
     for the JAX signature and ignored: the JAX package splits its sort
     into segments because one very large ``lax.sort`` crashed the TPU
     worker; the port does one sort.
@@ -216,8 +218,12 @@ def compress_coo(
     valid = positions(out_cap, device) < nnz
     r_out = key_out // n_inner_c
     indices = torch.where(valid, key_out - r_out * n_inner_c, 0).to(INDEX_DTYPE)
+    # An accumulating index_put_, not index_add_: on a CUDA tensor torch
+    # sorts the slots stably and adds each run of equal slots in one fixed
+    # order, without atomics, so the sums are the same bits on every run.
     values = tuple(
-        torch.zeros(out_cap + 1, dtype=v.dtype, device=device).index_add_(0, slot, v)[:out_cap]
+        torch.zeros(out_cap + 1, dtype=v.dtype, device=device)
+        .index_put_((slot,), v, accumulate=True)[:out_cap]
         for v in vals
     )
     return CompressedCoo(

@@ -3,20 +3,26 @@
 :func:`from_arrays` takes the arrays of a JAX-package object as numpy
 arrays (``np.asarray`` of its leaves) and builds the port's object on
 ``device``, capacity and padding included, so that both packages hold
-the same operand array for array.
+the same operand array for array: a CsMat, a DiaMat, a BsrMat (a
+conversion's or a dense-route SpGEMM's), an EllMat, a CsVec or a
+Permutation.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import torch
+
 from .formats.bsr import BsrMat
 from .formats.csmat import CSR, csmat
+from .formats.csvec import CsVec
 from .formats.dia import DiaMat
 from .formats.ell import EllMat
 from .formats.util import DEFAULT_DEVICE, INDEX_DTYPE, as_tensor
+from .ops.permutation import Permutation
 
-KINDS = ("csmat", "dia", "bsr", "ell")
+KINDS = ("csmat", "dia", "bsr", "ell", "csvec", "permutation")
 
 
 def from_arrays(
@@ -39,6 +45,10 @@ def from_arrays(
       padding blocks included, with its live count ``n_blocks``.
     * ``kind="ell"``: ``arrays = (indices, data)`` of an EllMat, both
       ``(rows_pad, width)``.
+    * ``kind="csvec"``: ``arrays = (indices, data, nnz)`` of a CsVec
+      (``nnz`` its 0-d count), ``shape = (dim,)``.
+    * ``kind="permutation"``: ``arrays = (perm, inv)`` of a Permutation,
+      ``shape = (n,)``.
     """
     shape = tuple(int(s) for s in shape)
     if kind == "csmat":
@@ -79,5 +89,19 @@ def from_arrays(
             as_tensor(indices, dtype=INDEX_DTYPE, device=device),
             as_tensor(data, device=device),
             shape,
+        )
+    if kind == "csvec":
+        indices, data, nnz = arrays
+        return CsVec(
+            as_tensor(indices, dtype=INDEX_DTYPE, device=device),
+            as_tensor(data, device=device),
+            torch.tensor(int(nnz), dtype=INDEX_DTYPE, device=device),
+            shape[0],
+        )
+    if kind == "permutation":
+        perm, inv = arrays
+        return Permutation(
+            as_tensor(perm, dtype=INDEX_DTYPE, device=device),
+            as_tensor(inv, dtype=INDEX_DTYPE, device=device),
         )
     raise ValueError(f"from_arrays: kind must be one of {KINDS}, got {kind!r}")

@@ -15,6 +15,9 @@ the same masked ``torch.where`` updates, with one host synchronisation
 per iteration to read ``done``.  Each iteration makes three matvecs
 (A·p̂, A·ŝ and the true residual), and the solve two more (the initial
 and the final residual): 3·iterations + 2 in all.
+
+:func:`bicgstab_sparse` keeps the iterates as ``CsVec``; its matvec is
+SpGEMM against the vector's column view.
 """
 
 from __future__ import annotations
@@ -24,8 +27,9 @@ from typing import Callable, Union
 
 import torch
 
-from ..errors import ShapeError
+from ..errors import CapacityError, ShapeError
 from ..formats.csmat import CsMat
+from ..formats.csvec import CsVec, empty_csvec
 from ._dispatch import as_matvec, as_vector
 
 
@@ -136,4 +140,115 @@ def bicgstab(
         converged=bool(done),
         iterations=it,
         residual_norm=float(norm(b - a_op(x))),
+    )
+
+
+def _with_cap(v: CsVec, cap: int) -> CsVec:
+    """Re-pad a CsVec to capacity ``cap``; more live entries raise."""
+    if v.cap == cap:
+        return v
+    if v.nnz > cap:
+        raise CapacityError(v.nnz, cap)
+    k = min(v.cap, cap)
+    idx = v.indices.new_zeros(cap)
+    dat = v.data.new_zeros(cap)
+    idx[:k] = v.indices[:k]
+    dat[:k] = v.data[:k]
+    return CsVec(idx, dat, v.nnz_arr, v.dim)
+
+
+def bicgstab_sparse(
+    mat: CsMat,
+    b: CsVec,
+    x0: CsVec = None,
+    *,
+    cap: int = None,
+    tol: float = 1e-8,
+    max_iter: int = 200,
+    restart_eps: float = 1e-30,
+) -> BiCgStabResult:
+    """BiCGSTAB whose iterates x, r, p, v, s, t stay :class:`CsVec` of
+    one capacity ``cap`` (default: the dimension, always enough).  Every
+    merge, scale and sparse matvec (``A @ v``, SpGEMM against the
+    vector's column view) gives capacity-``cap`` vectors, and support
+    outgrowing ``cap`` raises :class:`CapacityError`.
+
+    A host-driven loop with the dense solver's two safeguards: a soft
+    restart when the shadow residual decorrelates, and a hard restart
+    that checks the TRUE residual before declaring convergence.  It suits
+    problems whose iterates stay sparse, such as a point source on a
+    short horizon.
+    """
+    from ..ops import matmul
+
+    if not isinstance(b, CsVec):
+        raise ShapeError("bicgstab_sparse needs a CsVec rhs")
+    if mat.shape[0] != mat.shape[1] or mat.shape[1] != b.dim:
+        raise ShapeError(f"bicgstab_sparse: {mat.shape} @ ({b.dim},)")
+    n = b.dim
+    if cap is None:
+        cap = n
+    a = mat.to_csr()
+
+    def mv(v):
+        return _with_cap(matmul(a, v, out_cap=cap, prod_cap=None), cap)
+
+    def lc(u, alpha, v):
+        """u + alpha·v at capacity ``cap``."""
+        return u._binop(v.scale(alpha), torch.add, out_cap=cap)
+
+    b = _with_cap(b, cap)
+    threshold = tol * max(float(b.l2_norm()), 1e-300)
+    if x0 is None:
+        x = _with_cap(empty_csvec(n, b.dtype, device=b.device), cap)
+        r = b
+    else:
+        x = _with_cap(x0, cap)
+        r = lc(b, -1.0, mv(x))
+    r_hat = r  # frozen shadow residual
+    rho = float(r_hat.dot(r))
+    p = r
+    converged = float(r.l2_norm()) <= threshold
+    it = 0
+    while not converged and it < max_iter:
+        it += 1
+        v = mv(p)
+        denom = float(r_hat.dot(v))
+        if abs(denom) < restart_eps:
+            # soft restart: the shadow residual decorrelated
+            r_hat = r
+            rho = float(r_hat.dot(r))
+            p = r
+            v = mv(p)
+            denom = float(r_hat.dot(v))
+            if abs(denom) < restart_eps:
+                break
+        alpha = rho / denom
+        s = lc(r, -alpha, v)
+        t = mv(s)
+        tt = float(t.dot(t))
+        omega = float(t.dot(s)) / tt if tt > 0 else 0.0
+        x = lc(lc(x, alpha, p), omega, s)
+        r = lc(s, -omega, t)
+        if float(r.l2_norm()) <= threshold:
+            # hard restart: check the TRUE residual
+            r = lc(b, -1.0, mv(x))
+            if float(r.l2_norm()) <= threshold:
+                converged = True
+                break
+            r_hat = r
+            rho = float(r_hat.dot(r))
+            p = r
+            continue
+        rho_new = float(r_hat.dot(r))
+        if abs(rho_new) < restart_eps:
+            r_hat = r
+            rho = float(r_hat.dot(r))
+            p = r
+            continue
+        beta = (rho_new / rho) * (alpha / omega if omega != 0 else 0.0)
+        p = lc(r, beta, lc(p, -omega, v))
+        rho = rho_new
+    return BiCgStabResult(
+        x=x, converged=bool(converged), iterations=it, residual_norm=float(r.l2_norm())
     )

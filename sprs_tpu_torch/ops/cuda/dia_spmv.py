@@ -52,8 +52,14 @@ def launch_config(rows: int, n_sm: int) -> Tuple[int, int]:
     return max(1, min(blocks, n_sm * BLOCKS_PER_SM)), BLOCK
 
 
-# The plain torch K1: shifted slices, multiply-add in diagonal order.
-dia_spmv_plain = dia_spmv
+def dia_spmv_plain(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
+    """The plain torch K1: shifted slices, multiply-add in diagonal order
+    (``formats/dia.py::dia_spmv``).  Its ``calls`` attribute counts calls."""
+    dia_spmv_plain.calls += 1
+    return dia_spmv(dia, x)
+
+
+dia_spmv_plain.calls = 0
 
 
 @functools.lru_cache(maxsize=None)

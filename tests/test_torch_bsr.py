@@ -302,9 +302,12 @@ def test_matmul_dispatch():
     np.testing.assert_allclose((m @ torch.from_numpy(xd)).numpy(), d @ xd, rtol=1e-12)
     np.testing.assert_allclose((torch.from_numpy(xd.T) @ m).numpy(), xd.T @ d, rtol=1e-12)
     np.testing.assert_allclose(stt.rmatmul(xd[:, 0], m).numpy(), xd[:, 0] @ d, rtol=1e-12)
-    for lhs, rhs in ((t, t), (m, m), (m, t), (t, m)):
-        with pytest.raises(NotImplementedError, match="SpGEMM"):
-            lhs @ rhs
+    # sparse @ sparse is SpGEMM: ESC for two CsMats, else the dense route
+    # to a BsrMat at the BSR operand's block size
+    for lhs, rhs, kind in ((t, t, BsrMat), (m, m, stt.CsMat), (m, t, BsrMat), (t, m, BsrMat)):
+        got = lhs @ rhs
+        assert isinstance(got, kind)
+        assert_close(got.to_dense().to(torch.float32), (d @ d).astype(np.float32))
 
 
 @pytest.mark.parametrize("ord", ["fro", 1, np.inf, "max"])

@@ -52,6 +52,10 @@ MODULES = [
     "sprs_tpu_torch.linalg.bicgstab",
     "sprs_tpu_torch.linalg.lobpcg",
     "sprs_tpu_torch.linalg.expm",
+    "sprs_tpu_torch.ops.spgemm",
+    "sprs_tpu_torch.ops.kron",
+    "sprs_tpu_torch.linalg.gmres",
+    "sprs_tpu_torch.linalg.lsqr",
 ]
 
 
@@ -64,9 +68,25 @@ def test_doctests(name):
     assert res.attempted > 0 and res.failed == 0
 
 
+NEW_MODULES = [
+    "sprs_tpu_torch.formats.csvec",
+    "sprs_tpu_torch.ops.construct",
+    "sprs_tpu_torch.ops.kron",
+    "sprs_tpu_torch.ops.permutation",
+    "sprs_tpu_torch.ops.spgemm",
+    "sprs_tpu_torch.ops.symmetry",
+    "sprs_tpu_torch.linalg.gmres",
+    "sprs_tpu_torch.linalg.lsqr",
+]
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port, the sparse-ops slice's named first, in a
+    fresh interpreter: none pulls in jax, sprs_tpu or its native library."""
     code = (
         "import sys, importlib, pkgutil, sprs_tpu_torch\n"
+        f"for name in {NEW_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
         "for m in pkgutil.walk_packages(sprs_tpu_torch.__path__, 'sprs_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
