@@ -7,7 +7,8 @@ and prints no result):
 1. device: the card's name and count, and ``nvidia-smi``'s name and
    power limit;
 2. build: every CUDA source of the port, compiled from ``csrc/`` (one
-   ``nvcc`` per source, all started together);
+   ``nvcc`` per source, all started together), and the port's native
+   host library (``csrc/sprs_host.cpp``, g++), with its seconds;
 3. gate: each kernel against its plain torch version on the card —
    K1 (banded SpMV) and K2 (banded SpMM) on grid Laplacians and a random
    band in float32 and float64, K2 also on the 1024² Dirichlet Laplacian
@@ -78,10 +79,27 @@ and prints no result):
       scipy, the 140.6M-product one also in at least 4 row chunks (the
       same arrays), and its dense-route BSR product times X through K3's
       3xTF32 variant (1 launch);
+   g. the direct-solver path on the 256² Dirichlet Laplacian (65,536
+      rows, f64): the nd, camd and rcm symbolics (seconds, lnz, levels;
+      nd's lnz equal to the CPU run's); LDLᵀ with nd (host numeric, then
+      ``solve`` on the card by its ``auto`` method and by the other one,
+      ms per solve, ‖Ax − b‖ ≤ 1e-10·‖b‖, x within 1e-10 of scipy's
+      ``spsolve``, an (n, 8) right-hand side column for column); an f32
+      factor refined by ``refine_solve`` (forward error below 1e-8, one
+      K1 launch per backward error); CG against IC(0)-PCG (K1 iters+2, x
+      within 1e-8 of LDLᵀ, ms per IC(0) application, a profiler window)
+      and BiCGSTAB against ILU(0)-BiCGSTAB on a convection–diffusion
+      operator built by ``kronecker_product`` (K1 3·iters+2, true
+      residual ≤ 1e-8·‖b‖); ``splu`` with camd columns against scipy's;
+      at 32² ``solve``'s choice (LU / LDLᵀ), its gradients in b and in
+      the values against the dense formula and ``det`` against
+      ``slogdet``; the row-scan device numeric at 16² against the host
+      numeric;
 6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
    step against a dense solve;
    LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
-   2·iters+2 K2 launches) and ``svds(k=4)`` on the random band against
+   2·iters+2 K2 launches), plain and with IC(0) as its preconditioner
+   (fewer iterations; a main path: its K2 launches count), and ``svds(k=4)`` on the random band against
    ``torch.linalg.svdvals`` (4·iters+5 K2 launches); GMRES on a
    convection–diffusion operator at 32², LSQR on a Tikhonov system at 32²
    and the sparse-iterate BiCGSTAB at 16² against dense solves, and the
@@ -115,16 +133,24 @@ from sprs_tpu_torch.formats.ell import EllMat, ell_from_csmat
 from sprs_tpu_torch.formats.triplet import coo_to_csmat
 from sprs_tpu_torch.formats.util import compress_coo, round_up
 from sprs_tpu_torch.interop import from_arrays
+from sprs_tpu_torch import native
 from sprs_tpu_torch.linalg import (
+    Ldl,
     bicgstab,
     bicgstab_sparse,
     cg,
     expm_multiply,
     gmres,
+    ic0,
+    ilu0,
     lobpcg,
     lsqr,
+    refine_solve,
+    solve,
+    splu,
     svds,
 )
+from sprs_tpu_torch.linalg.solve import resolve_method
 from sprs_tpu_torch.ops import (
     Permutation,
     block_diag,
@@ -249,6 +275,19 @@ CHAIN_K = 256
 BIHARM_SIDE = 1024
 GMRES_RESTART = 30
 GMRES_MAX_ITER = 3000
+# the direct-solver path (phase 5g): the JAX package's LDL bench default,
+# benches/ldl_bench.py --grid 256 (65,536 rows)
+DIRECT_SIDE = 256
+DIRECT_FILLS = ("nd", "camd", "rcm")
+DIRECT_RHS_K = 8
+DIRECT_SOLVE_REPS = 5
+REFINE_STEPS = 3
+KRYLOV_TOL = 1e-12  # CG/BiCGSTAB stop; x is held to 1e-8 of the LDL solution
+CONVECTION = 0.5
+PRECOND_REPS = 10
+PRECOND_PROFILE_ITERS = 5  # each IC(0) application is ~4,000 launches to trace
+SMALL_DIRECT_SIDE = 32
+ROWSCAN_SIDE = 16
 
 
 def log(msg: str) -> None:
@@ -275,6 +314,9 @@ def phase_device():
 
 
 def phase_build():
+    """The CUDA sources, and the port's native host library (g++), which
+    the direct-solver path needs: its AMD ordering has no numpy stand-in
+    at 65,536 rows, so a failed build fails the phase."""
     t0 = time.perf_counter()
     infos = build.build()
     log(f"build: {len(infos)} source(s) in {time.perf_counter() - t0:.3f} s")
@@ -282,6 +324,11 @@ def phase_build():
         log(f"  {info.name}: {info.seconds:.3f} s -> {info.path.name}")
         for line in info.log.splitlines():
             log(f"    {line}")
+    seconds = native.build()
+    native.load()
+    if not native.available():
+        raise AssertionError("the native host library did not load")
+    log(f"build: native host library {native.LIB_PATH.name} in {seconds:.3f} s of g++")
 
 
 def check_rel(name, err, ref_max, limit):
@@ -1117,8 +1164,10 @@ def phase_main_bsr():
 
 
 def phase_eigen_checks():
-    """LOBPCG against the closed-form Dirichlet eigenvalues and svds
-    against torch.linalg.svdvals, with exact K2 launch counts."""
+    """LOBPCG, plain and IC(0)-preconditioned, against the closed-form
+    Dirichlet eigenvalues and svds against torch.linalg.svdvals, with
+    exact K2 launch counts.  Returns the K2 launches of the
+    IC(0)-preconditioned LOBPCG by variant (a main path of this slice)."""
     side = EIG_SIDE
     spd = dirichlet_laplacian((side, side), device=DEVICE)
     x0 = rhs_block(side * side, LOBPCG_M, torch.float64, 70)
@@ -1138,6 +1187,23 @@ def phase_eigen_checks():
     if not (res.converged and err <= 1e-6 and launches == 2 * res.iterations + 2):
         raise AssertionError("lobpcg correctness solve failed")
 
+    # the same eigenproblem with IC(0) as the preconditioner (M⁻¹ on the
+    # (n, m) residual block: two level-scheduled solves per iteration)
+    ic, ic_s = timed(lambda: ic0(spd))
+    reset_counts()
+    pre, wall = timed(lambda: lobpcg(spd, x0, tol=1e-6, max_iter=EIG_MAX_ITER, precond=ic))
+    err = float(np.abs(pre.eigenvalues.cpu().numpy() - np.array(closed)).max())
+    launches = dia_spmm_kernel.launches
+    variants = {"dia_spmm_vector": dia_spmm_kernel.launches_vector,
+                "dia_spmm_scalar": dia_spmm_kernel.launches_scalar}
+    log(f"ic0-lobpcg {side}^2 m={LOBPCG_M} tol 1e-6: iterations {pre.iterations} (plain "
+        f"{res.iterations}) converged {pre.converged} wall {wall!r} s (ic0 host factor {ic_s!r} s), "
+        f"max eigenvalue error {err!r} (limit 1e-6), K2 launches {launches} (expected "
+        f"{2 * pre.iterations + 2}) by variant {variants}, plain calls {dia_spmm_plain.calls}")
+    if not (pre.converged and err <= 1e-6 and launches == 2 * pre.iterations + 2
+            and dia_spmm_plain.calls == 0 and pre.iterations < res.iterations):
+        raise AssertionError("ic0-preconditioned lobpcg failed")
+
     band = dia_to_csmat(band_dia(5000, 4803, BAND_OFFSETS, np.float64, 71))
     dia_spmm_kernel.launches = 0
     t0 = time.perf_counter()
@@ -1152,6 +1218,7 @@ def phase_eigen_checks():
         f"(expected {4 * sv.iterations + 5})")
     if not (sv.converged and rel <= 1e-8 and launches == 4 * sv.iterations + 5):
         raise AssertionError("svds correctness solve failed")
+    return variants
 
 
 # ---------------------------------------------------------------------------
@@ -1845,6 +1912,257 @@ def phase_main_biharmonic():
     return k5, k1
 
 
+# ---------------------------------------------------------------------------
+# the direct-solver path (phase 5g): orderings, LDLᵀ, mixed precision,
+# preconditioned Krylov solves, LU and solve, the row-scan numeric
+# ---------------------------------------------------------------------------
+
+
+def convection_diffusion(side):
+    """C = L + 0.5·(upwind first difference along the grid's fast index),
+    built on the card with ``kronecker_product``: nonsymmetric, five
+    diagonals."""
+    i = eye(side, torch.float64, device=DEVICE)
+    d = diags([1.0, -1.0], [0, -1], (side, side), device=DEVICE)
+    return dirichlet_laplacian((side, side), device=DEVICE) + kronecker_product(i, d) * CONVECTION
+
+
+def rel_max(x, ref):
+    return float((x - ref).abs().max() / ref.abs().max())
+
+
+def gate(name, value, limit):
+    log(f"gate {name}: {value!r} (limit {limit!r})")
+    if not value <= limit:
+        raise AssertionError(f"gate {name}: {value} > {limit}")
+
+
+def timed(fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def solve_ms(fn, reps):
+    """CUDA-event ms per call of ``fn`` over ``reps`` calls after one
+    warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    sync()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end) / reps
+
+
+def k1_counts():
+    return dia_spmv_kernel.launches, dia_spmv_plain.calls
+
+
+def phase_direct():
+    """Phase 5g on the 256² Dirichlet Laplacian (65,536 rows, f64) on the
+    card.  Returns the K1 launches of its main-path solves."""
+    side = DIRECT_SIDE
+    n = side * side
+    a = dirichlet_laplacian((side, side), device=DEVICE)
+    a_sp = a.to_scipy().tocsc()
+    rng = np.random.default_rng(90)
+    b = torch.from_numpy(rng.standard_normal(n)).to(DEVICE)
+    b_np = b.cpu().numpy()
+    k1 = 0
+    t_start = time.perf_counter()
+
+    def stamp(step):
+        log(f"direct step {step} done at {time.perf_counter() - t_start!r} s")
+
+    # 1. orderings: symbolic seconds, lnz and level counts
+    syms = {}
+    for fill in DIRECT_FILLS:
+        sym, secs = timed(lambda: Ldl().fill_in_reduction(fill).symbolic(a))
+        syms[fill] = sym
+        log(f"direct {side}^2 {fill}: symbolic {secs!r} s, lnz {sym.nnz}, levels L "
+            f"{sym.sched_lower.n_levels} Lt {sym.sched_upper.n_levels}")
+    cpu_sym = Ldl().fill_in_reduction("nd").symbolic(dirichlet_laplacian((side, side), device="cpu"))
+    if cpu_sym.nnz != syms["nd"].nnz:
+        raise AssertionError(f"nd lnz {syms['nd'].nnz} on the card, {cpu_sym.nnz} on the CPU")
+
+    stamp(1)
+
+    # 2. LDLᵀ with nd: host numeric, solves on the card
+    sym = syms["nd"]
+    num, secs = timed(lambda: sym.factor(a))
+    method = num.solve_method("auto")
+    _, plan_s = timed(lambda: num.solve(b))
+    ms = solve_ms(lambda: num.solve(b), DIRECT_SOLVE_REPS)
+    other = "levels" if method == "flat" else "flat"
+    _, other_plan_s = timed(lambda: num.solve(b, method=other))
+    other_ms = solve_ms(lambda: num.solve(b, method=other), DIRECT_SOLVE_REPS)
+    log(f"direct ldl nd: host numeric {secs!r} s, solve method {method}, levels "
+        f"{sym.sched_lower.n_levels}+{sym.sched_upper.n_levels}, first solve (plans built) "
+        f"{plan_s!r} s, {ms!r} ms per solve (CUDA events, {DIRECT_SOLVE_REPS} solves); "
+        f"method {other}: first solve {other_plan_s!r} s, {other_ms!r} ms per solve")
+    x = num.solve(b)
+    gate(f"ldl nd {other} vs {method} (rel max)", rel_max(num.solve(b, method=other), x), 1e-12)
+    fn, prepared = prepare_spmv(a)
+    before = k1_counts()[0]
+    res = float(torch.linalg.vector_norm(fn(prepared, x) - b) / torch.linalg.vector_norm(b))
+    k1 += k1_counts()[0] - before
+    gate("ldl nd relative residual (on the card)", res, 1e-10)
+    import scipy.sparse.linalg as spla
+
+    x_ref, secs = timed(lambda: spla.spsolve(a_sp, b_np))
+    log(f"scipy spsolve {side}^2: {secs!r} s")
+    gate("ldl nd x vs scipy spsolve (rel max)", rel_max(x.cpu(), torch.from_numpy(x_ref)), 1e-10)
+    B = rhs_block(n, DIRECT_RHS_K, torch.float64, 91)
+    X = num.solve(B)
+    ms_block = solve_ms(lambda: num.solve(B), DIRECT_SOLVE_REPS)
+    col_err = max(rel_max(X[:, j], num.solve(B[:, j].contiguous())) for j in range(DIRECT_RHS_K))
+    log(f"direct ldl nd (n, {DIRECT_RHS_K}) rhs: {ms_block!r} ms per solve")
+    gate(f"ldl nd (n, {DIRECT_RHS_K}) columns vs single solves (rel max)", col_err, 1e-13)
+
+    stamp(2)
+
+    # 3. mixed precision: f32 factor, f64 residuals through K1
+    num32, secs = timed(lambda: sym.factor(a.astype(torch.float32)))
+    x32 = num32.solve(b)
+    fwd0 = rel_max(x32, x)
+    dia_spmv_kernel.launches = dia_spmv_plain.calls = 0
+    (x_ref32, info), ref_s = timed(lambda: refine_solve(a, num32, b, steps=REFINE_STEPS))
+    launches, plain = k1_counts()
+    k1 += launches
+    fwd = rel_max(x_ref32, x)
+    errs = info["backward_errors"]
+    log(f"direct mixed precision: f32 host numeric {secs!r} s, forward error vs the f64 solve "
+        f"{fwd0!r} before and {fwd!r} after {REFINE_STEPS} steps ({ref_s!r} s), backward errors "
+        f"{errs}, K1 launches {launches} (expected {len(errs)}), plain calls {plain}")
+    if launches != len(errs) or plain != 0:
+        raise AssertionError(f"refine_solve: {launches} K1 launches, {plain} plain calls")
+    gate("refined forward error", fwd, 1e-8)
+
+    stamp(3)
+
+    # 4. preconditioned Krylov solves through K1
+    ic, ic_s = timed(lambda: ic0(a))
+    results = {}
+    for label, pre in (("plain", None), ("ic0", ic)):
+        dia_spmv_kernel.launches = dia_spmv_plain.calls = 0
+        r, secs = timed(lambda: cg(a, b, tol=KRYLOV_TOL, max_iter=MAX_ITER, precond=pre))
+        launches, plain = k1_counts()
+        k1 += launches
+        results[label] = r
+        log(f"direct cg {label}: iterations {r.iterations} converged {r.converged} wall {secs!r} s "
+            f"({secs / max(r.iterations, 1) * 1e3!r} ms per iteration), K1 launches {launches} "
+            f"(expected {r.iterations + 2}), plain calls {plain}")
+        if not r.converged or launches != r.iterations + 2 or plain != 0:
+            raise AssertionError(f"cg {label}: {r.iterations} iterations, {launches} K1 launches")
+        gate(f"cg {label} x vs ldl (rel max)", rel_max(r.x, x), 1e-8)
+    log(f"direct ic0 host factor {ic_s!r} s; iterations plain {results['plain'].iterations}, "
+        f"ic0 {results['ic0'].iterations}")
+    if not results["ic0"].iterations < results["plain"].iterations:
+        raise AssertionError("ic0 did not cut cg's iterations")
+    r = rhs_block(n, 1, torch.float64, 92)[:, 0]
+    ms_ic = solve_ms(lambda: ic(r), PRECOND_REPS)
+    ms_spmv = solve_ms(lambda: fn(prepared, r), 50)
+    log(f"direct ic0 application: {ms_ic!r} ms (levels {ic.l_schedule.n_levels}+"
+        f"{ic.lt_schedule.n_levels}), K1 spmv {ms_spmv!r} ms, ratio {ms_ic / ms_spmv!r}")
+    profile_window(f"ic0-pcg {side}^2, {PRECOND_PROFILE_ITERS} iterations",
+                   lambda: cg(lambda v: fn(prepared, v), b, tol=0.0,
+                              max_iter=PRECOND_PROFILE_ITERS, precond=ic),
+                   "dia_spmv")
+
+    c = convection_diffusion(side)
+    if type(prepare_spmv(c)[1]).__name__ != "DiaTiledMat":
+        raise AssertionError("the convection-diffusion operator is not routed to DIA")
+    ilu, ilu_s = timed(lambda: ilu0(c))
+    for label, pre in (("plain", None), ("ilu0", ilu)):
+        dia_spmv_kernel.launches = dia_spmv_plain.calls = 0
+        r, secs = timed(lambda: bicgstab(c, b, tol=KRYLOV_TOL, max_iter=MAX_ITER, precond=pre))
+        launches, plain = k1_counts()
+        k1 += launches
+        true_res = float(torch.linalg.vector_norm(b - spmv(c, r.x)) / torch.linalg.vector_norm(b))
+        log(f"direct bicgstab {label}: iterations {r.iterations} converged {r.converged} wall "
+            f"{secs!r} s, K1 launches {launches} (expected {3 * r.iterations + 2}), plain "
+            f"calls {plain}")
+        if not r.converged or launches != 3 * r.iterations + 2 or plain != 0:
+            raise AssertionError(f"bicgstab {label}: {launches} K1 launches")
+        gate(f"bicgstab {label} true relative residual", true_res, 1e-8)
+        results[label + "_b"] = r
+    ms_ilu = solve_ms(lambda: ilu(r.x), PRECOND_REPS)
+    log(f"direct ilu0 host factor {ilu_s!r} s; bicgstab iterations plain "
+        f"{results['plain_b'].iterations}, ilu0 {results['ilu0_b'].iterations}; ilu0 application "
+        f"{ms_ilu!r} ms (levels {ilu.l_schedule.n_levels}+{ilu.u_schedule.n_levels})")
+
+    stamp(4)
+
+    # 5. LU (native, camd columns) and solve
+    lu, secs = timed(lambda: splu(c, col_perm="min_degree"))
+    xl = lu.solve(b)
+    ms_lu = solve_ms(lambda: lu.solve(b), DIRECT_SOLVE_REPS)
+    lu_ref, ref_s = timed(lambda: spla.splu(c.to_scipy().tocsc()).solve(b_np))
+    log(f"direct splu camd: host factor {secs!r} s, lu_nnz {lu.lu_nnz()}, levels L "
+        f"{lu._l_sched.n_levels} U {lu._u_sched.n_levels}, {ms_lu!r} ms per solve; scipy splu "
+        f"{ref_s!r} s")
+    gate("splu x vs scipy splu (rel max)", rel_max(xl.cpu(), torch.from_numpy(lu_ref)), 1e-10)
+    check_small_direct()
+
+    stamp(5)
+
+    # 6. the row-scan device numeric
+    small = dirichlet_laplacian((ROWSCAN_SIDE, ROWSCAN_SIDE), device=DEVICE)
+    sym_s = Ldl().fill_in_reduction("nd").symbolic(small)
+    host = sym_s.factor(small)
+    dev, secs = timed(lambda: sym_s.factor(small, backend="device"))
+    err = max(float((dev.l_data - host.l_data).abs().max()), float((dev.d - host.d).abs().max()))
+    log(f"direct row-scan device numeric {ROWSCAN_SIDE}^2: {secs!r} s for {sym_s.nnz} entries")
+    gate("row-scan numeric vs host numeric (max abs)", err, 1e-12)
+    stamp(6)
+    return k1
+
+
+def check_small_direct():
+    """At 32²: ``solve`` picks LU for C and LDLᵀ for A, ``det`` against
+    numpy's ``slogdet`` (of C/4, whose determinant f64 holds), and the
+    gradients of ``solve`` in b and in the values against the dense
+    formula ∂b = λ, ∂a_ij = −λ_i·x_j with λ = A⁻ᵀ·w for the loss w·x."""
+    side = SMALL_DIRECT_SIDE
+    n = side * side
+    rng = np.random.default_rng(93)
+    for name, mat, want in (("C", convection_diffusion(side), "lu"),
+                            ("A", dirichlet_laplacian((side, side), device=DEVICE), "ldl")):
+        got = resolve_method(mat)
+        log(f"small direct solve {side}^2 {name}: picks {got}")
+        if got != want:
+            raise AssertionError(f"solve picks {got} for {name}, expected {want}")
+        dense = mat.to_dense().cpu().numpy()
+        b = rng.standard_normal(n)
+        w = rng.standard_normal(n)
+        data = mat.data.clone().requires_grad_(True)
+        bt = torch.from_numpy(b).to(DEVICE).requires_grad_(True)
+        x = solve(mat.with_data(data), bt)
+        (x * torch.from_numpy(w).to(DEVICE)).sum().backward()
+        x_ref = np.linalg.solve(dense, b)
+        lam = np.linalg.solve(dense.T, w)
+        rows, cols, _ = mat.coo_arrays()
+        nnz = mat.nnz
+        g_ref = -lam[rows[:nnz].cpu().numpy()] * x_ref[cols[:nnz].cpu().numpy()]
+        gate(f"small solve {name} x vs dense (rel max)",
+             float(np.abs(x.detach().cpu().numpy() - x_ref).max() / np.abs(x_ref).max()), 1e-10)
+        gate(f"small solve {name} grad b vs dense (rel max)",
+             float(np.abs(bt.grad.cpu().numpy() - lam).max() / np.abs(lam).max()), 1e-10)
+        gate(f"small solve {name} grad data vs dense (rel max)",
+             float(np.abs(data.grad[:nnz].cpu().numpy() - g_ref).max() / np.abs(g_ref).max()), 1e-10)
+    c4 = convection_diffusion(side) * 0.25
+    sign, logdet = np.linalg.slogdet(c4.to_dense().cpu().numpy())
+    det = float(splu(c4).det())
+    gate("small splu det vs slogdet (rel)", abs(det - sign * math.exp(logdet)) / math.exp(logdet),
+         1e-10)
+
+
 def check_small_sparse_ops():
     """Phase 6's sparse-ops checks on the card, each against a dense
     equivalent: GMRES on a convection–diffusion operator (32²), LSQR on a
@@ -1980,7 +2298,8 @@ def main() -> int:
     launches.update(phase_main_bsr())
     launches["ell_spmv"] = phase_main_mesh()
     launches["sort_rows"] = phase_main_sort()
-    phase_eigen_checks()
+    for kname, n in phase_eigen_checks().items():
+        launches[kname] += n
     spgemm_rows, chain_launches = phase_spgemm()
     k5, k1 = phase_main_biharmonic()
     check_small_sparse_ops()
@@ -1988,6 +2307,10 @@ def main() -> int:
         if n == 0:
             raise AssertionError(f"the SpGEMM path launched no {kname} kernel")
         launches[kname] += n
+    k1 = phase_direct()
+    if k1 == 0:
+        raise AssertionError("the direct-solver path launched no dia_spmv kernel")
+    launches["dia_spmv"] += k1
     errs["bsr_spmm_tf32x3"] = max(GATE_ERRS["bsr_spmm_tf32x3"])
     for kname, n in launches.items():
         if n == 0:

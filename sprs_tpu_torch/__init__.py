@@ -11,7 +11,10 @@ assembly, the mesh Laplacian, sparse ``+ - *``, and the ELL SpMV kernel
 under CG; the row-sort kernel beside it) and the sparse-ops slice (the
 rest of ``CsMat``, ``CsVec``, stacking, Kronecker products,
 permutations, symmetry, SpGEMM with its dense and block-sparse routes,
-GMRES, LSQR and the sparse-iterate BiCGSTAB).
+GMRES, LSQR and the sparse-iterate BiCGSTAB), and the host symbolic
+layer with the simplicial direct solvers (orderings, elimination trees,
+supernodes, the native host library, triangular solves, LDLᵀ, LU,
+ILU(0)/IC(0), refinement and the differentiable ``solve``).
 Public constructors place tensors on ``"cuda"`` unless the caller
 passes ``device=``.
 
@@ -27,12 +30,13 @@ passes ``device=``.
 [3.0, 3.0, 15.0]
 """
 
-from . import formats, linalg, ops, utils
+from . import formats, linalg, native, ops, utils
 from .errors import (
     CapacityError,
     LinalgError,
     NonSquareMatrixError,
     ShapeError,
+    SingularMatrixError,
     SprsError,
     StructureError,
 )

@@ -52,6 +52,10 @@ class NonSquareMatrixError(LinalgError):
     """A square matrix was required."""
 
 
+class SingularMatrixError(LinalgError):
+    """The matrix is singular (zero pivot / zero diagonal entry)."""
+
+
 class CapacityError(SprsError):
     """An operation produced more nonzeros than the provided capacity."""
 

@@ -3,8 +3,9 @@ host Gauss–Seidel sweep, the counterparts of
 ``sprs_tpu/linalg/iterative.py``.
 
 Jacobi runs the same update as the JAX ``while_loop`` in a Python loop
-with one host synchronisation per iteration.  Gauss–Seidel is the numpy
-row sweep only; the JAX package's native C++ fast path is not ported.
+with one host synchronisation per iteration.  Gauss–Seidel sweeps on
+the host through the port's native library when it is built, else in
+the numpy row sweep (the same arithmetic in the same order).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import native
 from ..errors import NonSquareMatrixError
 from ..formats.csmat import CsMat
 from ..ops.prod import spmv
@@ -67,9 +69,9 @@ def gauss_seidel(
     tol: float = 1e-8,
     max_iter: int = 300,
 ) -> IterativeResult:
-    """Host Gauss–Seidel row sweep in numpy f64, with the residual
-    ‖A·x − b‖₂ checked after every sweep; ``x`` returns on ``mat``'s
-    device."""
+    """Host Gauss–Seidel row sweep in f64, with the residual ‖A·x − b‖₂
+    checked after every sweep; ``x`` returns on ``mat``'s device.  The
+    native library's sweep runs when it is built, else the numpy one."""
     _check_square(mat, "gauss_seidel")
     csr = mat.to_csr()
     n = csr.shape[0]
@@ -84,6 +86,11 @@ def gauss_seidel(
         if x0 is None
         else as_vector(x0, mat).cpu().numpy().astype(np.float64)
     )
+
+    fast = native.gauss_seidel(indptr, indices, data, b_h, x, tol, max_iter)
+    if fast is not None:
+        xf, it, res = fast
+        return IterativeResult(torch.from_numpy(xf).to(mat.device), it, res, res <= tol)
 
     def residual() -> float:
         ax = np.bincount(rows, weights=data * x[indices], minlength=n)
