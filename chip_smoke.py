@@ -95,6 +95,22 @@ and prints no result):
       the values against the dense formula and ``det`` against
       ``slogdet``; the row-scan device numeric at 16² against the host
       numeric;
+   h. the panel LDLᵀ numerics on the same operand: the nd and camd
+      supernodal and multifrontal plans and round schedules (equal to the
+      CPU build's, nd's to the JAX package's integers); the mf-batched and
+      super-batched factors in f64 and f32 and mf-batched camd in f64 (s
+      per factor beside phase 5g's host numeric; f64 within rtol = atol
+      1e-9 of the host numeric, every repeat bit-equal, no NaN); the
+      supernodal and multifrontal numerics at 64² (rtol 1e-10);
+      ``solve(method="super")`` after each 256² factor by both branches
+      of the round-batched solve's gate (ms per solve; ‖Ax − b‖ ≤
+      1e-10·‖b‖, x within 1e-10 of ``spsolve`` and the level solve, an
+      (n, 8) right-hand side column for column); ``refine_solve`` from the
+      f32 mf-batched factor through K1 (one launch per residual, forward
+      error below 1e-8); ``BatchedLdl`` at 128² over 8 value sets against
+      8 single factors and solves, and ``batch_spmv``, ``batch_spmm`` and
+      ``batch_spgemm`` at 256² over 4 against member loops; one profiled
+      factor (device launches per round, idle share, top device ops);
 6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
    step against a dense solve;
    LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
@@ -108,7 +124,8 @@ and prints no result):
    three points beside ``torch.sparse.mm`` and scipy, the split of its
    device time, its peak memory per product, and at the densest point
    the dense route and the break-even that sets
-   ``AUTO_DENSE_PRODUCTS_PER_MAC``), the kernels line, then the last line
+   ``AUTO_DENSE_PRODUCTS_PER_MAC``), the direct_panel line (phase 5h's
+   numbers), the kernels line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -116,6 +133,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -150,9 +168,14 @@ from sprs_tpu_torch.linalg import (
     splu,
     svds,
 )
+from sprs_tpu_torch.linalg import ldl_batched as lb
 from sprs_tpu_torch.linalg.solve import resolve_method
 from sprs_tpu_torch.ops import (
+    BatchedLdl,
     Permutation,
+    batch_spgemm,
+    batch_spmm,
+    batch_spmv,
     block_diag,
     bmat,
     hstack,
@@ -163,6 +186,7 @@ from sprs_tpu_torch.ops import (
     prepare_spmm,
     prepare_spmv,
     spgemm,
+    spmm,
     spmv,
     transform_mat_papt,
     transform_mat_paq,
@@ -288,6 +312,20 @@ PRECOND_REPS = 10
 PRECOND_PROFILE_ITERS = 5  # each IC(0) application is ~4,000 launches to trace
 SMALL_DIRECT_SIDE = 32
 ROWSCAN_SIDE = 16
+# phase 5h: the panel numerics at DIRECT_SIDE, the sequential ones at
+# PANEL_SMALL_SIDE, BatchedLdl at PANEL_BATCH_SIDE over PANEL_BATCH_N value
+# sets, the batched products over PANEL_PRODUCT_N
+PANEL_FILLS = ("nd", "camd")
+PANEL_RTOL = 1e-9  # the JAX package's 256² gate (tests/test_ldl_batched.py)
+PANEL_SMALL_RTOL = 1e-10  # the sequential numerics at PANEL_SMALL_SIDE
+PANEL_SMALL_SIDE = 64
+PANEL_BATCH_SIDE = 128
+PANEL_BATCH_N = 8
+PANEL_PRODUCT_N = 4
+PANEL_REFINE_STEPS = 5
+# the JAX package's host plans at 256², nd (its LDL bench's grid)
+EXPECTED_ND_PLANS = {256: {"S": 1991, "W": 128, "MR": 536, "P": 15467008, "super_T": 7167,
+                           "super_R": 29, "mf_T": 4384, "mf_R": 26}}
 
 
 def log(msg: str) -> None:
@@ -1966,7 +2004,9 @@ def k1_counts():
 
 def phase_direct():
     """Phase 5g on the 256² Dirichlet Laplacian (65,536 rows, f64) on the
-    card.  Returns the K1 launches of its main-path solves."""
+    card.  Returns the K1 launches of its main-path solves and what phase
+    5h reuses: the matrix, right-hand side, symbolics, the host factor
+    with its seconds, and the reference solutions."""
     side = DIRECT_SIDE
     n = side * side
     a = dirichlet_laplacian((side, side), device=DEVICE)
@@ -1995,7 +2035,8 @@ def phase_direct():
 
     # 2. LDLᵀ with nd: host numeric, solves on the card
     sym = syms["nd"]
-    num, secs = timed(lambda: sym.factor(a))
+    num, secs = timed(lambda: sym.factor(a, backend="host"))
+    host_s = secs
     method = num.solve_method("auto")
     _, plan_s = timed(lambda: num.solve(b))
     ms = solve_ms(lambda: num.solve(b), DIRECT_SOLVE_REPS)
@@ -2028,7 +2069,8 @@ def phase_direct():
     stamp(2)
 
     # 3. mixed precision: f32 factor, f64 residuals through K1
-    num32, secs = timed(lambda: sym.factor(a.astype(torch.float32)))
+    num32, secs = timed(lambda: sym.factor(a.astype(torch.float32), backend="host"))
+    host32_s = secs
     x32 = num32.solve(b)
     fwd0 = rel_max(x32, x)
     dia_spmv_kernel.launches = dia_spmv_plain.calls = 0
@@ -2115,13 +2157,310 @@ def phase_direct():
     # 6. the row-scan device numeric
     small = dirichlet_laplacian((ROWSCAN_SIDE, ROWSCAN_SIDE), device=DEVICE)
     sym_s = Ldl().fill_in_reduction("nd").symbolic(small)
-    host = sym_s.factor(small)
+    host = sym_s.factor(small, backend="host")
     dev, secs = timed(lambda: sym_s.factor(small, backend="device"))
     err = max(float((dev.l_data - host.l_data).abs().max()), float((dev.d - host.d).abs().max()))
     log(f"direct row-scan device numeric {ROWSCAN_SIDE}^2: {secs!r} s for {sym_s.nnz} entries")
     gate("row-scan numeric vs host numeric (max abs)", err, 1e-12)
     stamp(6)
-    return k1
+    return k1, {"a": a, "b": b, "syms": syms, "num": num, "host_s": host_s, "host32_s": host32_s,
+                "x": x, "x_ref": torch.from_numpy(x_ref).to(DEVICE)}
+
+
+def plans_equal(label, got, want):
+    """Every field of two plans or round schedules equal: ints, arrays and
+    per-class / per-bucket tuples of arrays."""
+    for f in dataclasses.fields(got):
+        x, y = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(x, tuple):
+            same = len(x) == len(y) and all(np.array_equal(u, v) for u, v in zip(x, y))
+        else:
+            same = np.array_equal(x, y)
+        if not same:
+            raise AssertionError(f"{label}: field {f.name} differs from the CPU build")
+
+
+def build_plans(sym):
+    """(super plan, its schedule, mf plan, its schedule) of ``sym``, with
+    the seconds of each build."""
+    out, secs = [], []
+    for build in (sym.super_plan, sym.mf_plan):
+        plan, s1 = timed(build)
+        sched, s2 = timed(lambda: sym.round_schedule(plan))
+        out += [plan, sched]
+        secs += [s1, s2]
+    return out, secs
+
+
+def factor_gap(num, host, rtol):
+    """(excess of |l − l_host| over rtol·|l_host|, relative to max|l_host|;
+    max relative error of d; max relative error of l): the JAX 256²
+    gate's form, atol = rtol·max|l_host|, passes when the first two are
+    at most rtol."""
+    lh, dh = host.l_data.to(torch.float64), host.d.to(torch.float64)
+    diff = (num.l_data.to(torch.float64) - lh).abs()
+    scale = float(lh.abs().max())
+    l_err = float((diff - rtol * lh.abs()).max()) / scale
+    return l_err, float(((num.d.to(torch.float64) - dh).abs() / dh.abs()).max()), float(diff.max()) / scale
+
+
+def torch_ops(fn) -> int:
+    """The torch operations one call of ``fn`` issues, views excluded
+    (each launches at least one kernel on the card), counted by a
+    dispatch mode: cheap where the profiler takes about a millisecond
+    per launch to trace."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def device_launches(fn):
+    """(device ops launched by one call of ``fn``, device busy ms, traced
+    wall ms, top ops) from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
+    top = [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in ops[:8]]
+    return sum(e.count for e in ops), busy, wall, top
+
+
+def panel_solves(label, num, a, b, refs, gated, block=None):
+    """``solve(method="super")`` by both branches of the round-batched
+    solve's gate, forced through the port's CUDA constant: first solve s,
+    ms per solve (CUDA events), and on an f64 factor the gates."""
+    out = {}
+    default = lb.SOLVE_BATCHED_MIN_S_CUDA
+    try:
+        for branch, min_s in (("sequential", 1 << 40), ("batched", 1)):
+            lb.SOLVE_BATCHED_MIN_S_CUDA = min_s
+            x, first_s = timed(lambda: num.solve(b, method="super"))
+            ms = solve_ms(lambda: num.solve(b, method="super"), DIRECT_SOLVE_REPS)
+            row = {"first_s": first_s, "ms": ms}
+            res = float(torch.linalg.vector_norm(spmv(a, x) - b) / torch.linalg.vector_norm(b))
+            row["residual"] = res
+            row.update({f"vs_{k}": rel_max(x, v) for k, v in refs.items()})
+            if gated:
+                gate(f"panel {label} {branch} relative residual", res, 1e-10)
+                for k in refs:
+                    gate(f"panel {label} {branch} x vs {k} (rel max)", row[f"vs_{k}"], 1e-10)
+            if block is not None and branch == "batched":
+                X = num.solve(block, method="super")
+                row["block_ms"] = solve_ms(lambda: num.solve(block, method="super"),
+                                           DIRECT_SOLVE_REPS)
+                row["block_col_err"] = max(
+                    rel_max(X[:, j], num.solve(block[:, j].contiguous(), method="super"))
+                    for j in range(block.shape[1]))
+                gate(f"panel {label} {branch} (n, {block.shape[1]}) columns vs single solves",
+                     row["block_col_err"], 1e-13)
+            log(f"panel solve {label} {branch}: {json.dumps(row)}")
+            out[branch] = row
+    finally:
+        lb.SOLVE_BATCHED_MIN_S_CUDA = default
+    return out
+
+
+def phase_direct_panel(direct):
+    """Phase 5h: the panel LDLᵀ numerics and the batch API on the card.
+    Returns the direct_panel line and the K1 launches of refinement."""
+    side = DIRECT_SIDE
+    a, b = direct["a"], direct["b"]
+    refs = {"spsolve": direct["x_ref"], "levels": direct["num"].solve(b, method="levels")}
+    host = direct["num"]
+    row = {"side": side, "host_numeric_s": {"f64": direct["host_s"], "f32": direct["host32_s"]}}
+    t_start = time.perf_counter()
+
+    def stamp(step):
+        log(f"panel step {step} done at {time.perf_counter() - t_start!r} s")
+
+    # 1. plans on the card's host, equal to the CPU build's
+    syms, plans = {}, {}
+    for fill in PANEL_FILLS:
+        sym = direct["syms"][fill]
+        (sp, ss, mp, ms), secs = build_plans(sym)
+        syms[fill] = sym
+        plans[fill] = {"S": sp.S, "W": sp.W, "MR": sp.MR, "P": sp.P, "super_T": sp.n_tasks,
+                       "super_R": ss.R, "mf_T": mp.n_tasks, "mf_R": ms.R, "mf_F": mp.F,
+                       "classes": list(ss.upd_mr), "seconds": secs}
+        cpu_sym = Ldl().fill_in_reduction(fill).symbolic(
+            dirichlet_laplacian((side, side), device="cpu"))
+        for label, got, want in zip(("super plan", "super schedule", "mf plan", "mf schedule"),
+                                    (sp, ss, mp, ms), build_plans(cpu_sym)[0]):
+            plans_equal(f"{fill} {label}", got, want)
+        log(f"panel plans {side}^2 {fill}: {json.dumps(plans[fill])}")
+    want = EXPECTED_ND_PLANS.get(side)
+    if want and any(plans["nd"][k] != v for k, v in want.items()):
+        raise AssertionError(f"nd plans {plans['nd']} differ from {want}")
+    row["plans"] = plans
+    stamp(1)
+
+    # 2. batched factors at 256² against the host numeric
+    hosts = {("nd", "f64"): host}
+    hosts[("camd", "f64")], secs = timed(lambda: syms["camd"].factor(a, backend="host"))
+    row["host_numeric_s"]["camd_f64"] = secs
+    a32 = a.astype(torch.float32)
+    factors, row["factors"] = {}, {}
+    for fill, backend, prec in (("nd", "mf-batched", "f64"), ("nd", "super-batched", "f64"),
+                                ("nd", "mf-batched", "f32"), ("nd", "super-batched", "f32"),
+                                ("camd", "mf-batched", "f64")):
+        # a symbolic of its own per plan kind: solve("super") prefers a
+        # cached mf plan
+        sym = syms[fill] if backend == "mf-batched" else dataclasses.replace(syms[fill])
+        mat = a if prec == "f64" else a32
+        sym.factor(mat, backend=backend)  # warm-up: plans, schedules, tables
+        num, secs = timed(lambda: sym.factor(mat, backend=backend))
+        again = sym.factor(mat, backend=backend)
+        bit_equal = torch.equal(num.l_data, again.l_data) and torch.equal(num.d, again.d)
+        finite = bool(torch.isfinite(num.l_data).all() and torch.isfinite(num.d).all())
+        l_gap, d_err, l_err = factor_gap(num, hosts[(fill, "f64")], PANEL_RTOL)
+        key = f"{fill} {backend} {prec}"
+        entry = {"s": secs, "bit_equal": bit_equal, "finite": finite, "l_gap": l_gap,
+                 "l_rel_max": l_err, "d_rel_max": d_err}
+        log(f"panel factor {side}^2 {key}: {json.dumps(entry)}")
+        if not (bit_equal and finite):
+            raise AssertionError(f"panel factor {key}: bit_equal {bit_equal}, finite {finite}")
+        if prec == "f64":
+            gate(f"panel factor {key} l vs host (rtol = atol)", l_gap, PANEL_RTOL)
+            gate(f"panel factor {key} d vs host (rel max)", d_err, PANEL_RTOL)
+        factors[key] = num
+        row["factors"][key] = entry
+    stamp(2)
+
+    # 3. the sequential numerics at 64²
+    small = dirichlet_laplacian((PANEL_SMALL_SIDE,) * 2, device=DEVICE)
+    sym_s = Ldl().fill_in_reduction("nd").symbolic(small)
+    host_s = sym_s.factor(small, backend="host")
+    row["sequential"] = {}
+    for backend in ("supernodal", "mf", "mf-batched"):
+        sym_s.factor(small, backend=backend)
+        num, secs = timed(lambda: sym_s.factor(small, backend=backend))
+        l_gap, d_err, _ = factor_gap(num, host_s, PANEL_SMALL_RTOL)
+        entry = {"s": secs, "torch_ops": torch_ops(lambda: sym_s.factor(small, backend=backend))}
+        log(f"panel factor {PANEL_SMALL_SIDE}^2 nd {backend}: {json.dumps(entry)}")
+        gate(f"panel factor {PANEL_SMALL_SIDE}^2 {backend} l vs host", l_gap, PANEL_SMALL_RTOL)
+        gate(f"panel factor {PANEL_SMALL_SIDE}^2 {backend} d vs host", d_err, PANEL_SMALL_RTOL)
+        row["sequential"][backend] = entry
+    b_s = b[: small.shape[0]].contiguous()
+    x_s = host_s.solve(b_s, method="levels")
+    row["sequential"]["solves"] = panel_solves(
+        f"{PANEL_SMALL_SIDE}^2 nd mf-batched", num, small, b_s, {"levels": x_s}, gated=True)
+    plan_s = sym_s.mf_plan()
+    row["sequential"]["S"], row["sequential"]["R"] = plan_s.S, sym_s.round_schedule(plan_s).R
+    stamp(3)
+
+    # 4. panel solves after each 256² factor, by both branches
+    block = rhs_block(side * side, DIRECT_RHS_K, torch.float64, 91)
+    row["solves"] = {}
+    for key, num in factors.items():
+        gated = key.endswith("f64")
+        row["solves"][key] = panel_solves(key, num, a, b, refs, gated,
+                                          block=block if key == "nd mf-batched f64" else None)
+    stamp(4)
+
+    # 5. mixed precision: the f32 mf-batched factor, f64 residuals through K1
+    num32 = factors["nd mf-batched f32"]
+    dia_spmv_kernel.launches = dia_spmv_plain.calls = 0
+    (x_r, info), secs = timed(lambda: refine_solve(a, num32, b, steps=PANEL_REFINE_STEPS))
+    k1, plain = k1_counts()
+    errs = info["backward_errors"]
+    fwd = rel_max(x_r, direct["x"])
+    row["refine"] = {"s": secs, "forward_error": fwd, "backward_errors": errs,
+                     "forward_error_before": rel_max(num32.solve(b).to(torch.float64),
+                                                     direct["x"]),
+                     "k1_launches": k1, "plain_calls": plain}
+    log(f"panel mixed precision: {json.dumps(row['refine'])}")
+    if k1 != len(errs) or plain != 0:
+        raise AssertionError(f"refine_solve: {k1} K1 launches for {len(errs)} residuals, "
+                             f"{plain} plain calls")
+    gate("panel refined forward error", fwd, 1e-8)
+    stamp(5)
+
+    # 6. the batch API
+    row["batch"] = phase_batch_api(a)
+    stamp(6)
+
+    # 7. one 256² nd mf-batched factor under the profiler
+    rounds = syms["nd"].round_schedule(syms["nd"].mf_plan()).R
+    factor = lambda: syms["nd"].factor(a, backend="mf-batched")  # noqa: E731
+    launches, busy, wall, top = device_launches(factor)
+    row["profile"] = {"device_launches": launches, "launches_per_round": launches / rounds,
+                      "torch_ops": torch_ops(factor), "rounds": rounds, "device_busy_ms": busy,
+                      "traced_ms": wall, "device_idle_share": 1.0 - busy / wall,
+                      "top_device_ops": top}
+    log(f"panel profile {side}^2 nd mf-batched f64: {json.dumps(row['profile'])}")
+    stamp(7)
+    return row, k1
+
+
+def phase_batch_api(a):
+    """BatchedLdl over N value sets against N single factors and solves;
+    the batched products on ``a`` against member loops."""
+    out = {}
+    side = PANEL_BATCH_SIDE
+    ab = dirichlet_laplacian((side, side), device=DEVICE)
+    sym = Ldl().fill_in_reduction("nd").symbolic(ab)
+    bl = BatchedLdl(sym, kind="mf")
+    N = PANEL_BATCH_N
+    data = torch.stack([ab.data * (i + 1) for i in range(N)])
+    rhs = rhs_block(N, ab.shape[0], torch.float64, 94)[:, sym.perm.perm.to(torch.int64)]
+    bl.solve(*bl.factor(data), rhs)  # warm-up
+    (lx, d), f_s = timed(lambda: bl.factor(data))
+    x, s_s = timed(lambda: bl.solve(lx, d, rhs))
+
+    def singles():
+        return [bl.solve(*bl.factor(data[i]), rhs[i]) for i in range(N)]
+
+    xs, single_s = timed(singles)
+    err = max(rel_max(x[i], xs[i]) for i in range(N))
+    out["ldl"] = {"side": side, "N": N, "factor_s": f_s, "solve_s": s_s,
+                  "single_factors_and_solves_s": single_s, "member_vs_single": err}
+    log(f"panel batch ldl: {json.dumps(out['ldl'])}")
+    gate("batched ldl members vs single solves (rel max)", err, 1e-10)
+
+    N = PANEL_PRODUCT_N
+    data = torch.stack([a.data * (1.0 + 0.25 * i) for i in range(N)])
+    xv = rhs_block(N, a.shape[0], torch.float64, 95)
+    xm = rhs_block(N, a.shape[0] * DIRECT_RHS_K, torch.float64, 96).view(N, a.shape[0],
+                                                                         DIRECT_RHS_K)
+    products = {}
+    y, secs = timed(lambda: batch_spmv(a, data, xv))
+    products["spmv"] = (secs, max(rel_max(y[i], spmv(a.with_data(data[i]), xv[i]))
+                                  for i in range(N)))
+    y, secs = timed(lambda: batch_spmm(a, data, xm))
+    products["spmm"] = (secs, max(rel_max(y[i], spmm(a.with_data(data[i]), xm[i]))
+                                  for i in range(N)))
+    c, secs = timed(lambda: batch_spgemm(a, a, data, data))
+    errs = []
+    for i in range(N):
+        one = spgemm(a.with_data(data[i]), a.with_data(data[i]))
+        nnz = int(one.indptr[-1])
+        if not (torch.equal(one.indptr, c.indptr) and torch.equal(one.indices[:nnz],
+                                                                  c.indices[:nnz])):
+            raise AssertionError(f"batch_spgemm member {i}: pattern differs from the loop's")
+        errs.append(rel_max(c.data[i, :nnz], one.data[:nnz]))
+    products["spgemm"] = (secs, max(errs))
+    for name, (secs, err) in products.items():
+        out[name] = {"N": N, "s": secs, "member_vs_loop": err}
+        gate(f"batch_{name} members vs loop (rel max)", err, 1e-12)
+    log(f"panel batch products: {json.dumps({k: out[k] for k in products})}")
+    return out
 
 
 def check_small_direct():
@@ -2307,10 +2646,16 @@ def main() -> int:
         if n == 0:
             raise AssertionError(f"the SpGEMM path launched no {kname} kernel")
         launches[kname] += n
-    k1 = phase_direct()
+    k1, direct = phase_direct()
     if k1 == 0:
         raise AssertionError("the direct-solver path launched no dia_spmv kernel")
     launches["dia_spmv"] += k1
+    panel_row, k1 = phase_direct_panel(direct)
+    del direct
+    if k1 == 0:
+        raise AssertionError("the panel path launched no dia_spmv kernel")
+    launches["dia_spmv"] += k1
+    panel_row["card"] = smi
     errs["bsr_spmm_tf32x3"] = max(GATE_ERRS["bsr_spmm_tf32x3"])
     for kname, n in launches.items():
         if n == 0:
@@ -2342,6 +2687,7 @@ def main() -> int:
                 for other in row["other_shapes"]
             ]
     print(json.dumps({"spgemm": spgemm_rows, "card": smi}))
+    print(json.dumps({"direct_panel": panel_row}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -1,5 +1,5 @@
 """LDLᵀ factorization with a fill-reducing ordering, the counterpart of
-``sprs_tpu/linalg/ldl.py`` (without its panel numerics).
+``sprs_tpu/linalg/ldl.py``.
 
 * **Symbolic (host)** — everything data-independent is computed once, in
   numpy or the port's native library, with the JAX package's arrays:
@@ -8,20 +8,23 @@
   with the storage slot of every L entry, gather maps from the input's
   data into the permuted upper rows, the CSR twin of L, and level
   schedules for both triangular solves.
-* **Numeric** — ``backend="host"`` (the default, as on the JAX package's
-  eager path) is the exact f64 up-looking numeric in numpy, stored in the
-  input's dtype on the input's device.  ``backend="device"`` is the JAX
-  package's row scan on the input's device: a Python loop over rows and
-  their update lists, several launches per update; a zero pivot
-  NaN-poisons instead of raising.
-* **Solve (operand's device)** — permute, unit-lower level solve,
-  diagonal scale, unit-upper level solve, inverse permute.  Both solves
-  index ``l_data`` through gather maps cached on the symbolic per device.
-
-The panel numerics (``super_plan``, ``mf_plan``, ``round_schedule``, the
-"supernodal", "mf", "super-batched" and "mf-batched" backends and
-``solve(method="super")``) are not ported yet: they raise
-NotImplementedError.
+* **Numeric** — ``backend="host"`` is the exact f64 up-looking numeric in
+  numpy, stored in the input's dtype on the input's device.
+  ``backend="device"`` is the JAX package's row scan on the input's
+  device: a Python loop over rows and their update lists.  The panel
+  numerics run on the input's device from host plans cached on the
+  symbolic (``super_plan``, ``mf_plan``, ``round_schedule``):
+  "supernodal" and "mf" one task at a time (``ldl_super``, ``ldl_mf``),
+  "super-batched" and "mf-batched" in rounds of independent tasks
+  (``ldl_batched``).  The device numerics NaN-poison a zero pivot instead
+  of raising.  ``backend="auto"`` is "host" on the CPU; on a CUDA tensor
+  with n ≥ 256 it takes the JAX package's device order ("mf-batched",
+  else "super-batched", else "device").
+* **Solve (operand's device)** — permute, unit-lower solve, diagonal
+  scale, unit-upper solve, inverse permute: by level schedules
+  ("levels", "flat", their gather maps cached on the symbolic per
+  device) or on the panels ("super": one supernode per step, or the
+  factor's rounds once the plan has ``solve_batched_min_s`` supernodes).
 """
 
 from __future__ import annotations
@@ -53,10 +56,6 @@ from .trisolve import (
     schedule_from_arrays,
 )
 
-PANEL_TODO = (
-    "the panel numerics of the LDLᵀ solver are not ported yet "
-    "(ROADMAP.md, Queue 1 item 6b)"
-)
 PANEL_BACKENDS = ("supernodal", "mf", "super-batched", "mf-batched")
 
 # the level solve's (level width × max row nnz) window past which the
@@ -347,13 +346,33 @@ class LdlSymbolic:
         return self._padded_pattern()[1]
 
     def super_plan(self, **kwargs):
-        raise NotImplementedError(f"LdlSymbolic.super_plan: {PANEL_TODO}")
+        """The supernodal schedule of this pattern (built on first use and
+        cached; ``kwargs`` apply to the first build).  Raises
+        ``SupernodalPlanError`` if infeasible."""
+        from .ldl_super import build_super_plan
+
+        return self._cached("_super_plan", lambda: build_super_plan(self, **kwargs))
 
     def mf_plan(self, **kwargs):
-        raise NotImplementedError(f"LdlSymbolic.mf_plan: {PANEL_TODO}")
+        """The multifrontal-lite schedule of this pattern (cached as
+        ``super_plan``)."""
+        from .ldl_mf import build_mf_plan
+
+        return self._cached("_mf_plan", lambda: build_mf_plan(self, **kwargs))
+
+    def panel_plan(self):
+        """The panel plan a factorization built (mf first), or None."""
+        return self.__dict__.get("_mf_plan") or self.__dict__.get("_super_plan")
 
     def round_schedule(self, plan, **kwargs):
-        raise NotImplementedError(f"LdlSymbolic.round_schedule: {PANEL_TODO}")
+        """The level-batched round schedule of ``plan`` (cached per plan:
+        plans are cached on this symbolic, so identity keys are sound)."""
+        from .ldl_batched import build_round_schedule
+
+        scheds = self._cached("_round_scheds", dict)
+        if id(plan) not in scheds:
+            scheds[id(plan)] = build_round_schedule(plan, **kwargs)
+        return scheds[id(plan)]
 
     def factor(self, mat: CsMat, *, backend: str = "auto") -> "LdlNumeric":
         return LdlNumeric.factor(self, mat, backend=backend)
@@ -442,19 +461,35 @@ class LdlNumeric:
 
     @classmethod
     def factor(cls, sym: LdlSymbolic, mat: CsMat, *, backend: str = "auto") -> "LdlNumeric":
-        """``backend``: "auto" (= "host", the JAX package's choice for
-        concrete data; every port tensor is concrete) or "device"."""
+        """``backend``: "host", "device", "supernodal", "mf",
+        "super-batched", "mf-batched" or "auto" (the module docstring's
+        rule)."""
         a = mat.to_csr()
         if a.shape != (sym.n, sym.n):
             raise ShapeError("matrix shape differs from symbolic plan")
-        if backend in PANEL_BACKENDS:
-            raise NotImplementedError(f"backend={backend!r}: {PANEL_TODO}")
-        if backend in ("auto", "host"):
+        if backend == "auto":
+            backend = _auto_backend(sym, a.data)
+        if backend == "host":
             lx, d = _numeric_host(sym, a.data.detach().to(torch.float64).cpu().numpy())
             # exact f64 compute, stored in the input's floating dtype
             out = a.dtype if a.dtype.is_floating_point else torch.float64
             return cls(sym, torch.from_numpy(lx).to(a.device, out),
                        torch.from_numpy(d).to(a.device, out))
+        if backend in PANEL_BACKENDS:
+            plan = sym.super_plan() if backend in ("supernodal", "super-batched") else sym.mf_plan()
+            if backend == "supernodal":
+                from .ldl_super import numeric_supernodal
+
+                lx, d = numeric_supernodal(plan, a.data.detach())
+            elif backend == "mf":
+                from .ldl_mf import numeric_multifrontal
+
+                lx, d = numeric_multifrontal(plan, a.data.detach())
+            else:
+                from .ldl_batched import numeric_batched
+
+                lx, d = numeric_batched(plan, sym.round_schedule(plan), a.data.detach())
+            return cls(sym, lx, d)
         if backend != "device":
             raise ValueError(f"unknown LDLᵀ backend {backend!r}")
         if sym.n * sym.wl > 1 << 28:
@@ -504,24 +539,57 @@ class LdlNumeric:
         return self.symbolic.n
 
     def solve_method(self, method: str = "auto") -> str:
-        """The method ``solve`` takes: "auto" and "levels" are "levels"
-        unless n·max_row_nnz of L or Lᵀ exceeds 2²⁴, then "flat"."""
-        if method == "super":
-            raise NotImplementedError(f"LdlNumeric.solve(method='super'): {PANEL_TODO}")
-        if method not in ("auto", "levels", "flat"):
+        """The method ``solve`` takes.  "auto" is "super" when a panel
+        plan is cached on the symbolic (the factor ran on panels), else
+        "levels"; "levels" escapes to "flat" when n·max_row_nnz of L or
+        Lᵀ exceeds 2²⁴."""
+        if method not in ("auto", "levels", "flat", "super"):
             raise ValueError(f"unknown solve method {method!r}")
-        if method == "flat":
-            return method
         s = self.symbolic
+        if method == "auto" and s.panel_plan() is not None:
+            return "super"
+        if method in ("flat", "super"):
+            return method
         w = max(int(np.diff(s.lcsr_indptr).max(initial=1)),
                 int(np.diff(s.l_indptr).max(initial=1)))
         return "flat" if s.n * w > FLAT_ESCAPE else "levels"
 
+    def _panels(self, plan) -> torch.Tensor:
+        """The factor's values as ``plan``'s flat panels (cached per plan
+        and dtype)."""
+        from .ldl_super import panels_from_csc
+
+        key = (id(plan), self.l_data.dtype)
+        cached = self.__dict__.get("_panel_cache")
+        if cached is None or cached[0] != key:
+            cached = (key, panels_from_csc(plan, self.l_data))
+            object.__setattr__(self, "_panel_cache", cached)
+        return cached[1]
+
+    def _solve_super(self, x: torch.Tensor) -> torch.Tensor:
+        from .ldl_batched import solve_batched, solve_batched_min_s
+        from .ldl_super import SupernodalPlanError, solve_supernodal
+
+        s = self.symbolic
+        plan = s.panel_plan()
+        if plan is None:
+            try:
+                plan = s.mf_plan()
+            except SupernodalPlanError:
+                plan = s.super_plan()
+        panels = self._panels(plan)
+        sched = s.__dict__.get("_round_scheds", {}).get(id(plan))
+        if sched is not None and plan.S >= solve_batched_min_s(x.device):
+            return solve_batched(plan, sched, panels, self.d, x)
+        return solve_supernodal(plan, panels, self.d, x)
+
     def solve(self, b, *, method: str = "auto") -> torch.Tensor:
         """x with A x = b for a vector or an (n, k) block, on the factor's
         device.  ``method``: "levels" (level-scheduled solves), "flat"
-        (the O(lnz) entry-stream solve) or "auto" (= "levels", escaping
-        to "flat" past the n·max_row_nnz > 2²⁴ cliff)."""
+        (the O(lnz) entry-stream solve), "super" (the panel solves; the
+        round-batched sweeps when the factor's round schedule is cached
+        and the plan has at least ``solve_batched_min_s`` supernodes) or
+        "auto" (``solve_method``'s rule)."""
         s = self.symbolic
         method = self.solve_method(method)
         if not isinstance(b, torch.Tensor):
@@ -531,13 +599,36 @@ class LdlNumeric:
             raise ShapeError(f"rhs dim {tuple(b.shape)} vs n={s.n}")
         b = b.to(torch.promote_types(self.l_data.dtype, b.dtype))
         x = b if s.perm is None else b[s.perm.perm.to(torch.int64)]
-        plans = (s.level_plans if method == "levels" else s.flat_plans)(self.l_data.device)
-        x = plans[0].solve(self.l_data, x)
-        x = x / (self.d if x.ndim == 1 else self.d[:, None])
-        x = plans[1].solve(self.l_data, x)
+        if method == "super":
+            x = self._solve_super(x)
+        else:
+            plans = (s.level_plans if method == "levels" else s.flat_plans)(self.l_data.device)
+            x = plans[0].solve(self.l_data, x)
+            x = x / (self.d if x.ndim == 1 else self.d[:, None])
+            x = plans[1].solve(self.l_data, x)
         if s.perm is not None:
             x = x[s.perm.inv.to(torch.int64)]
         return x
+
+
+def _auto_backend(sym: LdlSymbolic, data: torch.Tensor) -> str:
+    """"host" on the CPU and below 256 rows; on a CUDA tensor the JAX
+    package's device order: the level-batched multifrontal numeric, else
+    the level-batched supernodal one, else the row scan.  Chosen from
+    chip_smoke.py phase 5h on an NVIDIA H100 (PERF.md): at 256² nd the
+    mf-batched numeric beat the host numeric 11.8–14.7× in f64 and
+    5.9–15.1× in f32 over five runs."""
+    if not data.is_cuda or sym.n < 256:
+        return "host"
+    from .ldl_super import SupernodalPlanError
+
+    for backend, build in (("mf-batched", sym.mf_plan), ("super-batched", sym.super_plan)):
+        try:
+            build()
+            return backend
+        except SupernodalPlanError:
+            pass
+    return "device"
 
 
 # ---------------------------------------------------------------------------

@@ -75,8 +75,10 @@ def solve(mat: CsMat, b, *, method: str = "auto", fill: str = "auto", **factor_k
     "lu", or an iterative solver "cg" / "bicgstab" / "gmres" (options
     ``tol``, ``max_iter``, ``precond``, and ``restart`` for gmres; the
     adjoint solve runs the same method on Aᵀ without the
-    preconditioner).  Factorization happens on the host; the solves run
-    on ``mat``'s device.  ``fill``: the LDLᵀ ordering ("auto" = "camd"
+    preconditioner).  LDLᵀ factors by ``Ldl``'s "auto" backend (the host
+    numeric, or on a CUDA matrix of 256 rows or more the level-batched
+    numeric on the card), LU on the host; the solves run on ``mat``'s
+    device.  ``fill``: the LDLᵀ ordering ("auto" = "camd"
     when the native library is built, else "rcm"; "camd", "rcm", "nd" or
     "none" to force).  The solution is ordering-independent.
     """

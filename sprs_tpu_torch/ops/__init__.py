@@ -11,6 +11,13 @@ from ..errors import ShapeError
 from ..formats.csmat import CsMat
 from ..formats.csvec import CsVec
 from ..formats.util import INDEX_DTYPE, as_tensor
+from .batch import (
+    BatchedCsMat,
+    BatchedLdl,
+    batch_spgemm,
+    batch_spmm,
+    batch_spmv,
+)
 from .binop import add as _add_sparse
 from .binop import (
     add_dense,
@@ -83,6 +90,11 @@ __all__ = [
     "transform_mat_paq",
     "is_symmetric",
     "assign_to_dense",
+    "BatchedCsMat",
+    "BatchedLdl",
+    "batch_spgemm",
+    "batch_spmm",
+    "batch_spmv",
 ]
 
 

@@ -124,10 +124,11 @@ def _b_lens_of_entries(a: CsMat, b_lens: torch.Tensor) -> torch.Tensor:
     return torch.where(a.live_mask(), lens, 0)
 
 
-def _expand_from_rows(a: CsMat, b_starts, b_lens, b_indices, b_data, prod_cap: int):
-    """Expand against explicit B row spans: ``b_starts[r]`` / ``b_lens[r]``
-    give row r's range inside ``b_indices`` / ``b_data``, which may hold
-    gaps between rows."""
+def _expand_slots(a: CsMat, b_starts, b_lens, b_cap: int, prod_cap: int):
+    """The slot maps of the expansion against explicit B row spans
+    (``b_starts[r]`` / ``b_lens[r]`` give row r's range in B's storage of
+    ``b_cap`` slots): ``(owner, q, valid, total)``, product t multiplying
+    A slot ``owner[t]`` by B slot ``q[t]`` where ``valid[t]``."""
     dev = a.device
     t = torch.arange(prod_cap, dtype=torch.int64, device=dev)
     b_len = _b_lens_of_entries(a, b_lens)
@@ -145,12 +146,19 @@ def _expand_from_rows(a: CsMat, b_starts, b_lens, b_indices, b_data, prod_cap: i
     seg.index_add_(0, first, torch.ones_like(first))
     owner = (torch.cumsum(seg[:prod_cap], 0) - 1).clamp_(min=0)
     del seg, first
-    valid = t < total
-    q = (adj[owner] + t).clamp_(0, max(b_indices.shape[0] - 1, 0))
+    q = (adj[owner] + t).clamp_(0, max(b_cap - 1, 0))
+    return owner, q, t < total, total
+
+
+def _expand_from_rows(a: CsMat, b_starts, b_lens, b_indices, b_data, prod_cap: int):
+    """Expand against explicit B row spans: ``b_starts[r]`` / ``b_lens[r]``
+    give row r's range inside ``b_indices`` / ``b_data``, which may hold
+    gaps between rows."""
+    owner, q, valid, total = _expand_slots(a, b_starts, b_lens, b_indices.shape[0], prod_cap)
     rows = torch.where(valid, a.outer_ids()[owner], a.rows).to(INDEX_DTYPE)
     cols = torch.where(valid, b_indices[q], 0)
     prod = a.data[owner] * b_data[q]
-    vals = torch.where(valid, prod, torch.zeros((), dtype=prod.dtype, device=dev))
+    vals = torch.where(valid, prod, torch.zeros((), dtype=prod.dtype, device=a.device))
     return rows, cols, vals, total
 
 

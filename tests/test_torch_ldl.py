@@ -3,7 +3,7 @@
 arrays for every fill-in reduction (native and numpy symbolic), the host
 numeric, the row-scan device numeric (its NaN-poisoned zero pivot
 included), the levels and flat solves on a vector and a block, and the
-panel calls that are not ported yet.
+panel backends and the panel solve against the host numeric.
 
 Exactly equal: every symbolic array and schedule, and the host numeric
 (numpy against numpy).  The device numeric and the solves agree to
@@ -222,17 +222,21 @@ def test_f32_factor_storage():
     np.testing.assert_allclose(got.solve(b).numpy(), np.asarray(want.solve(b)), rtol=1e-12)
 
 
-def test_panel_calls_not_ported():
+@pytest.mark.parametrize("backend", t_ldl.PANEL_BACKENDS)
+def test_panel_backends_and_super_solve(backend):
+    """Every panel backend on the 12² grid (nd) against the host numeric,
+    and ``solve(method="super")`` on its factor; an unknown backend still
+    raises."""
     m = port_of(MATS["grid12"]())
     sym = Ldl().fill_in_reduction("nd").symbolic(m)
-    for call in (sym.super_plan, sym.mf_plan, lambda: sym.round_schedule(None)):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            call()
-    for backend in t_ldl.PANEL_BACKENDS:
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            LdlNumeric.factor(sym, m, backend=backend)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        sym.factor(m).solve(np.ones(144), method="super")
+    host = sym.factor(m, backend="host")
+    num = LdlNumeric.factor(sym, m, backend=backend)
+    np.testing.assert_allclose(num.l_data.numpy(), host.l_data.numpy(), rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(num.d.numpy(), host.d.numpy(), rtol=1e-10)
+    b = np.linspace(1.0, 2.0, 144)
+    assert num.solve_method("auto") == "super"
+    np.testing.assert_allclose(num.solve(b, method="super").numpy(),
+                               host.solve(b, method="levels").numpy(), rtol=1e-10)
     with pytest.raises(ValueError, match="backend"):
         sym.factor(m, backend="bogus")
 

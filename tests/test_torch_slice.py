@@ -56,6 +56,7 @@ MODULES = [
     "sprs_tpu_torch.ops.kron",
     "sprs_tpu_torch.linalg.gmres",
     "sprs_tpu_torch.linalg.lsqr",
+    "sprs_tpu_torch.ops.batch",
 ]
 
 
@@ -77,6 +78,10 @@ NEW_MODULES = [
     "sprs_tpu_torch.ops.symmetry",
     "sprs_tpu_torch.linalg.gmres",
     "sprs_tpu_torch.linalg.lsqr",
+    "sprs_tpu_torch.linalg.ldl_super",
+    "sprs_tpu_torch.linalg.ldl_mf",
+    "sprs_tpu_torch.linalg.ldl_batched",
+    "sprs_tpu_torch.ops.batch",
 ]
 
 
