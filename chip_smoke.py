@@ -111,6 +111,31 @@ and prints no result):
       8 single factors and solves, and ``batch_spmv``, ``batch_spmm`` and
       ``batch_spgemm`` at 256² over 4 against member loops; one profiled
       factor (device launches per round, idle share, top device ops);
+   i. IO and profile on the 1024² Dirichlet Laplacian (f64): written by
+      ``write_matrix_market_sym`` and read back onto the card by
+      ``read_matrix_market_csr`` (bit-equal; seconds and seconds per
+      million entries), CG on the read-back operand through K1 (iters+2
+      launches, x bit-equal to the CG on the in-memory operand); ``save_npz``
+      / ``load_npz`` of it and of phase 5d's mesh step, CG on the loaded
+      mesh step through K5 (iters+2, x bit-equal to phase 5d's); a
+      checkpoint of {A, its DiaMat, the mesh step's EllMat, x} restored
+      onto the card leaf for leaf; ``audit_spmv`` on phase 4's 4096² f32
+      grid Laplacian (K1, 51 launches; its share of the measured copy
+      rate, at most 1, beside phase 4's share of the HBM peak);
+   j. the distributed layer on a mesh of 4 slots on the card, 1024²
+      Laplacian in f64: ``dist_spmv`` (replicated and ``x_sharded``,
+      ``balance="nnz"``), ``prepare_dist_spmv`` (the Laplacian routes
+      "halo", the permuted mesh step "allgather"; both run),
+      ``dist_spmv_halo`` and ``dist_spmv_2d`` on a (2, 2) mesh, each within
+      1e-12 of the single-device ``spmv``; ``dist_spgemm``,
+      ``dist_spgemm_bshard`` and ``dist_spgemm_bgather`` for L @ L, equal
+      to phase 5f's pattern, data within 1e-12; ``dist_cg`` with Jacobi at
+      1024² and with Jacobi and block-Jacobi LDLᵀ (4 blocks of 16,384
+      rows) at 256², each by name and with its preconditioner built
+      beforehand (set-up seconds, ms per iteration and ms per
+      preconditioner apply apart; true residual ≤ 1e-8·‖b‖; block LDLᵀ
+      in fewer iterations); ``dryrun_multichip(4)``; one profiled
+      ``dist_spmv``;
 6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
    step against a dense solve;
    LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
@@ -125,7 +150,8 @@ and prints no result):
    device time, its peak memory per product, and at the densest point
    the dense route and the break-even that sets
    ``AUTO_DENSE_PRODUCTS_PER_MAC``), the direct_panel line (phase 5h's
-   numbers), the kernels line, then the last line
+   numbers), the io and distributed lines (phases 5i and 5j), the
+   kernels line, then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -136,8 +162,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -326,6 +354,20 @@ PANEL_REFINE_STEPS = 5
 # the JAX package's host plans at 256², nd (its LDL bench's grid)
 EXPECTED_ND_PLANS = {256: {"S": 1991, "W": 128, "MR": 536, "P": 15467008, "super_T": 7167,
                            "super_R": 29, "mf_T": 4384, "mf_R": 26}}
+# phase 5i (IO and profile) and 5j (the distributed layer)
+IO_SIDE = 1024  # 1,048,576 rows, 5,238,784 nnz: a matrix users load from disk
+AUDIT_ITERS = 50
+AUDIT_SHARE_LIMIT = 1.0  # a share above 1 of the measured copy rate is a timing fault
+DIST_SIDE = 1024
+DIST_SMALL_SIDE = 256  # block-Jacobi LDLᵀ: 4 blocks of 16,384 rows
+DIST_SLOTS = 4
+DIST_TOL = 1e-12  # products against the single-device spmv (the sums run in another order)
+DIST_SPMV_REPS = 20  # CUDA-event timing of dist_spmv after one warm-up call
+PRECOND_REPS = 5
+# the recursive residual's stop in phases 5i and 5j: at 1024² with a
+# random b, CG's true residual drifts to within 1% of tol·‖b‖ on the
+# H100, and the gates hold the true residual to SOLVE_TOL
+CG_TOL = SOLVE_TOL / 2
 
 
 def log(msg: str) -> None:
@@ -1539,7 +1581,8 @@ ROUTE_OF = {"DiaTiledMat": "dia", "EllMat": "ell", "CsMat": "csr"}
 
 def phase_main_mesh():
     """The implicit heat step on the permuted mesh (see the module note).
-    Returns K5's launches over the CG solve."""
+    Returns K5's launches over the CG solve, and the operator, right-hand
+    side and solution for phases 5i and 5j."""
     n, tri, centre = permuted_mesh(MESH_SIDE)
     lap, a, setup = mesh_step(n, tri)
     ref_lap, ref_a = scipy_mesh_step(n, tri)
@@ -1584,7 +1627,7 @@ def phase_main_mesh():
         lambda: cg(lambda v: fn(prepared, v), b, tol=SOLVE_TOL, max_iter=MAX_ITER),
         "ell_spmv",
     )
-    return launches
+    return launches, {"a": a, "b": b, "x": res.x}
 
 
 def phase_main_sort():
@@ -1854,7 +1897,8 @@ def gmres_launch_count(res):
 
 def phase_main_biharmonic():
     """Phase 5f's biharmonic step (see the module note).  Returns the
-    launches of K5 (permuted step) and K1 (the step itself)."""
+    launches of K5 (permuted step) and K1 (the step itself), and L @ L
+    for phase 5j."""
     import scipy.sparse as sp
 
     side = BIHARM_SIDE
@@ -1879,7 +1923,7 @@ def phase_main_biharmonic():
         f"{same}; L @ L {t2 - t1!r} s ({lap2.nnz} entries); I + L@L {t3 - t2!r} s")
     if not same:
         raise AssertionError("biharmonic: the Kronecker sum differs from dirichlet_laplacian")
-    del ref_lap, lap2
+    del ref_lap
     ls = lap.to_scipy()
     ref_a = (sp.identity(n, format="csr") + ls @ ls).tocsr()
     check_exact_against_scipy(f"biharmonic A = I + L@L {side}^2", a, ref_a)
@@ -1947,7 +1991,7 @@ def phase_main_biharmonic():
         f"(limits 1e-6)")
     if not (rel_plain <= 1e-6 and rel_carried <= 1e-6):
         raise AssertionError(f"gmres biharmonic: rel {rel_plain}, {rel_carried}")
-    return k5, k1
+    return k5, k1, lap2
 
 
 # ---------------------------------------------------------------------------
@@ -2591,6 +2635,259 @@ def check_small_sparse_ops():
             raise AssertionError(f"small {name} differs from its dense equivalent")
 
 
+# ---------------------------------------------------------------------------
+# phase 5i: IO and profile; phase 5j: the distributed layer
+# ---------------------------------------------------------------------------
+
+
+def arrays_equal(a, b):
+    """Two CsMats (or formats) hold the same arrays bit for bit."""
+    fields = [f.name for f in dataclasses.fields(a)]
+    return type(a) is type(b) and all(
+        torch.equal(getattr(a, f), getattr(b, f)) if isinstance(getattr(a, f), torch.Tensor)
+        else getattr(a, f) == getattr(b, f) for f in fields)
+
+
+def check_cg(name, res, a, b, launches, kernel_launches, plain_calls):
+    true_res = float(torch.linalg.vector_norm(b - spmv(a, res.x)))
+    b_norm = float(torch.linalg.vector_norm(b))
+    log(f"{name}: iterations {res.iterations} converged {res.converged} true residual "
+        f"{true_res!r} (limit {SOLVE_TOL * b_norm!r}), launches {kernel_launches} "
+        f"(expected {launches}), plain calls {plain_calls}")
+    if not (res.converged and true_res <= SOLVE_TOL * b_norm and bool(torch.isfinite(res.x).all())):
+        raise AssertionError(f"{name}: converged {res.converged}, true residual {true_res}")
+    if kernel_launches != launches or plain_calls != 0:
+        raise AssertionError(f"{name}: {kernel_launches} launches, {plain_calls} plain calls")
+
+
+def phase_io(mesh, lap_audit, k1_share):
+    """Phase 5i: Matrix Market, npz and checkpoint round trips on the card
+    at 1024², the solves that follow them, and ``audit_spmv``.  Returns
+    the io line and the K1 and K5 launches of its main path."""
+    from sprs_tpu_torch.io import (
+        load_checkpoint,
+        load_npz,
+        read_matrix_market_csr,
+        save_checkpoint,
+        save_npz,
+        write_matrix_market_sym,
+    )
+    from sprs_tpu_torch.utils import audit_spmv
+
+    side = IO_SIDE
+    a = dirichlet_laplacian((side, side), device=DEVICE)
+    n = a.rows
+    row = {"side": side, "rows": n, "nnz": a.nnz}
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="sprs_tpu_torch_io_") as tmp:
+        path = f"{tmp}/lap.mtx"
+        _, row["mm_write_s"] = timed(lambda: write_matrix_market_sym(path, a))
+        with open(path) as f:
+            f.readline(), f.readline()
+            entries = int(f.readline().split()[2])
+        back, row["mm_read_s"] = timed(lambda: read_matrix_market_csr(path, device=DEVICE))
+        row["mm_file_bytes"] = os.path.getsize(path)
+        row["mm_entries"] = entries
+        row["mm_write_s_per_million"] = row["mm_write_s"] / entries * 1e6
+        row["mm_read_s_per_million"] = row["mm_read_s"] / entries * 1e6
+        same = back.cap == a.cap and arrays_equal(back, a)
+        log(f"io matrix market {side}^2: {entries} stored entries, write {row['mm_write_s']!r} s, "
+            f"read {row['mm_read_s']!r} s onto the card, equal to the original bit for bit {same}")
+        if not same or back.device != a.device:
+            raise AssertionError("the Matrix Market read-back differs from the original")
+
+        # CG on the read-back operand through prepare_spmv -> DIA -> K1
+        b = torch.from_numpy(np.random.default_rng(100).standard_normal(n)).to(DEVICE)
+        reset_counts()
+        res, row["cg_read_back_s"] = timed(lambda: cg(back, b, tol=CG_TOL, max_iter=MAX_ITER))
+        launches["dia_spmv"] = dia_spmv_kernel.launches
+        check_cg(f"io cg {side}^2 on the read-back operand (K1)", res, back, b,
+                 res.iterations + 2, dia_spmv_kernel.launches, dia_spmv_plain.calls)
+        ref = cg(a, b, tol=CG_TOL, max_iter=MAX_ITER)
+        row["cg_iterations"] = res.iterations
+        log(f"io cg: x bit-equal to the same CG on the in-memory operand {torch.equal(res.x, ref.x)}")
+        if not torch.equal(res.x, ref.x):
+            raise AssertionError("io cg: x differs from the CG on the in-memory operand")
+
+        # npz of the Laplacian and of the permuted mesh step (phase 5d)
+        for label, mat in (("laplacian", a), ("mesh step", mesh["a"])):
+            p = f"{tmp}/{label.replace(' ', '_')}.npz"
+            _, save_s = timed(lambda: save_npz(p, mat))
+            got, load_s = timed(lambda: load_npz(p, device=DEVICE))
+            same = got.cap == mat.cap and arrays_equal(got, mat)
+            row[f"npz_{label.replace(' ', '_')}_s"] = [save_s, load_s]
+            log(f"io npz {label}: save {save_s!r} s, load {load_s!r} s, equal {same}")
+            if not same:
+                raise AssertionError(f"io npz {label}: the loaded matrix differs")
+        loaded = got
+        fn, prepared = prepare_spmv(loaded)
+        if ROUTE_OF[type(prepared).__name__] != "ell" or prepared.width != 7:
+            raise AssertionError("the loaded mesh step does not route to ELL of width 7")
+        reset_counts()
+        res, row["cg_mesh_s"] = timed(lambda: cg(loaded, mesh["b"], tol=SOLVE_TOL, max_iter=MAX_ITER))
+        launches["ell_spmv"] = ell_spmv_kernel.launches
+        check_cg("io cg on the npz-loaded mesh step (K5)", res, loaded, mesh["b"],
+                 res.iterations + 2, ell_spmv_kernel.launches, ell_spmv_plain.calls)
+        same = torch.equal(res.x, mesh["x"])
+        log(f"io cg mesh step: x bit-equal to phase 5d's {same}")
+        if not same:
+            raise AssertionError("io cg mesh step: x differs from phase 5d's")
+
+        # a checkpoint of {A, its DiaMat, the mesh step's EllMat, x}
+        tree = {"A": a, "dia": a.to_dia(), "ell": prepared, "x": res.x}
+        _, save_s = timed(lambda: save_checkpoint(f"{tmp}/ck", tree))
+        got, load_s = timed(lambda: load_checkpoint(f"{tmp}/ck", device=DEVICE))
+        same = (list(got) == list(tree) and all(arrays_equal(got[k], tree[k]) for k in ("A", "dia", "ell"))
+                and torch.equal(got["x"], tree["x"]) and got["x"].device == a.device)
+        row["checkpoint_s"] = [save_s, load_s]
+        log(f"io checkpoint: save {save_s!r} s, load {load_s!r} s onto the card, every leaf "
+            f"bit-equal {same}")
+        if not same:
+            raise AssertionError("io checkpoint: a restored leaf differs")
+
+    # audit_spmv on the 4096² f32 grid Laplacian: K1 against the measured copy rate
+    reset_counts()
+    rep, row["audit_s"] = timed(lambda: audit_spmv(lap_audit, iters=AUDIT_ITERS))
+    launches["dia_spmv"] += dia_spmv_kernel.launches
+    row["audit"] = rep
+    row["phase4_k1_share_of_hbm_peak"] = k1_share
+    log(f"io audit_spmv {json.dumps(rep)}; K1 share of the measured copy rate "
+        f"{rep['roofline_fraction']!r} beside phase 4's share of the 3.35 TB/s peak {k1_share!r}; "
+        f"K1 launches {dia_spmv_kernel.launches} (expected {AUDIT_ITERS + 1})")
+    label = "cuda_dia_spmv" if torch.device(DEVICE).type == "cuda" else "torch_dia_spmv"
+    if rep["kernel"] != label or dia_spmv_kernel.launches != AUDIT_ITERS + 1:
+        raise AssertionError(f"audit_spmv ran {rep['kernel']} with {dia_spmv_kernel.launches} launches")
+    if not 0 < rep["roofline_fraction"] <= AUDIT_SHARE_LIMIT:
+        raise AssertionError(f"audit_spmv share {rep['roofline_fraction']} past {AUDIT_SHARE_LIMIT}")
+    return row, launches
+
+
+def dist_gate(name, got, want):
+    err = float((got - want).abs().max() / want.abs().max())
+    log(f"dist gate {name}: rel max err {err!r} (limit {DIST_TOL})")
+    if not (got.shape == want.shape and got.device == want.device and err <= DIST_TOL):
+        raise AssertionError(f"dist {name}: rel err {err}, shape {tuple(got.shape)}")
+
+
+def dist_product_equal(name, c, want):
+    """A distributed SpGEMM gathered to one CsMat against phase 5f's."""
+    nnz = want.nnz
+    same = (c.nnz == nnz and torch.equal(c.indptr, want.indptr)
+            and torch.equal(c.indices[:nnz], want.indices[:nnz]))
+    err = float((c.data[:nnz] - want.data[:nnz]).abs().max() / want.data[:nnz].abs().max())
+    log(f"dist {name}: {c.nnz} entries, pattern equal to phase 5f's {same}, data rel max err "
+        f"{err!r} (limit {DIST_TOL})")
+    if not (same and err <= DIST_TOL):
+        raise AssertionError(f"dist {name}: pattern equal {same}, rel err {err}")
+
+
+def phase_distributed(mesh, lap2):
+    """Phase 5j: the distributed layer on a mesh of DIST_SLOTS slots on
+    the card.  Returns the distributed line."""
+    from sprs_tpu_torch.entry import dryrun_multichip
+    from sprs_tpu_torch.parallel import (
+        Mesh,
+        block_jacobi_ldl,
+        dist_cg,
+        dist_spgemm,
+        dist_spgemm_bgather,
+        dist_spgemm_bshard,
+        dist_spmv,
+        dist_spmv_2d,
+        dist_spmv_halo,
+        plan_b_gather,
+        prepare_dist_spmv,
+        shard_csr_2d,
+        shard_csr_rows,
+        shard_csr_rows_halo,
+    )
+
+    dev = torch.device(DEVICE)
+    slots = np.array([dev] * DIST_SLOTS, dtype=object)
+    mesh1 = Mesh(slots, ("shards",))
+    mesh2 = Mesh(slots.reshape(2, DIST_SLOTS // 2), ("r", "c"))
+    side = DIST_SIDE
+    lap = dirichlet_laplacian((side, side), device=DEVICE)
+    n = lap.rows
+    x = torch.from_numpy(np.random.default_rng(110).standard_normal(n)).to(DEVICE)
+    want = spmv(lap, x)
+    row = {"side": side, "slots": DIST_SLOTS, "devices": sorted({str(d) for d in slots})}
+
+    dm, row["shard_nnz_s"] = timed(lambda: shard_csr_rows(lap, DIST_SLOTS, balance="nnz", device=mesh1))
+    for key, label, sharded in (("dist_spmv_ms", "replicated x, nnz-balanced", False),
+                                ("dist_spmv_sharded_ms", "x_sharded", True)):
+        run = lambda: dm.assemble(dist_spmv(dm, x, mesh1, x_sharded=sharded))  # noqa: E731
+        dist_gate(f"dist_spmv {label}", run(), want)
+        row[key] = solve_ms(run, DIST_SPMV_REPS)
+
+    prep, row["prepare_halo_s"] = timed(lambda: prepare_dist_spmv(lap, DIST_SLOTS, device=mesh1))
+    prep_m, row["prepare_mesh_s"] = timed(lambda: prepare_dist_spmv(mesh["a"], DIST_SLOTS, device=mesh1))
+    log(f"dist prepare_dist_spmv: the {side}^2 Laplacian routes {prep.kind!r} (halo "
+        f"{prep.dmat.halo}), the permuted mesh step routes {prep_m.kind!r}")
+    if prep.kind != "halo" or prep_m.kind != "allgather":
+        raise AssertionError(f"dist routes {prep.kind}, {prep_m.kind}")
+    dist_gate("halo route (overlapped)", prep(x, mesh1)[:n], want)
+    xm = mesh["b"] + 1.0
+    dist_gate("all-gather route, mesh step", prep_m.dmat.assemble(prep_m(xm, mesh1)), spmv(mesh["a"], xm))
+    h = shard_csr_rows_halo(lap, DIST_SLOTS, device=mesh1)
+    dist_gate("dist_spmv_halo", dist_spmv_halo(h, x, mesh1)[:n], want)
+    d2, cp = shard_csr_2d(lap, (2, DIST_SLOTS // 2), device=mesh2)
+    dist_gate("dist_spmv_2d (2, 2), sum over the column axis", dist_spmv_2d(d2, cp, x, mesh2)[:n], want)
+
+    # L @ L three ways against phase 5f's spgemm
+    dr = shard_csr_rows(lap, DIST_SLOTS, device=mesh1)
+    plan = plan_b_gather(dr, dr)
+    row["bgather_plan"] = {"rounds": plan.rounds, "comm_blocks": plan.comm_blocks,
+                           "full_blocks": plan.full_blocks}
+    for label, fn in (("dist_spgemm", lambda: dist_spgemm(dm, lap, mesh1)),
+                      ("dist_spgemm_bshard", lambda: dist_spgemm_bshard(dr, dr, mesh1)),
+                      ("dist_spgemm_bgather", lambda: dist_spgemm_bgather(dr, dr, mesh1, plan=plan))):
+        c, secs = timed(fn)
+        row[f"{label}_s"] = secs
+        dist_product_equal(label, c.to_csmat(), lap2)
+
+    # distributed CG: Jacobi at 1024², Jacobi and block-Jacobi LDLᵀ at
+    # 256²; each by name (set-up inside dist_cg) and with the same
+    # preconditioner built beforehand, so set-up and iterations time apart
+    def build_precond(d, pc, dev):
+        if pc == "jacobi":
+            diag = d.to_csmat().diag().to(dev)
+            return lambda r: r / diag
+        return block_jacobi_ldl(d.to_csmat(), d.n_shards).precond
+
+    row["cg"] = {}
+    small = dirichlet_laplacian((DIST_SMALL_SIDE, DIST_SMALL_SIDE), device=DEVICE)
+    ds = shard_csr_rows(small, DIST_SLOTS, device=mesh1)
+    for label, d, a, pc in ((f"{side}^2 jacobi", dm, lap, "jacobi"),
+                            (f"{DIST_SMALL_SIDE}^2 jacobi", ds, small, "jacobi"),
+                            (f"{DIST_SMALL_SIDE}^2 block_ldl", ds, small, "block_ldl")):
+        b = torch.from_numpy(np.random.default_rng(111).standard_normal(a.rows)).to(DEVICE)
+        b_norm = float(torch.linalg.vector_norm(b))
+        m_inv, setup_s = timed(lambda: build_precond(d, pc, b.device))
+        entry = {"setup_s": setup_s, "precond_ms": solve_ms(lambda: m_inv(b), PRECOND_REPS)}
+        for form, given in (("named", pc), ("built", m_inv)):
+            res, secs = timed(lambda: dist_cg(d, b, mesh1, precond=given, tol=CG_TOL, max_iter=MAX_ITER))
+            true_res = float(torch.linalg.vector_norm(b - spmv(a, res.x)))
+            entry[form] = {"iterations": res.iterations, "s": secs, "true_residual": true_res}
+            if not (res.converged and true_res <= SOLVE_TOL * b_norm and res.x.device == b.device):
+                raise AssertionError(f"dist cg {label} ({form}): converged {res.converged}, "
+                                     f"residual {true_res}")
+        entry["iterations"] = entry["built"]["iterations"]
+        entry["ms_per_iteration"] = entry["built"]["s"] / max(entry["iterations"], 1) * 1e3
+        row["cg"][label] = entry
+        log(f"dist cg {label}: {json.dumps(entry)} (limit {SOLVE_TOL * b_norm!r})")
+    blk = row["cg"][f"{DIST_SMALL_SIDE}^2 block_ldl"]["iterations"]
+    jac = row["cg"][f"{DIST_SMALL_SIDE}^2 jacobi"]["iterations"]
+    if not blk < jac:
+        raise AssertionError(f"block-Jacobi LDLᵀ took {blk} iterations against Jacobi's {jac}")
+
+    _, row["dryrun_s"] = timed(lambda: dryrun_multichip(DIST_SLOTS, device=DEVICE))
+    row["dist_spmv_profile"] = profile_window(
+        f"one dist_spmv {side}^2 on {DIST_SLOTS} slots", lambda: dm.assemble(dist_spmv(dm, x, mesh1)),
+        "index")
+    return row
+
+
 # name in the kernels line -> (source, TPU kernel it replaces)
 KERNELS = {
     "dia_spmv": ("sprs_tpu_torch/csrc/dia_spmv.cu", "sprs_tpu/ops/pallas/dia_spmv.py:232"),
@@ -2618,7 +2915,7 @@ def main() -> int:
     log(f"setup: {SPMV_SIDE}^2 grid Laplacian and DIA in {time.perf_counter() - t0:.3f} s")
     errs = phase_gate(spmv_operand)
     timing = phase_timing(lap_spmv, spmv_operand)
-    del lap_spmv, spmv_operand
+    del spmv_operand  # lap_spmv stays for phase 5i's audit_spmv
     t0 = time.perf_counter()
     mesh_a = mesh_step(*permuted_mesh(MESH_SIDE)[:2])[1]
     random8 = random8_operand()
@@ -2635,12 +2932,12 @@ def main() -> int:
     del lap, rhs
     launches.update(phase_main_block())
     launches.update(phase_main_bsr())
-    launches["ell_spmv"] = phase_main_mesh()
+    launches["ell_spmv"], mesh = phase_main_mesh()
     launches["sort_rows"] = phase_main_sort()
     for kname, n in phase_eigen_checks().items():
         launches[kname] += n
     spgemm_rows, chain_launches = phase_spgemm()
-    k5, k1 = phase_main_biharmonic()
+    k5, k1, lap2 = phase_main_biharmonic()
     check_small_sparse_ops()
     for kname, n in (("bsr_spmm_tf32x3", chain_launches), ("ell_spmv", k5), ("dia_spmv", k1)):
         if n == 0:
@@ -2656,6 +2953,19 @@ def main() -> int:
         raise AssertionError("the panel path launched no dia_spmv kernel")
     launches["dia_spmv"] += k1
     panel_row["card"] = smi
+    t0 = time.perf_counter()
+    io_row, io_launches = phase_io(mesh, lap_spmv, timing["dia_spmv"]["roofline_share"])
+    io_row["phase_s"] = time.perf_counter() - t0
+    del lap_spmv
+    for kname, n in io_launches.items():
+        if n == 0:
+            raise AssertionError(f"the IO path launched no {kname} kernel")
+        launches[kname] += n
+    t0 = time.perf_counter()
+    dist_row = phase_distributed(mesh, lap2)
+    dist_row["phase_s"] = time.perf_counter() - t0
+    del mesh, lap2
+    io_row["card"] = dist_row["card"] = smi
     errs["bsr_spmm_tf32x3"] = max(GATE_ERRS["bsr_spmm_tf32x3"])
     for kname, n in launches.items():
         if n == 0:
@@ -2688,6 +2998,8 @@ def main() -> int:
             ]
     print(json.dumps({"spgemm": spgemm_rows, "card": smi}))
     print(json.dumps({"direct_panel": panel_row}))
+    print(json.dumps({"io": io_row}))
+    print(json.dumps({"distributed": dist_row}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -14,7 +14,10 @@ permutations, symmetry, SpGEMM with its dense and block-sparse routes,
 GMRES, LSQR and the sparse-iterate BiCGSTAB), and the host symbolic
 layer with the simplicial direct solvers (orderings, elimination trees,
 supernodes, the native host library, triangular solves, LDLᵀ, LU,
-ILU(0)/IC(0), refinement and the differentiable ``solve``).
+ILU(0)/IC(0), refinement and the differentiable ``solve``), the panel
+numerics and the batch API, IO (Matrix Market, npz, checkpoints),
+timing and visualization utilities, and the distributed layer over a
+mesh of devices.
 Public constructors place tensors on ``"cuda"`` unless the caller
 passes ``device=``.
 
@@ -30,7 +33,7 @@ passes ``device=``.
 [3.0, 3.0, 15.0]
 """
 
-from . import formats, linalg, native, ops, utils
+from . import formats, io, linalg, native, ops, parallel, utils
 from .errors import (
     CapacityError,
     LinalgError,

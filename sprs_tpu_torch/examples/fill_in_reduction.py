@@ -3,7 +3,8 @@
 
 Factor a random SPD system with no ordering, with reverse Cuthill–McKee
 and with the minimum-degree (CAMD-class) ordering, and compare the LDLᵀ
-factor fill and the matrix bandwidth.
+factor fill and the matrix bandwidth; up to n = 60 print the pattern before and
+after RCM.
 
 Run: python -m sprs_tpu_torch.examples.fill_in_reduction [n] [--device cpu]
 """
@@ -24,6 +25,7 @@ from sprs_tpu_torch.linalg import (
     reverse_cuthill_mckee,
 )
 from sprs_tpu_torch.ops.permutation import transform_mat_papt
+from sprs_tpu_torch.utils import nnz_pattern_str
 
 
 def random_spd(n, density=0.05, seed=0):
@@ -58,6 +60,12 @@ def main(argv=None) -> dict:
         out[name] = (num.l().nnz, err)
         print(f"LDL fill with {name:>10}: nnz(L) = {num.l().nnz}")
         print(f"    solve residual (inf-norm): {err:.2e}")
+
+    if n <= 60:
+        print("pattern before / after RCM:")
+        print(nnz_pattern_str(mat))
+        print()
+        print(nnz_pattern_str(permuted))
     return out
 
 

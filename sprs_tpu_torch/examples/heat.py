@@ -7,6 +7,8 @@ steady state for a unit heat source at the centre three ways:
 * weighted Jacobi on the device,
 * BiCGSTAB on the device through ``prepare_spmv`` (the DIA kernel K1).
 
+Up to side 20 it prints the Laplacian's nonzero pattern first.
+
 Run: python -m sprs_tpu_torch.examples.heat [side] [--device cpu]
 """
 
@@ -17,7 +19,7 @@ import argparse
 import numpy as np
 
 from sprs_tpu_torch.linalg import bicgstab, gauss_seidel, jacobi
-from sprs_tpu_torch.utils import grid_laplacian
+from sprs_tpu_torch.utils import grid_laplacian, nnz_pattern_str
 
 
 def main(argv=None) -> dict:
@@ -27,6 +29,10 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     side = args.side
     lap = grid_laplacian((side, side), device=args.device)
+
+    if side <= 20:
+        print("Laplacian nonzero pattern:")
+        print(nnz_pattern_str(lap))
 
     rhs = np.zeros(side * side)
     rhs[(side // 2) * side + side // 2] = 1.0

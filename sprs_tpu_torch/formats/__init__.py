@@ -26,6 +26,6 @@ from .csmat import (
 )
 from .csvec import CsVec, csvec, csvec_from_dense, csvec_from_unsorted, empty_csvec
 from .dia import DiaMat, dia_from_csmat, dia_spmm, dia_spmv, dia_to_csmat, n_diags_of
-from .ell import EllMat, ell_from_csmat, ell_overhead, ell_spmm, ell_spmv
+from .ell import EllMat, ell_from_csmat, ell_overhead, ell_spmm, ell_spmv, ell_to_csmat
 from .triplet import TriMat, coo_to_csmat
-from .util import INDEX_DTYPE, MAX_INDEX
+from .util import INDEX_DTYPE, MAX_INDEX, compress_coo

@@ -53,6 +53,11 @@ class EllMat:
     def dtype(self) -> torch.dtype:
         return self.data.dtype
 
+    @property
+    def nnz(self) -> int:
+        """Count of slots holding a nonzero (pad slots hold zeros)."""
+        return int((self.data != 0).sum())
+
     def to_dense(self) -> torch.Tensor:
         out = torch.zeros(
             (self.rows_pad, self.cols), dtype=self.dtype, device=self.data.device
@@ -90,6 +95,25 @@ def ell_from_csmat(
     idx[outer[keep], slot[keep]] = mat.indices[:nnz][keep]
     dat[outer[keep], slot[keep]] = mat.data[:nnz][keep]
     return EllMat(idx, dat, mat.shape)
+
+
+def ell_to_csmat(ell: EllMat, *, cap: Optional[int] = None) -> CsMat:
+    """Back to CSR, dropping the slots that hold zeros (explicit zeros
+    included, as in the JAX package).  ``cap`` defaults to the count of
+    kept entries (at least 1); kept entries beyond it are dropped."""
+    live = ell.data[: ell.rows] != 0
+    counts = live.sum(1)
+    indptr = torch.zeros(ell.rows + 1, dtype=INDEX_DTYPE, device=ell.data.device)
+    indptr[1:] = torch.cumsum(counts, 0)
+    if cap is None:
+        cap = max(int(indptr[-1]), 1)
+    flat = live.reshape(-1)
+    order = torch.argsort((~flat).to(torch.uint8), stable=True)  # live slots first, in row order
+    take = order[torch.arange(cap, device=flat.device).clamp(max=max(order.shape[0] - 1, 0))]
+    ok = torch.arange(cap, device=flat.device) < indptr[-1]
+    indices = torch.where(ok, ell.indices[: ell.rows].reshape(-1)[take], 0)
+    data = ell.data[: ell.rows].reshape(-1)[take]
+    return CsMat(indptr, indices, torch.where(ok, data, torch.zeros_like(data)), ell.shape, "csr")
 
 
 def ell_spmv(ell: EllMat, x: torch.Tensor) -> torch.Tensor:

@@ -233,3 +233,11 @@ def compress_coo(
         nnz.to(INDEX_DTYPE),
         required.to(INDEX_DTYPE),
     )
+
+
+def prune_channel(values: torch.Tensor, nnz, *, pad_value=0) -> torch.Tensor:
+    """Set the padding positions (>= ``nnz``) of a capacity-padded channel
+    to ``pad_value``."""
+    live = valid_mask(values.shape[0], nnz, values.device)
+    return torch.where(live, values, torch.tensor(pad_value, dtype=values.dtype,
+                                                  device=values.device))

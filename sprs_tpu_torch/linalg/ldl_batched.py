@@ -120,6 +120,20 @@ class RoundSchedule:
     agg_slots: tuple  # per bucket (R, Ba_b)
     agg_cnt: tuple  # per bucket (R,)
 
+    @property
+    def n_rounds(self) -> int:
+        return self.R
+
+    @property
+    def Bu(self) -> int:
+        """Update lanes per round over all row classes (diagnostic)."""
+        return sum(int(a.shape[1]) for a in self.upd_src)
+
+    @property
+    def Bf(self) -> int:
+        """Factor lanes per round over all row classes (diagnostic)."""
+        return sum(int(a.shape[1]) for a in self.fac_s)
+
 
 class _Packer:
     """First-fit capacity packer: ``place(e)`` returns the first round

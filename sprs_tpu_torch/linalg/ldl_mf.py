@@ -88,6 +88,15 @@ class MfPlan:
     def n_tasks(self) -> int:
         return self.t_type.shape[0]
 
+    @property
+    def agg_table_elems(self) -> int:
+        """Entries of the front-aggregation tables (diagnostic)."""
+        return sum(
+            sum(t.size for t in tab)
+            for tab in (self.mem_start, self.memd_start, self.tgt_start, self.tgt_lim,
+                        self.colmap)
+        )
+
 
 def _partition_fronts(pre, parent_col, max_front_cols: int, max_front_rows: int):
     """Subtree-aligned front partition.

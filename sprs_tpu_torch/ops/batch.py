@@ -204,10 +204,18 @@ def batched_ldl_solve(plan, l_data: torch.Tensor, d: torch.Tensor, b: torch.Tens
     factor's round schedule) the sweeps are round-batched once
     ``plan.S`` reaches the device's ``solve_batched_min_s``; else one
     supernode per step."""
-    from ..linalg.ldl_batched import solve_batched, solve_batched_min_s
-    from ..linalg.ldl_super import panels_from_csc, solve_supernodal
+    from ..linalg.ldl_super import panels_from_csc
 
-    panels = panels_from_csc(plan, l_data)
-    if sched is not None and plan.S >= solve_batched_min_s(l_data.device):
+    return batched_panel_solve(plan, panels_from_csc(plan, l_data), d, b, sched=sched)
+
+
+def batched_panel_solve(plan, panels: torch.Tensor, d: torch.Tensor, b: torch.Tensor, *,
+                        sched=None):
+    """:func:`batched_ldl_solve` on panels already built from the factor
+    values (``panels_from_csc``)."""
+    from ..linalg.ldl_batched import solve_batched, solve_batched_min_s
+    from ..linalg.ldl_super import solve_supernodal
+
+    if sched is not None and plan.S >= solve_batched_min_s(panels.device):
         return solve_batched(plan, sched, panels, d, b)
     return solve_supernodal(plan, panels, d, b)

@@ -57,6 +57,7 @@ MODULES = [
     "sprs_tpu_torch.linalg.gmres",
     "sprs_tpu_torch.linalg.lsqr",
     "sprs_tpu_torch.ops.batch",
+    "sprs_tpu_torch.parallel.dist",
 ]
 
 
@@ -82,6 +83,18 @@ NEW_MODULES = [
     "sprs_tpu_torch.linalg.ldl_mf",
     "sprs_tpu_torch.linalg.ldl_batched",
     "sprs_tpu_torch.ops.batch",
+    "sprs_tpu_torch.io",
+    "sprs_tpu_torch.io.matrix_market",
+    "sprs_tpu_torch.io.serialize",
+    "sprs_tpu_torch.io.checkpoint",
+    "sprs_tpu_torch.utils.fixtures",
+    "sprs_tpu_torch.utils.profile",
+    "sprs_tpu_torch.utils.visu",
+    "sprs_tpu_torch.parallel",
+    "sprs_tpu_torch.parallel.dist",
+    "sprs_tpu_torch.parallel.halo",
+    "sprs_tpu_torch.parallel.precond",
+    "sprs_tpu_torch.entry",
 ]
 
 
