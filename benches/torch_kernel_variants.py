@@ -1,4 +1,4 @@
-"""A/B of design variants of kernels K2, K3, K5 and K6 on one card.
+"""A/B of design variants of kernels K1, K2, K3, K5 and K6 on one card.
 
 Each variant is a CUDA source with a few constants or lines replaced:
 the committed source in ``sprs_tpu_torch/csrc/``, the source of an
@@ -11,10 +11,15 @@ opcodes counted by ``cuobjdump``) and timed in one process, in two
 rounds, by the profiler's device time per launch over 30 calls, after a
 check against the plain version (K6: bit for bit).  A candidate that
 does not build is reported and left out; the committed source or the
-baseline failing to build stops the run.
+baseline failing to build stops the run.  K1, K2 and K5 run in each type
+form their source holds (``ops/cuda/forms.py``: float32, float64 and the
+bfloat16 forms (bf16, bf16) and (bf16, f32)); a source without a form's
+entry point (an earlier tree, the inline candidate) skips that form.
+Each build prints ptxas' registers and spills per kernel instantiation
+("ptxas ..." lines).
 
 Run from the repository root on a machine with one H100:
-``python3 benches/torch_kernel_variants.py [--kernels k2 k3 k5 k6]
+``python3 benches/torch_kernel_variants.py [--kernels k1 k2 k3 k5 k6]
 [--baseline DIR] [--sass]``.
 """
 
@@ -39,8 +44,10 @@ from sprs_tpu_torch.ops.cuda import bsr_spmm as k3  # noqa: E402
 from sprs_tpu_torch.ops.cuda import build  # noqa: E402
 from sprs_tpu_torch.ops.cuda import dia_spmm as k2  # noqa: E402
 from sprs_tpu_torch.ops.cuda import ell_spmv as k5  # noqa: E402
+from sprs_tpu_torch.ops.cuda import dia_spmv as k1  # noqa: E402
 from sprs_tpu_torch.ops.cuda import sort as k6  # noqa: E402
 from sprs_tpu_torch.ops.cuda.dia_spmv import dia_tile  # noqa: E402
+from sprs_tpu_torch.ops.cuda.forms import FORMS  # noqa: E402
 from sprs_tpu_torch.utils import grid_laplacian  # noqa: E402
 
 OUT = build.BUILD_DIR / "variants"
@@ -161,12 +168,23 @@ __device__ __forceinline__ double ld_keep(const double* p, unsigned long long po
   asm("ld.global.nc.L2::cache_hint.f64 %0, [%1], %2;" : "=d"(v) : "l"(p), "l"(pol));
   return v;
 }
+__device__ __forceinline__ __nv_bfloat16 ld_once(const __nv_bfloat16* p, unsigned long long pol) {
+  unsigned short v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.b16 %0, [%1], %2;" : "=h"(v) : "l"(p), "l"(pol));
+  return __ushort_as_bfloat16(v);
+}
+__device__ __forceinline__ __nv_bfloat16 ld_keep(const __nv_bfloat16* p, unsigned long long pol) {
+  unsigned short v;
+  asm("ld.global.nc.L2::cache_hint.b16 %0, [%1], %2;" : "=h"(v) : "l"(p), "l"(pol));
+  return __ushort_as_bfloat16(v);
+}
 """),
     ("  const long long n_groups = (long long)gridDim.x * blockDim.x / G;\n",
      "  const long long n_groups = (long long)gridDim.x * blockDim.x / G;\n"
      "  const unsigned long long once = l2_policy(false), keep = l2_policy(true);\n"),
     ("__ldg(&indices[base + j])", "ld_once(&indices[base + j], once)"),
-    ("__ldg(&data[base + j]) * __ldg(&x[c])", "ld_once(&data[base + j], once) * ld_keep(&x[c], keep)"),
+    ("__ldg(&data[base + j])", "ld_once(&data[base + j], once)"),
+    ("__ldg(&x[c])", "ld_keep(&x[c], keep)"),
 ]
 
 # K5 candidate (b): one thread per row, the width a template parameter for
@@ -289,6 +307,7 @@ extern "C" int sprs_ell_spmv_f64(const void* indices, const void* data, const vo
 # thread per row, or "group", a group of lanes per row; CTAs per SM); K6
 # (rows per CTA, CTAs per SM).
 VARIANTS = {
+    "k1 as committed (thread per row)": ("k1", "dia_spmv", [], ()),
     "k3 wgmma as committed (4 stages, 1 CTA/SM)": ("k3", "bsr_spmm", [], ("tc", 128, "gate")),
     "k3 wgmma pipelined": ("k3", "bsr_spmm", [K3_PIPELINED], ("tc", 128, "gate")),
     "k3 wgmma pipelined, 3 stages (2 CTAs/SM)": (
@@ -361,12 +380,40 @@ def build_variants(names, baseline, sass=False):
                 raise RuntimeError(f"nvcc failed for {name}:\n{log}")
             print(f"nvcc failed for {name}, left out:\n{log}", flush=True)
             continue
-        regs = [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]
-        print(f"built {name}: {regs}", flush=True)
+        print(f"built {name}", flush=True)
+        for fn, props in ptxas_report(log):
+            print(f"ptxas {name}: {fn}: {props}", flush=True)
         libs[name] = ctypes.CDLL(str(OUT / f"libv{i}.so"))
         if sass:
             print(f"sass {name}: {sass_opcodes(OUT / f'libv{i}.so')}", flush=True)
     return libs
+
+
+def ptxas_report(log):
+    """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
+    for each kernel instantiation in nvcc's ``-Xptxas=-v`` output, the
+    names demangled by ``cu++filt`` where the toolkit has it."""
+    spills, regs, current = {}, {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line) or re.search(
+            r"Function properties for (\S+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and current:
+            spills[current] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            regs[current] = int(m.group(1))
+    names = list(regs)
+    filt = Path(build._nvcc()).with_name("cu++filt")
+    shown = names
+    if names and filt.exists():
+        out = subprocess.run([str(filt)], input="\n".join(names), capture_output=True, text=True).stdout
+        shown = out.splitlines() if len(out.splitlines()) == len(names) else names
+    return [(show, f"{regs[n]} registers, {spills.get(n, (0, 0))[0]} bytes spill stores, "
+                   f"{spills.get(n, (0, 0))[1]} bytes spill loads") for n, show in zip(names, shown)]
 
 
 def sass_opcodes(lib):
@@ -418,8 +465,28 @@ def k3_call(lib, bsr, x, kind, tile_n, _check):
     return y
 
 
+def entry(lib, kernel, data, x):
+    """The form's entry point of ``kernel`` in ``lib``, None where the
+    source has no such form."""
+    return getattr(lib, f"sprs_{kernel}_{FORMS[(data.dtype, x.dtype)]}", None)
+
+
+def k1_call(lib, dia, x):
+    fn = entry(lib, "dia_spmv", dia.data, x)
+    fn.argtypes = [VP, VP, VP, LL, LL, LL, VP, I, I, I, VP]
+    y = torch.empty(dia.rows, dtype=x.dtype, device=x.device)
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    grid, block = k1.launch_config(dia.rows, n_sm)
+    n = dia.n_diags
+    err = fn(dia.data.data_ptr(), x.data_ptr(), y.data_ptr(), dia.rows, dia.cols, dia.rows_pad,
+             (ctypes.c_int * n)(*dia.offsets), n, grid, block, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"launch failed: {err}")
+    return y
+
+
 def k2_call(lib, dia, x, blocks_per_sm, run):
-    fn = getattr(lib, "sprs_dia_spmm_f32" if x.dtype == torch.float32 else "sprs_dia_spmm_f64")
+    fn = entry(lib, "dia_spmm", dia.data, x)
     fn.argtypes = [VP, VP, VP, LL, LL, LL, LL, VP, I, I, I, I, VP]
     k = x.shape[1]
     y = torch.empty((dia.rows, k), dtype=x.dtype, device=x.device)
@@ -435,7 +502,7 @@ def k2_call(lib, dia, x, blocks_per_sm, run):
 
 
 def k5_call(lib, ell, x, layout, blocks_per_sm):
-    fn = getattr(lib, "sprs_ell_spmv_f32" if x.dtype == torch.float32 else "sprs_ell_spmv_f64")
+    fn = entry(lib, "ell_spmv", ell.data, x)
     g = k5.group_lanes(ell.width) if layout == "group" else 1
     lanes = [] if layout == "baseline" else [g]
     fn.argtypes = [VP, VP, VP, VP, LL, LL, I] + [I] * len(lanes) + [I, I, VP]
@@ -477,10 +544,25 @@ def k3_cases():
     return out
 
 
+def bf16_forms(label, op, x, bf16_op):
+    """The float32 case and its two bfloat16 forms on the same operand."""
+    return [(f"{label} f32", op, x), (f"{label} bf16", bf16_op, x.to(torch.bfloat16)),
+            (f"{label} bf16 data, f32 x", bf16_op, x)]
+
+
+def k1_cases():
+    lap = grid_laplacian((cs.SPMV_SIDE,) * 2, torch.float32, device="cuda")
+    dia = dia_tile(lap.to_dia())
+    out = bf16_forms(f"{cs.SPMV_SIDE}^2 grid", dia, cs.rhs_block(dia.cols, 1, torch.float32, 0)[:, 0],
+                     cs.bf16_dia(dia))
+    return [(label, d, x, k1.dia_spmv_plain(d, x)) for label, d, x in out]
+
+
 def k2_cases():
     lap2 = dia_tile(grid_laplacian(cs.SPMM_GRID, torch.float32, device="cuda").to_dia())
     lap = dia_tile(grid_laplacian((cs.SOLVE_SIDE,) * 2, device="cuda").to_dia())
-    out = [("2048x1024 grid f32 k=128", lap2, cs.rhs_block(lap2.cols, 128, torch.float32, 30))]
+    out = bf16_forms("2048x1024 grid k=128", lap2, cs.rhs_block(lap2.cols, 128, torch.float32, 30),
+                     cs.bf16_dia(lap2))
     out += [(f"1024^2 grid f64 k={k}", lap, cs.rhs_block(lap.cols, k, torch.float64, k)) for k in (24, 48, 256)]
     return [(label, d, x, k2.dia_spmm_plain(d, x)) for label, d, x in out]
 
@@ -492,8 +574,9 @@ def k5_cases():
     ell = ell_from_csmat(mesh_a)
     x = cs.rhs_block(mesh_a.cols, 1, torch.float64, 89)[:, 0].contiguous()
     _, r8, x8 = cs.random8_operand()
-    return [(f"{cs.MESH_SIDE}^2 mesh step f64 width {ell.width}", ell, x, k5.ell_spmv_plain(ell, x)),
-            (f"random8 n={cs.RANDOM8_N} f32 width {r8.width}", r8, x8, k5.ell_spmv_plain(r8, x8))]
+    out = [(f"{cs.MESH_SIDE}^2 mesh step f64 width {ell.width}", ell, x)]
+    out += bf16_forms(f"random8 n={cs.RANDOM8_N} width {r8.width}", r8, x8, cs.bf16_ell(r8))
+    return [(label, e, v, k5.ell_spmv_plain(e, v)) for label, e, v in out]
 
 
 def k6_cases():
@@ -517,19 +600,20 @@ def checked(name, label, kernel, call, ref, x_dtype, strict=True):
             vs.view(torch.int32), ref[1].view(torch.int32))
         rel = 0.0 if ok else float("nan")
     else:
-        err = float((call() - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        ok = rel <= cs.GATE_LIMIT[x_dtype]
+        err = float((call().float() - ref.float()).abs().max())
+        rel = err / float(ref.float().abs().max())
+        ok = rel <= (cs.BF16_GATE_LIMIT if x_dtype == torch.bfloat16 else cs.GATE_LIMIT[x_dtype])
     if not ok and strict:
         raise AssertionError(f"{name} {label}: rel {rel}")
 
 
-KEYS = {"k2": "dia_spmm_kernel", "k5": "ell_spmv", "k6": "sort_rows"}
+KEYS = {"k1": "dia_spmv_kernel", "k2": "dia_spmm_kernel", "k5": "ell_spmv", "k6": "sort_rows"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--kernels", nargs="+", default=["k2", "k3", "k5", "k6"], choices=["k2", "k3", "k5", "k6"])
+    ap.add_argument("--kernels", nargs="+", default=["k1", "k2", "k3", "k5", "k6"],
+                    choices=["k1", "k2", "k3", "k5", "k6"])
     ap.add_argument("--baseline", help="a csrc directory of an earlier tree (the baseline variants)")
     ap.add_argument("--sass", action="store_true", help="count each variant's SASS opcodes")
     args = ap.parse_args()
@@ -541,7 +625,7 @@ def main() -> int:
     names = [n for n, v in VARIANTS.items() if v[0] in args.kernels
              and (args.baseline or not v[1].startswith("baseline:"))]
     libs = build_variants(names, args.baseline, args.sass)
-    cases = {"k2": k2_cases, "k3": k3_cases, "k5": k5_cases, "k6": k6_cases}
+    cases = {"k1": k1_cases, "k2": k2_cases, "k3": k3_cases, "k5": k5_cases, "k6": k6_cases}
     cases = {k: cases[k]() for k in args.kernels}
     for rnd in range(2):
         for name in names:
@@ -556,10 +640,12 @@ def main() -> int:
                         continue
                     call = functools.partial(k3_call, libs[name], case[1], case[2], *params)
                     key = K3_KEYS[params[0]]
-                elif kernel == "k2":
-                    call = functools.partial(k2_call, libs[name], case[1], case[2], *params)
-                elif kernel == "k5":
-                    call = functools.partial(k5_call, libs[name], case[1], case[2], *params)
+                elif kernel in ("k1", "k2", "k5"):
+                    src = {"k1": "dia_spmv", "k2": "dia_spmm", "k5": "ell_spmv"}[kernel]
+                    if entry(libs[name], src, case[1].data, case[2]) is None:
+                        continue  # a source without this type form
+                    fn = {"k1": k1_call, "k2": k2_call, "k5": k5_call}[kernel]
+                    call = functools.partial(fn, libs[name], case[1], case[2], *params)
                 else:
                     call = functools.partial(k6_call, libs[name], case[1], case[2], *params)
                 if kernel != "k3" or params[2] is not None:

@@ -34,7 +34,16 @@ and prints no result):
    K6 (row sort) on random, tied and float keys, float keys with +0.0,
    -0.0 and other ties (also against the plain version on the CPU) and a
    single row, bit for bit; the backwards of K1, K2, K3 and K5 against
-   torch's autograd of the plain version on the CPU;
+   torch's autograd of the plain version on the CPU; and the bfloat16
+   forms of K1, K2 and K5, (bf16, bf16) -> bf16 and (bf16, f32) -> f32
+   with float32 sums: K1 and K2 on the grid Laplacians (K1 also the 4096²
+   grid) and the random band (K2 also its transpose) at every RHS width
+   above, aligned and misaligned, (bf16, bf16) bit-equal to the plain
+   version and (bf16, f32) within 1e-5 of max|y|; K5 on the mesh step,
+   random8 and the small odd ELLs rounded to bfloat16, within one
+   bfloat16 step (2⁻⁷ of max|y|) or 1e-5; the backwards of K1 (bf16,
+   f32), K2 (bf16, bf16) and K5 (bf16, f32) against torch's autograd of
+   the plain versions on the CPU;
 4. timing, with CUDA events, beside each kernel's bound, its plain
    version and one library call (K2-K6 also with the profiler's device
    time per launch, ``device_ms``): K1 at the 4096×4096-grid SpMV
@@ -47,7 +56,11 @@ and prints no result):
    at the 1024² mesh step (float64, its main path) and "random8"
    (n = 2,097,152, 8 uniform slots per row, float32), with the L2 sectors
    its gathers read; K6 at 43,750 × 128 (int32 and float32 keys); SpGEMM
-   (not a kernel) at the JAX bench's three points;
+   (not a kernel) at the JAX bench's three points; the bfloat16 forms of
+   K1 at the 4096² grid, K2 at the 2048×1024 grid with 128 RHS and K5 at
+   random8, each beside its bytes bound and ``torch.mv`` / ``torch.sparse.mm``
+   on the bfloat16 CSR tensor (the row says so where torch refuses the
+   types);
 5. main paths, each with the launch counts set to 0 just before and read
    just after:
    a. BiCGSTAB and CG at 1024² float64 through ``prepare_spmv`` and K1
@@ -136,6 +149,24 @@ and prints no result):
       preconditioner apply apart; true residual ≤ 1e-8·‖b‖; block LDLᵀ
       in fewer iterations); ``dryrun_multichip(4)``; one profiled
       ``dist_spmv``;
+   k. float32 solvers over bfloat16-stored operators (run after 5e): CG
+      at 1024², tol 1e-5, on the Dirichlet Laplacian stored in bfloat16
+      and in float32 (``prepare_spmv`` → K1 (bf16, f32) and K1 (f32):
+      iters+2 launches each, the plain version's calls 0, iterations and
+      x bit-equal; s, ms per iteration, a profiled window each);
+      ``expm_multiply`` from 256 float32 sources over the 1024² grid
+      Laplacian stored both ways (K2 (bf16, f32), vector variant), bit-
+      equal, one launch per SpMM; CG on phase 5d's mesh step rounded to
+      bfloat16 through the ELL arm and K5 (bf16, f32) (converged, true
+      residual in float64 within 1e-4·‖b‖, iters+2 launches, iterations
+      within 10 % of the float32-stored CG); one (bf16, bf16) product on
+      each route (the 4096² SpMV, the 128-RHS SpMM, random8) against its
+      plain version; then the determinism check: ``ops/prod.py``'s CSR
+      ``spmv`` and ``spmm``, ``batch_spmv``, ``dist_spmv`` with its
+      per-shard products and ``assemble``, and the level and flat
+      ``lsolve``, each run twice on one input, bits compared (a
+      difference fails the run: the index-summed products sum by an
+      accumulating ``index_put_``);
 6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
    step against a dense solve;
    LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
@@ -151,7 +182,10 @@ and prints no result):
    the dense route and the break-even that sets
    ``AUTO_DENSE_PRODUCTS_PER_MAC``), the direct_panel line (phase 5h's
    numbers), the io and distributed lines (phases 5i and 5j), the
-   kernels line, then the last line
+   bf16_solvers line (phase 5k), the determinism line, the kernels line
+   (each bfloat16 form under its kernel's entry, in ``forms``: its time,
+   device time, bound, plain and library times, main-path launches and
+   gate error), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -235,6 +269,7 @@ from sprs_tpu_torch.ops.cuda.dia_spmv import (
     dia_tile,
 )
 from sprs_tpu_torch.ops.cuda.ell_spmv import ell_spmv_kernel, ell_spmv_plain
+from sprs_tpu_torch.ops.cuda.forms import FORMS, zero_counts
 from sprs_tpu_torch.ops.cuda.sort import sort_rows_kernel, sort_rows_plain
 from sprs_tpu_torch.ops.spgemm import (
     _exact_prod_count,
@@ -264,6 +299,12 @@ GATE_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-12}
 # (as the JAX package does), in another order; a bfloat16 output may
 # round to a neighbouring value: one step at the largest magnitude.
 BSR_GATE_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-5, torch.bfloat16: 2.0**-7}
+# The bfloat16 forms of K1, K2 and K5 against their plain versions: a
+# float32 output within GATE_LIMIT[float32]; a bfloat16 output of K5 within
+# one bfloat16 step at the largest magnitude (its lane tree sums in
+# another order); K1 and K2 in (bf16, bf16) bit for bit (every product is
+# exact in float32 and the sum runs in the plain version's order).
+BF16_GATE_LIMIT = 2.0**-7
 SOLVE_TOL = 1e-8
 SOLVE_SIDE = 1024
 SPMV_SIDE = 4096
@@ -826,16 +867,34 @@ def timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak, **extra):
     return row
 
 
+def peak_of(x_dtype):
+    """The CUDA-core peak of K1's, K2's and K5's accumulator type,
+    promote(out, float32); the output has x's type in every form."""
+    return PEAK_FLOPS[torch.promote_types(x_dtype, torch.float32)]
+
+
+def library_time(fn, ref, reps):
+    """(ms, max_abs_err, error) of one PyTorch call that computes the
+    kernel's function; where torch refuses the types (its CUDA sparse path
+    does not take every type or mix), no time and its message."""
+    try:
+        err = float((fn().float() - ref.float()).abs().max())
+    except (RuntimeError, TypeError, NotImplementedError) as e:
+        return None, None, f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return time_ms(fn, reps), err, None
+
+
 def timing_spmv(label, mat, dia, x, reps):
     ms = time_ms(lambda: dia_spmv_kernel(dia, x), reps)
+    dev_ms = device_ms(lambda: dia_spmv_kernel(dia, x), "dia_spmv_kernel", min(reps, 50))
     plain_ms = time_ms(lambda: dia_spmv_plain(dia, x), max(reps // 5, 3))
     csr = csr_twin(mat)
-    lib_err = float((torch.mv(csr, x) - dia_spmv_plain(dia, x)).abs().max())
-    library_ms = time_ms(lambda: torch.mv(csr, x), reps)
-    nbytes = (dia.data.numel() + x.numel() + dia.rows) * dia.data.element_size()
+    library_ms, lib_err, lib_error = library_time(lambda: torch.mv(csr, x), dia_spmv_plain(dia, x), reps)
+    nbytes = dia.data.numel() * dia.data.element_size() + (x.numel() + dia.rows) * x.element_size()
     flops = 2 * dia.n_diags * dia.rows
-    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, PEAK_FLOPS[dia.dtype],
-                      kernel="dia_spmv", library="torch.mv (CSR)", library_max_abs_err=lib_err)
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak_of(x.dtype),
+                      kernel="dia_spmv", device_ms=dev_ms, library="torch.mv (CSR)",
+                      library_max_abs_err=lib_err, library_error=lib_error)
 
 
 def timing_spmm(label, mat, dia, x, reps):
@@ -843,15 +902,15 @@ def timing_spmm(label, mat, dia, x, reps):
     dev_ms = device_ms(lambda: dia_spmm_kernel(dia, x), "dia_spmm_kernel", reps)
     plain_ms = time_ms(lambda: dia_spmm_plain(dia, x), max(reps // 5, 3))
     csr = csr_twin(mat)
-    lib_err = float((torch.sparse.mm(csr, x) - dia_spmm_kernel(dia, x)).abs().max())
-    library_ms = time_ms(lambda: torch.sparse.mm(csr, x), reps)
+    library_ms, lib_err, lib_error = library_time(lambda: torch.sparse.mm(csr, x),
+                                                  dia_spmm_kernel(dia, x), reps)
     k = x.shape[1]
-    nbytes = (dia.data.numel() + x.numel() + dia.rows * k) * dia.data.element_size()
+    nbytes = dia.data.numel() * dia.data.element_size() + (x.numel() + dia.rows * k) * x.element_size()
     flops = 2 * dia.n_diags * dia.rows * k
     kind = k2.variant(k, x.element_size(), x.data_ptr())
-    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, PEAK_FLOPS[dia.dtype],
-                      kernel=f"dia_spmm_{kind}", device_ms=dev_ms,
-                      library="torch.sparse.mm (CSR)", library_max_abs_err=lib_err)
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak_of(x.dtype),
+                      kernel=f"dia_spmm_{kind}", device_ms=dev_ms, library="torch.sparse.mm (CSR)",
+                      library_max_abs_err=lib_err, library_error=lib_error)
 
 
 def torch_bsr_twin(bsr):
@@ -1085,8 +1144,9 @@ def phase_profile_bicgstab(lap, rhs):
 
 
 def reset_counts():
-    for fn in (dia_spmv_kernel, dia_spmm_kernel, bsr_spmm_kernel, bsr_spmm_grouped_kernel,
-               ell_spmv_kernel, sort_rows_kernel):
+    for fn in (dia_spmv_kernel, dia_spmm_kernel, ell_spmv_kernel):
+        zero_counts(fn)
+    for fn in (bsr_spmm_kernel, bsr_spmm_grouped_kernel, sort_rows_kernel):
         fn.launches = 0
     dia_spmm_kernel.launches_vector = dia_spmm_kernel.launches_scalar = 0
     for fn in (bsr_spmm_kernel, bsr_spmm_grouped_kernel):
@@ -1534,18 +1594,18 @@ def timing_ell(label, mat, ell, x, reps):
     dev_ms = device_ms(lambda: ell_spmv_kernel(ell, x), "ell_spmv", reps)
     plain_ms = time_ms(lambda: ell_spmv_plain(ell, x), max(reps // 5, 3))
     csr = csr_twin(mat)
-    lib_err = float((torch.mv(csr, x) - ell_spmv_plain(ell, x)).abs().max())
-    library_ms = time_ms(lambda: torch.mv(csr, x), reps)
-    size = ell.data.element_size()
-    # as utils/profile.py::ell_spmv_bytes counts them
-    nbytes = ell.rows_pad * ell.width * (4 + size) + (ell.cols + ell.rows_pad) * size
+    library_ms, lib_err, lib_error = library_time(lambda: torch.mv(csr, x), ell_spmv_plain(ell, x), reps)
+    # as utils/profile.py::ell_spmv_bytes counts them, x and y in x's type
+    nbytes = ell.rows_pad * ell.width * (4 + ell.data.element_size()) + (
+        ell.cols + ell.rows_pad) * x.element_size()
     flops = 2 * ell.rows_pad * ell.width
     # a diagnostic beside the bound, not the bound: each gather of x (pad
-    # slots included) reads one 32-byte L2 sector
+    # slots included) reads one 32-byte L2 sector, whatever x's type
     sectors = ell.rows * ell.width * 32
-    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, PEAK_FLOPS[ell.dtype],
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak_of(x.dtype),
                       kernel="ell_spmv", device_ms=dev_ms, library="torch.mv (CSR)",
-                      library_max_abs_err=lib_err, width=ell.width, gather_l2_sector_bytes=sectors)
+                      library_max_abs_err=lib_err, library_error=lib_error, width=ell.width,
+                      gather_l2_sector_bytes=sectors)
 
 
 def timing_sort(keys, vals, reps):
@@ -1672,6 +1732,413 @@ def check_small_mesh():
         f"{res.iterations}, rel err {rel!r}, K5 launches {launches}")
     if not (route == "ell" and res.converged and rel <= 1e-5 and launches == res.iterations + 2):
         raise AssertionError(f"small cg mesh: route {route}, rel err {rel}, launches {launches}")
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 forms of K1, K2 and K5, and f32 solvers over bf16-stored
+# operators (phase 5k)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# the forms' errors against their plain versions, by (kernel line name, form)
+FORM_ERRS = {}
+FORM_LABEL = {"bf16": "(bfloat16, bfloat16) -> bfloat16", "bf16_f32": "(bfloat16, float32) -> float32"}
+# CG's stop in phase 5k: in float32 at 1024² the recursive residual
+# reaches about 1e-6·‖b‖
+BF16_CG_TOL = 1e-5
+# the mesh step's CG over its bf16-rounded values: the true residual,
+# taken in float64 against that operator, within this share of ‖b‖, and
+# the iterations within this share of the float32-stored CG's
+BF16_MESH_RESIDUAL = 1e-4
+BF16_MESH_ITERS_SLACK = 0.10
+
+
+def check_form(name, kname, kernel, y, ref, data_dtype, x_dtype, before):
+    """A bfloat16 form's output against its plain version's; the form's
+    launch counter must have moved by one."""
+    form = FORMS[(data_dtype, x_dtype)]
+    if getattr(kernel, f"launches_{form}") != before + 1:
+        raise AssertionError(f"gate {name}: the {form} form did not launch")
+    if y.dtype != x_dtype or ref.dtype != x_dtype or y.shape != ref.shape or not bool(
+            torch.isfinite(y).all()):
+        raise AssertionError(f"gate {name}: bad output {tuple(y.shape)} {y.dtype}")
+    err = float((y.float() - ref.float()).abs().max())
+    ref_max = float(ref.float().abs().max())
+    if form == "bf16" and kname != "ell_spmv":
+        same = torch.equal(y.view(torch.int16), ref.view(torch.int16))
+        log(f"gate {name} [{form}]: bit-equal to plain {same}, max_abs_err {err!r}")
+        if not same:
+            raise AssertionError(f"gate {name}: (bf16, bf16) differs from the plain version")
+    else:
+        check_rel(f"{name} [{form}]", err, ref_max,
+                  BF16_GATE_LIMIT if y.dtype == BF16 else GATE_LIMIT[torch.float32])
+    FORM_ERRS.setdefault((kname, form), []).append(err)
+    return err
+
+
+def gate_spmv_form(name, dia, x):
+    before = getattr(dia_spmv_kernel, f"launches_{FORMS[(dia.dtype, x.dtype)]}")
+    y = dia_spmv_kernel(dia, x)
+    ref = dia_spmv_plain(dia, x)
+    sync()
+    return check_form(name, "dia_spmv", dia_spmv_kernel, y, ref, dia.dtype, x.dtype, before)
+
+
+def gate_spmm_form(name, dia, x):
+    """K2's form against its plain version; the variant the wrapper's
+    rule picks for X (by X's element size) must be the one that ran."""
+    kind = k2.variant(x.shape[1], x.element_size(), x.data_ptr())
+    before_kind = getattr(dia_spmm_kernel, f"launches_{kind}")
+    before = getattr(dia_spmm_kernel, f"launches_{FORMS[(dia.dtype, x.dtype)]}")
+    y = dia_spmm_kernel(dia, x)
+    ref = dia_spmm_plain(dia, x)
+    sync()
+    if getattr(dia_spmm_kernel, f"launches_{kind}") != before_kind + 1:
+        raise AssertionError(f"gate {name}: the {kind} variant did not launch")
+    return check_form(f"{name} ({kind})", f"dia_spmm_{kind}", dia_spmm_kernel, y, ref, dia.dtype,
+                      x.dtype, before)
+
+
+def gate_ell_form(name, ell, x):
+    before = getattr(ell_spmv_kernel, f"launches_{FORMS[(ell.dtype, x.dtype)]}")
+    y = ell_spmv_kernel(ell, x)
+    ref = ell_spmv_plain(ell, x)
+    sync()
+    return check_form(name, "ell_spmv", ell_spmv_kernel, y, ref, ell.dtype, x.dtype, before)
+
+
+def bf16_ell(ell):
+    return EllMat(ell.indices, ell.data.to(BF16), ell.shape)
+
+
+def bf16_dia(dia):
+    return dia_tile(type(dia)(dia.data.to(BF16), dia.offsets, dia.shape))
+
+
+def gate_grads_bf16():
+    """The backwards of K1 (bf16, f32), K2 (bf16, bf16) and K5 (bf16, f32)
+    on small bfloat16 operands against torch's autograd of the plain
+    versions on the CPU: ddata in bfloat16, dx in x's type, within one
+    bfloat16 step or 1e-5 of their max."""
+    dia = bf16_dia(laplacian_operand(grid_laplacian((64, 64), device=DEVICE), 7)[0])
+    ell = bf16_ell(small_ells()[1][1])
+    cases = (
+        ("K1", dia_spmv_kernel, dia_spmv_plain, dia, rhs_block(dia.cols, 1, torch.float32, 130)[:, 0]),
+        ("K2", dia_spmm_kernel, dia_spmm_plain, dia, rhs_block(dia.cols, 24, BF16, 131)),
+        ("K5", ell_spmv_kernel, ell_spmv_plain, ell, rhs_block(ell.cols, 1, torch.float32, 132)[:, 0]),
+    )
+    errs = {}
+    for label, fn, plain, op, x in cases:
+        def make(data):
+            if isinstance(op, EllMat):
+                return EllMat(op.indices.to(data.device), data, op.shape)
+            return type(op)(data, op.offsets, op.shape)
+
+        g = torch.from_numpy(np.random.default_rng(133).standard_normal(
+            (op.rows,) + tuple(x.shape[1:]))).to(DEVICE, x.dtype)
+        data = op.data.clone().requires_grad_(True)
+        xg = x.clone().requires_grad_(True)
+        dd, dx = torch.autograd.grad(fn(make(data), xg), (data, xg), g)
+        data_c = op.data.cpu().requires_grad_(True)
+        x_c = x.cpu().requires_grad_(True)
+        dd_c, dx_c = torch.autograd.grad(plain(make(data_c), x_c), (data_c, x_c), g.cpu())
+        if dd.dtype != BF16 or dx.dtype != x.dtype:
+            raise AssertionError(f"gate grad {label} bf16: ddata {dd.dtype}, dx {dx.dtype}")
+        errs[label] = max(
+            check_rel(f"grad {label} bf16 {part}", float((a.cpu().float() - b.float()).abs().max()),
+                      float(b.float().abs().max()),
+                      BF16_GATE_LIMIT if a.dtype == BF16 else GATE_LIMIT[torch.float32])
+            for part, a, b in (("ddata", dd, dd_c), ("dx", dx, dx_c)))
+    return errs
+
+
+def phase_gate_bf16(lap_spmv, mesh_a, random8):
+    """Phase 3's bfloat16 gates: K1 and K2 in (bf16, bf16) and (bf16, f32)
+    on the grid Laplacians and the random band at every RHS width phase 3
+    uses (aligned and misaligned X), K5 in both forms on the small odd
+    ELLs, the mesh step and random8 rounded to bfloat16, and the
+    backwards."""
+    band = bf16_dia(band_dia(5000, 4803, BAND_OFFSETS, np.float32, 3))
+    lap64 = grid_laplacian((64, 64), BF16, device=DEVICE)
+    ops = (
+        ("64x64 grid", dia_tile(lap64.to_dia())),
+        (f"{SOLVE_SIDE}^2 grid", dia_tile(grid_laplacian((SOLVE_SIDE,) * 2, BF16, device=DEVICE).to_dia())),
+        (f"{SOLVE_SIDE}^2 dirichlet",
+         dia_tile(dirichlet_laplacian((SOLVE_SIDE,) * 2, BF16, device=DEVICE).to_dia())),
+        (f"band 5000x4803 {BAND_OFFSETS}", band),
+        ("band transposed", dia_tile(dia_to_csmat(band).T.to_csr().to_dia())),
+    )
+    big = dia_tile(lap_spmv.astype(BF16).to_dia())
+    ells = [(f"{MESH_SIDE}^2 mesh step", ell_from_csmat(mesh_a.astype(BF16))),
+            (f"random8 n={RANDOM8_N}", bf16_ell(random8[1]))]
+    ells += [(label.replace(" torch.float32", ""), bf16_ell(ell)) for label, ell, _ in small_ells()
+             if ell.dtype == torch.float32]
+    for xdt in (BF16, torch.float32):
+        for label, dia in ops[:4] + ((f"{SPMV_SIDE}^2 grid", big),):
+            x = rhs_block(dia.cols, 1, torch.float32, 134)[:, 0].to(xdt)
+            gate_spmv_form(f"K1 {label} bfloat16 x {xdt}", dia, x)
+    for label, dia in ops:
+        # one block of the widest RHS, drawn on the card, whose leading
+        # columns give every width (host draws of the 1024²-row blocks
+        # would take most of the phase)
+        gen = torch.Generator(device=DEVICE).manual_seed(137)
+        block = torch.randn((dia.cols, max(SPMM_WIDTHS)), generator=gen, device=DEVICE)
+        for xdt in (BF16, torch.float32):
+            for k in SPMM_WIDTHS:
+                x = block[:, :k].to(xdt).contiguous()
+                gate_spmm_form(f"K2 {label} bfloat16 k={k} x {xdt}", dia, x)
+                gate_spmm_form(f"K2 {label} bfloat16 k={k} x {xdt} misaligned X", dia, misaligned_copy(x))
+        del block
+    for xdt in (BF16, torch.float32):
+        for label, ell in ells:
+            x = rhs_block(ell.cols, 1, torch.float32, 135)[:, 0].to(xdt)
+            gate_ell_form(f"K5 {label} bfloat16 x {xdt}", ell, x)
+    grads = gate_grads_bf16()
+    FORM_ERRS[("dia_spmv", "bf16_f32")].append(grads["K1"])
+    FORM_ERRS[("dia_spmm_vector", "bf16")].append(grads["K2"])
+    FORM_ERRS[("ell_spmv", "bf16_f32")].append(grads["K5"])
+
+
+def phase_timing_bf16(lap_spmv, random8):
+    """Phase 4's bfloat16 rows, both forms, beside the float32 rows: K1 at
+    the 4096² grid, K2 at the 2048×1024 grid with 128 RHS, K5 at random8
+    rounded to bfloat16.  Returns {(kernel line name, form): row}."""
+    rows = {}
+    lap = lap_spmv.astype(BF16)
+    dia = dia_tile(lap.to_dia())
+    # phase 4's float32 x (laplacian_operand's), and the same rounded
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(dia.cols)).to(DEVICE, torch.float32)
+    for xdt in (BF16, torch.float32):
+        rows[("dia_spmv", FORMS[(BF16, xdt)])] = timing_spmv(
+            f"{SPMV_SIDE}^2 grid bfloat16, x {str(xdt)[6:]}", lap, dia, x.to(xdt), reps=50)
+    del lap, dia, x
+    lap2 = grid_laplacian(SPMM_GRID, BF16, device=DEVICE)
+    dia2 = dia_tile(lap2.to_dia())
+    X = rhs_block(dia2.cols, 128, torch.float32, 30)
+    for xdt in (BF16, torch.float32):
+        rows[("dia_spmm_vector", FORMS[(BF16, xdt)])] = timing_spmm(
+            f"{SPMM_GRID[0]}x{SPMM_GRID[1]} grid bfloat16 k=128, X {str(xdt)[6:]}", lap2, dia2, X.to(xdt), reps=20)
+    del lap2, dia2, X
+    mat = random8[0].astype(BF16)
+    ell = bf16_ell(random8[1])
+    for xdt in (BF16, torch.float32):
+        rows[("ell_spmv", FORMS[(BF16, xdt)])] = timing_ell(
+            f"random8 n={RANDOM8_N} bfloat16, x {str(xdt)[6:]}", mat, ell, random8[2].to(xdt), reps=50)
+    return rows
+
+
+def bits_equal(a, b):
+    as_int = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(a.view(as_int), b.view(as_int))
+
+
+def form_counts(kernel, form, plain):
+    """(all launches, the form's launches, the plain version's calls)."""
+    return kernel.launches, getattr(kernel, f"launches_{form}"), plain.calls
+
+
+def phase_main_bf16(mesh, lap_spmv, random8):
+    """Phase 5k (see the module note).  Returns {(kernel line name, form):
+    launches} and the bf16_solvers line."""
+    t_phase = time.perf_counter()
+    side = SOLVE_SIDE
+    n = side * side
+    launches = {}
+    row = {"card_tol": BF16_CG_TOL}
+
+    # a. CG over the Dirichlet Laplacian stored in bf16 and in f32, in
+    # turns (f32, bf16, bf16, f32: the second of each is reported)
+    b = torch.from_numpy(np.random.default_rng(120).standard_normal(n).astype(np.float32)).to(DEVICE)
+    runs = {}
+    for label, dtype, form in (("float32", torch.float32, "f32"), ("bfloat16", BF16, "bf16_f32"),
+                               ("bfloat16", BF16, "bf16_f32"), ("float32", torch.float32, "f32")):
+        mat = dirichlet_laplacian((side, side), dtype, device=DEVICE)
+        sync()
+        t0 = time.perf_counter()
+        fn, prepared = prepare_spmv(mat)
+        sync()
+        prep_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        res = cg(mat, b, tol=BF16_CG_TOL, max_iter=MAX_ITER)
+        sync()
+        wall = time.perf_counter() - t0
+        total, mine, plain = form_counts(dia_spmv_kernel, form, dia_spmv_plain)
+        if form == "bf16_f32":
+            launches[("dia_spmv", form)] = launches.get(("dia_spmv", form), 0) + mine
+        second = label in runs
+        if second:
+            prof = profile_window(f"cg {side}^2 dirichlet stored in {label}, f32 b, {PROFILE_ITERS} "
+                                  f"iterations", lambda: cg(lambda v: fn(prepared, v), b, tol=BF16_CG_TOL,
+                                                             max_iter=PROFILE_ITERS), "dia_spmv")
+            if not (res.iterations == runs[label].iterations and bits_equal(res.x, runs[label].x)):
+                raise AssertionError(f"5k cg {label}: two runs differ")
+            row[f"cg_{label}"] = {"iterations": res.iterations, "s": wall, "first_s": row.pop(label),
+                                  "prepare_spmv_s": prep_s,
+                                  "ms_per_iteration": wall / max(res.iterations, 1) * 1e3,
+                                  "device_idle_share": prof["device_idle_share"], "launches": total}
+        else:
+            row[label] = wall
+        runs[label] = res
+        log(f"5k cg {side}^2 dirichlet stored in {label}, f32 b, tol {BF16_CG_TOL}: iterations "
+            f"{res.iterations} converged {res.converged} wall {wall!r} s "
+            f"({wall / max(res.iterations, 1) * 1e3!r} ms per iteration; prepare_spmv {prep_s!r} s), "
+            f"K1 launches {total} ({form} {mine}, expected {res.iterations + 2}), plain calls {plain}")
+        if not res.converged or not (total == mine == res.iterations + 2) or plain != 0:
+            raise AssertionError(f"5k cg {label}: converged {res.converged}, launches {total}/{mine}, "
+                                 f"plain {plain}")
+    same = runs["float32"].iterations == runs["bfloat16"].iterations and bits_equal(
+        runs["float32"].x, runs["bfloat16"].x)
+    log(f"5k cg: bf16-stored iterations and x bit-equal to the f32-stored run: {same}")
+    if not same:
+        raise AssertionError("5k cg: the bf16-stored run differs from the f32-stored one")
+
+    # b. expm_multiply from EXPM_SOURCES sources over the grid Laplacian
+    src = np.random.default_rng(50).choice(n, EXPM_SOURCES, replace=False)
+    B = torch.zeros((n, EXPM_SOURCES), dtype=torch.float32, device=DEVICE)
+    B[torch.from_numpy(src).to(DEVICE), torch.arange(EXPM_SOURCES, device=DEVICE)] = 1.0
+    ys = {}
+    for label, dtype, form in (("float32", torch.float32, "f32"), ("bfloat16", BF16, "bf16_f32")):
+        lap = grid_laplacian((side, side), dtype, device=DEVICE)
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        ys[label] = expm_multiply(lap, B, t=-1.0)
+        sync()
+        wall = time.perf_counter() - t0
+        total, mine, plain = form_counts(dia_spmm_kernel, form, dia_spmm_plain)
+        vector = dia_spmm_kernel.launches_vector
+        if form == "bf16_f32":
+            launches[("dia_spmm_vector", form)] = mine
+            fn, prepared = prepare_spmm(lap)
+            spmms = [0]
+
+            def op(v):  # 2A with t/2: the CsMat path's substeps, term for term (check_expm)
+                spmms[0] += 1
+                return 2.0 * fn(prepared, v)
+
+            same_ref = bits_equal(expm_multiply(op, B, t=-0.5), ys[label])
+        row[f"expm_{label}"] = {"s": wall, "launches": total}
+        log(f"5k expm_multiply {side}^2 grid stored in {label}, {EXPM_SOURCES} f32 sources: wall "
+            f"{wall!r} s, K2 launches {total} ({form} {mine}, vector {vector}), plain calls {plain}")
+        if not (total == mine == vector > 0) or plain != 0:
+            raise AssertionError(f"5k expm {label}: launches {total}/{mine}/{vector}, plain {plain}")
+    col_sums = ys["bfloat16"].sum(0)
+    same = bits_equal(ys["float32"], ys["bfloat16"])
+    log(f"5k expm: bf16-stored bit-equal to the f32-stored call {same}; SpMMs by a counting "
+        f"callable {spmms[0]} (bit-equal {same_ref}) against {launches[('dia_spmm_vector', 'bf16_f32')]} "
+        f"K2 launches")
+    if not (same and same_ref and spmms[0] == launches[("dia_spmm_vector", "bf16_f32")]):
+        raise AssertionError("5k expm: not bit-equal, or not one launch per SpMM")
+    if not bool(((col_sums > 0) & (col_sums <= 1.0 + 1e-6)).all()):
+        raise AssertionError("5k expm: column sums outside (0, 1]")
+
+    # c. CG on the mesh step rounded to bf16, through the ELL arm and K5
+    a16 = mesh["a"].astype(BF16)
+    b32 = mesh["b"].to(torch.float32)
+    sync()
+    t0 = time.perf_counter()
+    fn, prepared = prepare_spmv(a16)
+    sync()
+    prep_s = time.perf_counter() - t0
+    if ROUTE_OF[type(prepared).__name__] != "ell" or prepared.width != 7:
+        raise AssertionError(f"5k mesh step routed to {type(prepared).__name__}")
+    reset_counts()
+    t0 = time.perf_counter()
+    res = cg(a16, b32, tol=BF16_CG_TOL, max_iter=MAX_ITER)
+    sync()
+    wall = time.perf_counter() - t0
+    total, mine, plain = form_counts(ell_spmv_kernel, "bf16_f32", ell_spmv_plain)
+    launches[("ell_spmv", "bf16_f32")] = mine
+    a64 = a16.astype(torch.float64)
+    b_norm = float(torch.linalg.vector_norm(b32.double()))
+    true_res = float(torch.linalg.vector_norm(b32.double() - spmv(a64, res.x.double())))
+    ref = cg(mesh["a"].astype(torch.float32), b32, tol=BF16_CG_TOL, max_iter=MAX_ITER)
+    row["cg_mesh"] = {"iterations": res.iterations, "f32_stored_iterations": ref.iterations, "s": wall,
+                      "prepare_spmv_s": prep_s, "true_residual_rel": true_res / b_norm}
+    log(f"5k cg mesh {MESH_SIDE}^2 step stored in bfloat16, f32 b: iterations {res.iterations} "
+        f"converged {res.converged} wall {wall!r} s (prepare_spmv {prep_s!r} s), true residual "
+        f"{true_res / b_norm!r} of ||b|| (limit {BF16_MESH_RESIDUAL}), K5 launches {total} (bf16_f32 "
+        f"{mine}, expected {res.iterations + 2}), plain calls {plain}; f32-stored CG "
+        f"{ref.iterations} iterations")
+    if not (res.converged and true_res <= BF16_MESH_RESIDUAL * b_norm):
+        raise AssertionError(f"5k cg mesh: converged {res.converged}, true residual {true_res}")
+    if not (total == mine == res.iterations + 2) or plain != 0:
+        raise AssertionError(f"5k cg mesh: launches {total}/{mine}, plain {plain}")
+    if abs(res.iterations - ref.iterations) > BF16_MESH_ITERS_SLACK * ref.iterations:
+        raise AssertionError(f"5k cg mesh: {res.iterations} iterations against {ref.iterations}")
+    del a16, a64
+
+    # d. one (bf16, bf16) product on each route
+    for kname, kernel, plain_fn, make, route in (
+        ("dia_spmv", dia_spmv_kernel, dia_spmv_plain, lambda: lap_spmv.astype(BF16), "spmv"),
+        ("dia_spmm_vector", dia_spmm_kernel, dia_spmm_plain,
+         lambda: grid_laplacian(SPMM_GRID, BF16, device=DEVICE), "spmm"),
+        ("ell_spmv", ell_spmv_kernel, ell_spmv_plain, lambda: random8[0].astype(BF16), "spmv"),
+    ):
+        mat = make()
+        fn, prepared = (prepare_spmv if route == "spmv" else prepare_spmm)(mat)
+        x = rhs_block(mat.cols, 128 if route == "spmm" else 1, BF16, 136)
+        x = x if route == "spmm" else x[:, 0].contiguous()
+        sync()
+        reset_counts()
+        y = fn(prepared, x)
+        sync()
+        total, mine, plain = form_counts(kernel, "bf16", plain_fn)
+        launches[(kname, "bf16")] = mine
+        if not (total == mine == 1) or plain != 0:
+            raise AssertionError(f"5k {kname} (bf16, bf16): launches {total}/{mine}, plain {plain}")
+        check_form(f"5k {kname} {type(prepared).__name__} {tuple(mat.shape)}", kname, kernel, y,
+                   plain_fn(prepared, x), BF16, BF16, mine - 1)
+        del mat, prepared
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"5k: {row['phase_s']!r} s")
+    return launches, row
+
+
+def phase_determinism(mesh):
+    """Sums by index on the card: each product run twice on one input,
+    bits compared (ops/prod.py's CSR spmv and spmm, ops/batch.py's batched
+    product, one parallel/dist.py product with its per-shard products and
+    assemble, trisolve's level and flat solves).  With ``index_add_``,
+    whose atomics add in no fixed order, the first four differed; they
+    now sum by an accumulating ``index_put_``, and any difference fails
+    the run.  Returns the determinism line."""
+    from sprs_tpu_torch.linalg import lsolve
+    from sprs_tpu_torch.parallel import Mesh, dist_spmv, shard_csr_rows
+
+    a = mesh["a"]
+    n = a.rows
+    rng = np.random.default_rng(140)
+    x = torch.from_numpy(rng.standard_normal(n)).to(DEVICE)
+    X = torch.from_numpy(rng.standard_normal((n, 8))).to(DEVICE)
+    vals = torch.stack([a.data, 2.0 * a.data])
+    xb = torch.from_numpy(rng.standard_normal((2, n))).to(DEVICE)
+    slots = Mesh(np.array([torch.device(DEVICE)] * DIST_SLOTS, dtype=object), ("shards",))
+    dm = shard_csr_rows(a, DIST_SLOTS, balance="nnz", device=slots)
+    low = dirichlet_laplacian((DIRECT_SIDE, DIRECT_SIDE), device=DEVICE).tril()
+    bl = torch.from_numpy(rng.standard_normal(low.rows)).to(DEVICE)
+    cases = {
+        "ops/prod.py spmv (CSR)": lambda: spmv(a, x),
+        "ops/prod.py spmm (CSR, 8 columns)": lambda: spmm(a, X),
+        "ops/batch.py batch_spmv (2 value sets)": lambda: batch_spmv(a, vals, xb),
+        f"parallel/dist.py dist_spmv + assemble ({DIST_SLOTS} slots)":
+            lambda: dm.assemble(dist_spmv(dm, x, slots)),
+        f"linalg/trisolve.py lsolve levels ({DIRECT_SIDE}^2)": lambda: lsolve(low, bl, method="levels"),
+        f"linalg/trisolve.py lsolve flat ({DIRECT_SIDE}^2)": lambda: lsolve(low, bl, method="flat"),
+    }
+    out = {}
+    for label, fn in cases.items():
+        first = fn()
+        second = fn()
+        sync()
+        same = torch.equal(first.view(torch.int64), second.view(torch.int64))
+        differ = int((first.view(torch.int64) != second.view(torch.int64)).sum())
+        out[label] = {"bit_equal": same, "entries_differing": differ, "of": first.numel()}
+        log(f"determinism {label}: two runs bit-equal {same} ({differ} of {first.numel()} entries differ)")
+    if not all(v["bit_equal"] for v in out.values()):
+        raise AssertionError("determinism: a product differs between two runs")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2922,7 +3389,9 @@ def main() -> int:
     log(f"setup: {MESH_SIDE}^2 mesh step and random8 in {time.perf_counter() - t0:.3f} s")
     errs.update(phase_gate_unstructured(mesh_a, random8))
     timing.update(phase_timing_unstructured(mesh_a, random8))
-    del mesh_a, random8
+    phase_gate_bf16(lap_spmv, mesh_a, random8)
+    form_rows = phase_timing_bf16(lap_spmv, random8)
+    del mesh_a  # random8 stays for phase 5k
 
     check_small_against_dense()
     check_small_mesh()
@@ -2934,6 +3403,14 @@ def main() -> int:
     launches.update(phase_main_bsr())
     launches["ell_spmv"], mesh = phase_main_mesh()
     launches["sort_rows"] = phase_main_sort()
+    form_launches, bf16_row = phase_main_bf16(mesh, lap_spmv, random8)
+    bf16_row["card"] = smi
+    del random8
+    for (kname, form), n in form_launches.items():
+        if n == 0:
+            raise AssertionError(f"phase 5k launched no {kname} kernel in its {form} form")
+        launches[kname] += n
+    determinism = phase_determinism(mesh)
     for kname, n in phase_eigen_checks().items():
         launches[kname] += n
     spgemm_rows, chain_launches = phase_spgemm()
@@ -2996,10 +3473,21 @@ def main() -> int:
                 {key: other[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
                 for other in row["other_shapes"]
             ]
+        forms = [
+            {"form": FORM_LABEL[form], "launches": form_launches[(kname, form)],
+             "max_abs_err": max(FORM_ERRS[(kname, form)]),
+             **{key: frow[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                           "library_ms", "library_error")}}
+            for (k, form), frow in form_rows.items() if k == kname
+        ]
+        if forms:
+            kernels[-1]["forms"] = forms
     print(json.dumps({"spgemm": spgemm_rows, "card": smi}))
     print(json.dumps({"direct_panel": panel_row}))
     print(json.dumps({"io": io_row}))
     print(json.dumps({"distributed": dist_row}))
+    print(json.dumps({"bf16_solvers": bf16_row}))
+    print(json.dumps({"determinism": determinism, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

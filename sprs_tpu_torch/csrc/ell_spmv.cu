@@ -5,8 +5,13 @@
 //
 // pad slots included (index 0, data 0: they add 0 * x[0], as the plain
 // torch version does, so a non-finite x[0] gives the same result in both).
-// The sum is taken in T: f32 for f32, f64 for f64.  An index outside
-// [0, cols) is clamped into range, so no operand can make a read leave x.
+// Products and sums are taken in Acc = promote(out, f32), out =
+// promote(data, x), and rounded once to out.  Four forms (data, x) -> y:
+// (f32, f32) -> f32 and (f64, f64) -> f64; (bf16, bf16) -> bf16 and
+// (bf16, f32) -> f32, both with Acc = f32 (the first is the Pallas
+// kernel's, the second what the JAX package's prepare_spmv ELL arm
+// computes).  An index outside [0, cols) is clamped into range, so no
+// operand can make a read leave x.
 //
 // Replaces the TPU kernel sprs_tpu/ops/pallas/spmv.py::_ell_spmv_pallas
 // (body _kernel).  That kernel keeps x resident in VMEM and streams
@@ -14,13 +19,14 @@
 // Mosaic could not lower its arbitrary gather, so on the TPU it never
 // compiled.  On Hopper the gather is a plain load.
 //
-// Bound: bytes.  One call must move rows_pad * width * (4 + sizeof(T))
+// Bound: bytes.  One call must move rows_pad * width * (4 + sizeof(data))
 // bytes of indices and data, x once and y once (the 1024^2 mesh operator
 // in f64, width 7: 104.9 MB, 31.3 us at 3.35 TB/s), against
 // 2 * rows * width flops.  What the card meets first is L2: each slot's
 // gather is a random read of x that L2 serves as a whole 32-byte sector,
 // 4 to 8 times the bytes it uses (at the mesh step 235 MB of sectors
-// beside the 105 MB streamed; at random8 537 MB).  Design:
+// beside the 105 MB streamed; at random8 537 MB), and whatever x's type:
+// a bf16 x saves none of them.  Design:
 //
 // - a group of G lanes owns a row, G the smallest power of two >= width
 //   (at most 32, chosen by the wrapper; a wider row loops over 32-slot
@@ -30,7 +36,8 @@
 //   lane issues its gather at once, and a shuffle tree of log2(G) steps
 //   sums the row.  The tree sums in
 //   another order than the plain version's row sum: the results agree to
-//   rounding (1e-5 of max|y| in f32, 1e-12 in f64);
+//   rounding (1e-5 of max|y| for an f32 output, 1e-12 for f64, one bf16
+//   step, 2^-7 of max|y|, for a bf16 output);
 // - a group takes one row per pass of its grid-stride loop and the grid
 //   is one wave at full occupancy (32 registers, 8 blocks of 256 per SM):
 //   2048 gathers in flight per SM keep L2 busy.  Cache policies that keep
@@ -39,16 +46,30 @@
 //   (benches/torch_kernel_variants.py).
 // Index math is 64-bit: rows * width overflows int32 above 2^31 slots.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 
-template <typename T, int G>
+// A stored type to and from its accumulator; bf16 by the intrinsics, whose
+// rounding (to nearest even) is that of torch's and XLA's casts.
+template <typename T>
+struct Cvt {
+  __device__ static T in(T v) { return v; }
+  __device__ static T out(T v) { return v; }
+};
+template <>
+struct Cvt<__nv_bfloat16> {
+  __device__ static float in(__nv_bfloat16 v) { return __bfloat162float(v); }
+  __device__ static __nv_bfloat16 out(float v) { return __float2bfloat16_rn(v); }
+};
+
+template <typename TD, typename TX, typename TY, typename Acc, int G>
 __global__ void __launch_bounds__(kThreads)
-ell_spmv_kernel(const int* __restrict__ indices, const T* __restrict__ data,
-                const T* __restrict__ x, T* __restrict__ y, long long rows,
+ell_spmv_kernel(const int* __restrict__ indices, const TD* __restrict__ data,
+                const TX* __restrict__ x, TY* __restrict__ y, long long rows,
                 long long cols, int width) {
   const int lane = threadIdx.x & 31;
   const int g = lane & (G - 1);
@@ -60,62 +81,61 @@ ell_spmv_kernel(const int* __restrict__ indices, const T* __restrict__ data,
   const long long n_groups = (long long)gridDim.x * blockDim.x / G;
   for (long long r = group; r < rows; r += n_groups) {
     const long long base = r * width;
-    T acc = 0;
+    Acc acc = 0;
     // j - g: the chunk's first slot, the same for every lane of the group
     for (int j = g; j - g < width; j += G) {
       if (j < width) {
         long long c = __ldg(&indices[base + j]);
         c = c < 0 ? 0 : (c >= cols ? cols - 1 : c);
-        acc += __ldg(&data[base + j]) * __ldg(&x[c]);
+        acc += (Acc)Cvt<TD>::in(__ldg(&data[base + j])) * (Acc)Cvt<TX>::in(__ldg(&x[c]));
       }
     }
 #pragma unroll
     for (int off = G / 2; off > 0; off >>= 1)
       acc += __shfl_xor_sync(mask, acc, off);
-    if (g == 0) y[r] = acc;
+    if (g == 0) y[r] = Cvt<TY>::out(acc);
   }
 }
 
-template <typename T>
+template <typename TD, typename TX, typename TY, typename Acc>
 int launch(const void* indices, const void* data, const void* x, void* y,
            long long rows, long long cols, int width, int lanes, int grid,
            int block, void* stream) {
   if (width < 0 || cols < 1 || block != kThreads) return (int)cudaErrorInvalidValue;
   auto* s = (cudaStream_t)stream;
   const int* i = (const int*)indices;
-  const T* d = (const T*)data;
-  const T* v = (const T*)x;
-  T* out = (T*)y;
+  const TD* d = (const TD*)data;
+  const TX* v = (const TX*)x;
+  TY* out = (TY*)y;
+#define ELL_CASE(G)                                                                       \
+  case G:                                                                                 \
+    ell_spmv_kernel<TD, TX, TY, Acc, G><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); \
+    break;
   switch (lanes) {
-    case 1: ell_spmv_kernel<T, 1><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
-    case 2: ell_spmv_kernel<T, 2><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
-    case 4: ell_spmv_kernel<T, 4><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
-    case 8: ell_spmv_kernel<T, 8><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
-    case 16: ell_spmv_kernel<T, 16><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
-    case 32: ell_spmv_kernel<T, 32><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); break;
+    ELL_CASE(1) ELL_CASE(2) ELL_CASE(4) ELL_CASE(8) ELL_CASE(16) ELL_CASE(32)
     default: return (int)cudaErrorInvalidValue;
   }
+#undef ELL_CASE
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface, bound with ctypes.  `lanes` is G, a power of two up
-// to 32, which the wrapper chooses (ops/cuda/ell_spmv.py::group_lanes) and
-// sizes the grid by; any such G computes the product.  `block` must be 256
-// (kThreads).  Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int sprs_ell_spmv_f32(const void* indices, const void* data,
-                                 const void* x, void* y, long long rows,
-                                 long long cols, int width, int lanes,
-                                 int grid, int block, void* stream) {
-  return launch<float>(indices, data, x, y, rows, cols, width, lanes, grid, block,
-                       stream);
-}
+// Plain C interface, bound with ctypes: one entry per form (data, x),
+// named by it (f32, f64, bf16 for (bf16, bf16), bf16_f32 for bf16 data
+// and f32 x).  `lanes` is G, a power of two up to 32, which the wrapper
+// chooses (ops/cuda/ell_spmv.py::group_lanes) and sizes the grid by; any
+// such G computes the product.  `block` must be 256 (kThreads).  Returns
+// cudaGetLastError() after the launch (0 on success).
+#define SPRS_ELL_SPMV_ENTRY(NAME, TD, TX, TY, ACC)                              \
+  extern "C" int NAME(const void* indices, const void* data, const void* x,     \
+                      void* y, long long rows, long long cols, int width,       \
+                      int lanes, int grid, int block, void* stream) {           \
+    return launch<TD, TX, TY, ACC>(indices, data, x, y, rows, cols, width,      \
+                                   lanes, grid, block, stream);                 \
+  }
 
-extern "C" int sprs_ell_spmv_f64(const void* indices, const void* data,
-                                 const void* x, void* y, long long rows,
-                                 long long cols, int width, int lanes,
-                                 int grid, int block, void* stream) {
-  return launch<double>(indices, data, x, y, rows, cols, width, lanes, grid, block,
-                        stream);
-}
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f32, float, float, float, float)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f64, double, double, double, double)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_bf16, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16, float)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_bf16_f32, __nv_bfloat16, float, float, float)

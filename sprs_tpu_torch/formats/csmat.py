@@ -29,6 +29,7 @@ from .util import (
     as_tensor,
     check_index_capacity,
     compress_coo,
+    host_array,
     indptr_from_row_counts,
     positions,
     row_ids_from_indptr,
@@ -209,17 +210,24 @@ class CsMat:
         return bsr_from_csmat(self, block_size)
 
     def to_scipy(self):
-        """Host-side scipy.sparse twin (for tests and interop)."""
+        """Host-side scipy.sparse twin (for tests and interop).
+
+        A bfloat16 matrix gives ml_dtypes' bfloat16 data, as the JAX
+        package does: this is the one function of the package that
+        imports ml_dtypes, and only for bfloat16."""
         import scipy.sparse as sp
 
         nnz = self.nnz
+        data = self.data[:nnz].detach().cpu()
+        if data.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            data = data.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        else:
+            data = data.numpy()
         klass = sp.csr_matrix if self.is_csr else sp.csc_matrix
         return klass(
-            (
-                self.data[:nnz].detach().cpu().numpy(),
-                self.indices[:nnz].cpu().numpy(),
-                self.indptr.cpu().numpy(),
-            ),
+            (data, self.indices[:nnz].cpu().numpy(), self.indptr.cpu().numpy()),
             shape=self.shape,
         )
 
@@ -307,11 +315,13 @@ class CsMat:
 
     # -- host-side editing ---------------------------------------------------
     def _host_arrays(self):
+        """(indptr, indices, data) as numpy; bfloat16 data as float32
+        (``host_array``)."""
         nnz = self.nnz
         return (
             self.indptr.cpu().numpy().copy(),
             self.indices[:nnz].cpu().numpy(),
-            self.data[:nnz].detach().cpu().numpy(),
+            host_array(self.data[:nnz]),
         )
 
     def insert(self, row: int, col: int, value) -> "CsMat":
@@ -330,6 +340,7 @@ class CsMat:
             indices = np.insert(indices, pos, i)
             data = np.insert(data, pos, value)
             indptr[o + 1 :] += 1
+        data = as_tensor(data, dtype=self.dtype, device="cpu")
         return csmat(self.shape, indptr, indices, data, storage=self.storage,
                      validate=False, device=self.device)
 
@@ -547,8 +558,8 @@ class CsMat:
         storage or pattern (host-side)."""
         if self.shape != other.shape:
             return False
-        return bool(np.allclose(self.to_dense().detach().cpu().numpy(),
-                                other.to_dense().detach().cpu().numpy(), rtol=rtol, atol=atol))
+        return bool(np.allclose(host_array(self.to_dense()), host_array(other.to_dense()),
+                                rtol=rtol, atol=atol))
 
     # -- sparse vectors ------------------------------------------------------
     def row(self, i: int):

@@ -20,7 +20,15 @@ import torch
 
 from ..errors import CapacityError, ShapeError, StructureError
 from .csmat import CSC, CSR, CsMat
-from .util import DEFAULT_DEVICE, INDEX_DTYPE, as_tensor, compress_coo, torch_dtype, valid_mask
+from .util import (
+    DEFAULT_DEVICE,
+    INDEX_DTYPE,
+    as_tensor,
+    compress_coo,
+    host_array,
+    torch_dtype,
+    valid_mask,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +80,7 @@ class CsVec:
         """Host-side dict {index: value} of the live entries."""
         n = self.nnz
         idx = self.indices[:n].cpu().numpy()
-        val = self.data[:n].detach().cpu().numpy()
+        val = host_array(self.data[:n])
         return {int(i): v for i, v in zip(idx, val)}
 
     def items(self):
@@ -118,7 +126,7 @@ class CsVec:
         p = p.cpu().numpy() if isinstance(p, torch.Tensor) else np.asarray(p)
         n = self.nnz
         idx = self.indices[:n].cpu().numpy()
-        val = self.data[:n].detach().cpu().numpy()
+        val = host_array(self.data[:n])
         for i, v in zip(idx, val):
             yield int(p[int(i)]), v
 

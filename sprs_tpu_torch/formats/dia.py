@@ -9,9 +9,22 @@ Storing the k populated diagonals densely turns SpMV into
 
 Layout: ``offsets`` is a tuple of diagonal offsets (col - row);
 ``data[d, i] = A[i, i + offsets[d]]`` (row-indexed, zero where out of
-range).  Rows are padded to a multiple of 8.  :func:`dia_spmv` and
-:func:`dia_spmm` here are the plain torch versions; the CUDA kernel and
-its prepared operand live in ``ops/cuda/dia_spmv.py``.
+range).  Rows are padded to a multiple of 8.
+
+Two functions of the same product, which differ only on bfloat16:
+
+* :func:`dia_spmv` and :func:`dia_spmm` here are the counterparts of the
+  JAX package's XLA products: they compute in promote(data, x), so a
+  bfloat16 operand times a bfloat16 x rounds every product and partial
+  sum to bfloat16, as XLA does.  Whoever calls them directly (or
+  through ``formats``) gets that;
+* the kernels K1 and K2 and their plain versions (``ops/cuda/dia_spmv.py``,
+  ``dia_spmm.py``) compute what the Pallas kernels compute: products and
+  sums in promote(out, float32), rounded once to the output type.
+  ``prepare_spmv``, ``prepare_spmm`` and :class:`DiaTiledMat` get that,
+  on the card and on the CPU alike.
+
+For float32 and float64 the two are the same arithmetic.
 """
 
 from __future__ import annotations
@@ -24,7 +37,7 @@ import torch
 
 from ..errors import ShapeError
 from .csmat import CsMat, csmat
-from .util import round_up
+from .util import as_tensor, host_array, round_up
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,48 +93,41 @@ class DiaMat:
         )
 
 
-def _csr_host(mat: CsMat):
-    """(rows_arr, cols_arr, data) of the live CSR entries, as numpy."""
+def _entry_offsets(mat: CsMat):
+    """(csr, row of each live entry, its offset col - row), as int64
+    tensors on ``mat``'s device.  The offsets come from the indices
+    alone, so the values' type never reaches the host."""
     m = mat.to_csr()
-    indptr = m.indptr.cpu().numpy()
-    nnz = int(indptr[-1])
-    cols_arr = m.indices[:nnz].cpu().numpy().astype(np.int64)
-    data = m.data[:nnz].cpu().numpy()
-    rows_arr = np.repeat(
-        np.arange(m.rows, dtype=np.int64), np.diff(indptr).astype(np.int64)
-    )
-    return rows_arr, cols_arr, data
+    nnz = m.nnz
+    rows = m.outer_ids()[:nnz].to(torch.int64)
+    return m, rows, m.indices[:nnz].to(torch.int64) - rows
 
 
 def dia_from_csmat(
     mat: CsMat, *, max_diags: Optional[int] = None, row_align: int = 8
 ) -> DiaMat:
-    """Host-side CSR → DIA conversion; the result lies on ``mat``'s device.
+    """CSR → DIA conversion on ``mat``'s device; only the offsets come to
+    the host.  The arrays equal the JAX package's host conversion.
 
     Raises ShapeError when the matrix populates more than ``max_diags``
     distinct diagonals.
     """
-    rows_arr, cols_arr, data = _csr_host(mat)
-    offs = np.unique(cols_arr - rows_arr)
-    if max_diags is not None and offs.size > max_diags:
-        raise ShapeError(
-            f"matrix has {offs.size} diagonals > max_diags={max_diags}"
-        )
+    m, rows, off = _entry_offsets(mat)
+    offs = torch.unique(off)  # sorted, as np.unique
+    k = int(offs.numel())
+    if max_diags is not None and k > max_diags:
+        raise ShapeError(f"matrix has {k} diagonals > max_diags={max_diags}")
     rows_pad = round_up(max(mat.rows, 1), row_align)
-    dia = np.zeros((max(offs.size, 1), rows_pad), dtype=data.dtype)
-    dia[np.searchsorted(offs, cols_arr - rows_arr), rows_arr] = data
-    return DiaMat(
-        torch.from_numpy(dia).to(mat.device),
-        tuple(int(o) for o in offs) if offs.size else (0,),
-        mat.shape,
-    )
+    dia = torch.zeros((max(k, 1), rows_pad), dtype=m.dtype, device=m.device)
+    dia[torch.searchsorted(offs, off), rows] = m.data[: rows.numel()].detach()
+    return DiaMat(dia, tuple(offs.tolist()) if k else (0,), mat.shape)
 
 
 def dia_to_csmat(dia: DiaMat) -> CsMat:
     """Host-side DIA → CSR conversion (structural entries = every
     in-bounds diagonal slot, matching ``dia_from_csmat``'s layout)."""
     rows, cols = dia.shape
-    data = dia.data.cpu().numpy()
+    data = host_array(dia.data)
     rs, cs, vs = [], [], []
     for d, off in enumerate(dia.offsets):
         r0 = max(0, -off)
@@ -145,16 +151,16 @@ def dia_to_csmat(dia: DiaMat) -> CsMat:
         (rows, cols),
         np.cumsum(indptr).astype(np.int32),
         cc.astype(np.int32),
-        vv,
+        as_tensor(vv, dtype=dia.dtype, device="cpu"),
         validate=False,
         device=dia.device,
     )
 
 
 def n_diags_of(mat: CsMat) -> int:
-    """Number of populated diagonals (host-side dispatch heuristic)."""
-    rows_arr, cols_arr, _ = _csr_host(mat)
-    return int(np.unique(cols_arr - rows_arr).size)
+    """Number of populated diagonals (the dispatch heuristic), counted on
+    ``mat``'s device from the indices alone."""
+    return int(torch.unique(_entry_offsets(mat)[2]).numel())
 
 
 def _padded_x(dia: DiaMat, x: torch.Tensor):

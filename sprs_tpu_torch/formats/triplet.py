@@ -19,6 +19,7 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..errors import ShapeError, StructureError
 from .csmat import CSC, CSR, CsMat
@@ -28,6 +29,8 @@ from .util import (
     as_tensor,
     check_index_capacity,
     compress_coo,
+    host_array,
+    is_bf16,
     np_dtype,
 )
 
@@ -67,21 +70,32 @@ def coo_to_csmat(
 class _Triplets:
     """The triplet arrays that a builder and its transpose views share.
     Single adds are buffered and joined to the arrays when they are next
-    read."""
+    read.  ``dtype`` is the builder's type: a numpy dtype, or
+    ``torch.bfloat16``, whose values the host holds as float32
+    (``util.np_dtype``)."""
 
-    def __init__(self, dtype: np.dtype):
-        self.dtype = dtype
+    def __init__(self, dtype):
+        self.dtype = torch.bfloat16 if is_bf16(dtype) else np_dtype(dtype)
         self.rows = np.zeros(0, np.int64)
         self.cols = np.zeros(0, np.int64)
-        self.data = np.zeros(0, dtype)
+        self.data = np.zeros(0, np_dtype(self.dtype))
         self.pending: List[tuple] = []
+
+    def cast(self, values) -> np.ndarray:
+        """``values`` in the builder's type, held as the host holds it: a
+        bfloat16 cast rounds to nearest even in torch, as ml_dtypes' cast
+        does."""
+        a = np.asarray(values)
+        if self.dtype != torch.bfloat16:
+            return a.astype(self.dtype)
+        return host_array(torch.from_numpy(np.array(a, np.float64)).to(torch.bfloat16))
 
     def arrays(self):
         if self.pending:
             r, c, v = zip(*self.pending)
             self.rows = np.concatenate([self.rows, np.asarray(r, np.int64)])
             self.cols = np.concatenate([self.cols, np.asarray(c, np.int64)])
-            self.data = np.concatenate([self.data, np.asarray(v, self.dtype)])
+            self.data = np.concatenate([self.data, self.cast(v)])
             self.pending = []
         return self.rows, self.cols, self.data
 
@@ -93,19 +107,27 @@ class TriMat:
     """Host-side triplet builder.
 
     Duplicates are allowed; ``to_csr`` / ``to_csc`` sum them.  Mutation is
-    eager numpy; the compression runs on the target device.
+    eager numpy; the compression runs on the target device.  ``dtype`` is
+    a numpy or torch dtype; a bfloat16 builder (``dtype`` is then
+    ``torch.bfloat16``) rounds each value to bfloat16 as it comes in and
+    hands its values out as float32 (:meth:`data`, :meth:`to_dense`),
+    where the JAX builder hands out ml_dtypes' bfloat16.
     """
 
     def __init__(self, shape: Tuple[int, int], dtype=np.float64):
         check_index_capacity(rows=shape[0], cols=shape[1])
         self.shape = tuple(int(s) for s in shape)
-        self._store = _Triplets(np_dtype(dtype))
+        self._store = _Triplets(dtype)
         self._transposed = False
 
     @classmethod
     def from_triplets(cls, shape, rows, cols, data) -> "TriMat":
-        data = np.asarray(data)
-        m = cls(shape, dtype=data.dtype)
+        if isinstance(data, torch.Tensor):
+            m = cls(shape, dtype=data.dtype)
+            data = host_array(data)
+        else:
+            data = np.asarray(data)
+            m = cls(shape, dtype=data.dtype)
         rows = np.asarray(rows)
         cols = np.asarray(cols)
         if not (rows.shape == cols.shape == data.shape):
@@ -117,11 +139,12 @@ class TriMat:
                 raise StructureError.out_of_range("col index out of range")
         m._store.rows = rows.reshape(-1).astype(np.int64)
         m._store.cols = cols.reshape(-1).astype(np.int64)
-        m._store.data = data.reshape(-1).copy()
+        m._store.data = m._store.cast(data.reshape(-1))
         return m
 
     @property
-    def dtype(self) -> np.dtype:
+    def dtype(self):
+        """A numpy dtype, or ``torch.bfloat16``."""
         return self._store.dtype
 
     def _arrays(self):
@@ -141,7 +164,7 @@ class TriMat:
     def set_triplet(self, loc: int, row: int, col: int, val) -> None:
         """Overwrite the triplet at position ``loc``."""
         r, c, v = self._arrays()
-        r[loc], c[loc], v[loc] = row, col, val
+        r[loc], c[loc], v[loc] = row, col, self._store.cast(val)
 
     def find_locations(self, row: int, col: int) -> List[int]:
         """All triplet positions matching (row, col)."""
@@ -171,7 +194,7 @@ class TriMat:
         return self._arrays()[1].astype(np.int32)
 
     def data(self) -> np.ndarray:
-        return self._arrays()[2].astype(self.dtype)
+        return self._arrays()[2].astype(np_dtype(self.dtype))
 
     def transpose_view(self) -> "TriMat":
         """O(1) transpose sharing this builder's triplets: a triplet added
@@ -185,10 +208,11 @@ class TriMat:
         n = self.nnz
         if n == 0:  # one padding slot, as the JAX builder compresses
             rows = cols = np.zeros(1, np.int32)
-            vals = np.zeros(1, self.dtype)
+            vals = np.zeros(1, np_dtype(self.dtype))
         else:
             r, c, vals = self._arrays()
             rows, cols = r.astype(np.int32), c.astype(np.int32)
+        vals = as_tensor(vals, dtype=self.dtype, device="cpu")
         return coo_to_csmat(
             rows, cols, vals, self.shape, nnz=n, storage=storage, cap=cap, device=device
         )
@@ -201,6 +225,11 @@ class TriMat:
 
     def to_dense(self) -> np.ndarray:
         r, c, v = self._arrays()
+        if is_bf16(self.dtype):  # duplicates summed in bfloat16, one by one
+            out = torch.zeros(self.shape, dtype=torch.bfloat16)
+            out.index_put_((torch.from_numpy(r), torch.from_numpy(c)),
+                           torch.from_numpy(v).to(torch.bfloat16), accumulate=True)
+            return host_array(out)
         out = np.zeros(self.shape, dtype=self.dtype)
         np.add.at(out, (r, c), v)
         return out

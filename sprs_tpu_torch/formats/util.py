@@ -34,8 +34,23 @@ MAX_INDEX = 2**31 - 1
 # ``device=``; the default never depends on what hardware is present.
 DEFAULT_DEVICE = "cuda"
 
+
+def is_bf16(dtype) -> bool:
+    """Whether ``dtype`` is bfloat16: torch's, or ml_dtypes' as JAX hands
+    it out."""
+    if isinstance(dtype, torch.dtype):
+        return dtype == torch.bfloat16
+    return np.dtype(dtype).name == "bfloat16"
+
+
 def np_dtype(dtype) -> np.dtype:
-    """numpy dtype for a torch or numpy dtype."""
+    """numpy dtype that holds a torch or numpy dtype's values on the host.
+
+    numpy has no bfloat16 of its own: bfloat16 is held as float32, where
+    every bfloat16 value is exact, so that the host paths never need
+    ml_dtypes."""
+    if is_bf16(dtype):
+        return np.dtype(np.float32)
     if isinstance(dtype, torch.dtype):
         return torch.empty(0, dtype=dtype).numpy().dtype
     return np.dtype(dtype)
@@ -45,7 +60,17 @@ def torch_dtype(dtype) -> torch.dtype:
     """torch dtype for a torch or numpy dtype."""
     if isinstance(dtype, torch.dtype):
         return dtype
+    if is_bf16(dtype):
+        return torch.bfloat16
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """``t`` as a numpy array on the host (detached).  bfloat16 comes out
+    as float32 (:func:`np_dtype`): exact, and ``as_tensor(a,
+    dtype=torch.bfloat16)`` gives the tensor back bit for bit."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def as_tensor(arr, *, dtype=None, device=DEFAULT_DEVICE) -> torch.Tensor:

@@ -26,7 +26,7 @@ import numpy as np
 from ..errors import StructureError
 from ..formats.csmat import CsMat
 from ..formats.triplet import TriMat
-from ..formats.util import DEFAULT_DEVICE
+from ..formats.util import DEFAULT_DEVICE, host_array
 
 SYMMETRY_MODES = ("general", "symmetric", "skew-symmetric", "hermitian")
 DATA_KINDS = ("real", "integer", "complex", "pattern")
@@ -213,7 +213,7 @@ def write_matrix_market(
         nnz = csr.nnz
         rows = csr.outer_ids()[:nnz].cpu().numpy()
         cols = csr.indices[:nnz].cpu().numpy()
-        vals = csr.data[:nnz].detach().cpu().numpy()
+        vals = host_array(csr.data[:nnz])  # bfloat16 as float32: the same text
         shape = csr.shape
 
     if symmetry != "general":

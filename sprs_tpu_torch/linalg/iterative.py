@@ -18,6 +18,7 @@ import torch
 from .. import native
 from ..errors import NonSquareMatrixError
 from ..formats.csmat import CsMat
+from ..formats.util import host_array
 from ..ops.prod import spmv
 from ._dispatch import as_vector
 
@@ -78,7 +79,7 @@ def gauss_seidel(
     indptr = csr.indptr.cpu().numpy()
     nnz = int(indptr[-1])
     indices = csr.indices[:nnz].cpu().numpy()
-    data = csr.data[:nnz].cpu().numpy()
+    data = host_array(csr.data[:nnz])
     rows = np.repeat(np.arange(n), np.diff(indptr))
     b_h = as_vector(b, mat).cpu().numpy().astype(np.float64)
     x = (

@@ -45,7 +45,11 @@ def _segment_sum(mat: CsMat, data: torch.Tensor, x: torch.Tensor, vec: bool) -> 
         contrib = torch.where(live[:, None], data[:, :, None] * x[:, src], 0)
     N = max(data.shape[0], x.shape[0])
     y = torch.zeros((N, mat.rows) + contrib.shape[2:], dtype=contrib.dtype, device=contrib.device)
-    return y.index_add_(1, dst, contrib.expand((N,) + contrib.shape[1:]))
+    # an accumulating index_put_ sums each row in one fixed order on the
+    # card, where index_add_'s atomics do not (ops/prod.py)
+    member = torch.arange(N, device=dst.device)[:, None].expand(N, dst.shape[0])
+    return y.index_put_((member, dst.expand(N, -1)), contrib.expand((N,) + contrib.shape[1:]),
+                        accumulate=True)
 
 
 def batch_spmv(mat: CsMat, data, x) -> torch.Tensor:

@@ -6,17 +6,21 @@ and Y each cross device memory once) and how its design meets that bound.
 This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
 
 * :func:`dia_spmm_plain`, the plain torch version (``formats/dia.py::
-  dia_spmm``), used for tensors on the CPU and as the kernel's reference
-  on the card.  Its ``calls`` attribute counts calls;
+  dia_spmm``, widened for bfloat16 as ``forms.widened`` says), used for
+  tensors on the CPU and as the kernel's reference on the card.  Its
+  ``calls`` attribute counts calls;
 * :func:`dia_spmm_kernel`, the wrapper: CPU tensors take the plain
-  version, CUDA tensors launch the kernel or raise — never both.  Its
-  ``launches`` attribute counts kernel launches, and ``launches_vector``
-  and ``launches_scalar`` those of each variant.  Every RHS width takes
+  version, CUDA tensors launch the kernel or raise — never both.  It
+  takes the type forms of ``forms.FORMS``.  Its ``launches`` attribute
+  counts kernel launches, ``launches_vector`` and ``launches_scalar``
+  those of each variant, and ``launches_<form>`` those of each form.  Every RHS width takes
   the kernel: the JAX package's ``k >= 256`` cut (``ops/prod.py``) is a
   TPU measurement and has no counterpart here;
 * :func:`variant`, the rule that picks the kernel's variant: "vector"
   (16-byte loads of X and stores of Y) when a row of X is whole 16-byte
-  vectors and X starts on a 16-byte boundary, else "scalar";
+  vectors and X starts on a 16-byte boundary, else "scalar".  Y has X's
+  type in every form, so X's element size decides, whatever the
+  diagonals' type;
 * a ``torch.autograd.Function`` whose forward is the kernel and whose
   backward is :func:`~.dia_spmv.dia_vjp`, the plain torch form of the JAX
   package's ``_bwd``.
@@ -37,13 +41,12 @@ from ...errors import ShapeError
 from ...formats.dia import DiaMat, dia_spmm
 from . import build
 from .dia_spmv import MAX_DIAGS, dia_vjp
+from .forms import count_launch, form_of, widened, zero_counts
 
 THREADS = 256  # csrc/dia_spmm.cu: kThreads
-RUN = 4  # consecutive rows per thread (kRun)
+RUN = 4  # consecutive rows per thread (kRun); 2 for a vector of 8 columns (R)
 BLOCKS_PER_SM = 3  # resident CTAs per SM (kMinBlocks)
 VECTOR_BYTES = 16
-
-_ENTRY = {torch.float32: "sprs_dia_spmm_f32", torch.float64: "sprs_dia_spmm_f64"}
 
 
 def variant(k: int, itemsize: int, x_ptr: int) -> str:
@@ -56,31 +59,37 @@ def variant(k: int, itemsize: int, x_ptr: int) -> str:
 
 def launch_config(rows: int, k: int, n_sm: int, itemsize: int, vector: bool) -> Tuple[int, int, int]:
     """(grid, block, runs_per_tile) for a (rows, k) output on a card with
-    ``n_sm`` SMs.  A thread owns RUN rows by one column vector (16 bytes,
-    or one element for the scalar variant); a CTA's tile is as many runs
-    as its threads cover across the k columns, all k columns wide; the
-    grid is at most one wave of resident CTAs, which walk the tiles in
-    grid-stride order."""
+    ``n_sm`` SMs.  A thread owns a run of RUN rows (half as many for a
+    vector of 8 bfloat16 columns, ``R`` in the kernel) by one column
+    vector (16 bytes, or one element for the scalar variant); a CTA's tile
+    is as many runs as its threads cover across the k columns, all k
+    columns wide; the grid is at most one wave of resident CTAs, which
+    walk the tiles in grid-stride order."""
     per_vec = VECTOR_BYTES // itemsize if vector else 1
     kv = k // per_vec
     runs = max(THREADS // kv, 1)
-    tiles = -(-rows // (runs * RUN))
+    tiles = -(-rows // (runs * (RUN // 2 if per_vec > 4 else RUN)))
     return max(1, min(tiles, n_sm * BLOCKS_PER_SM)), THREADS, runs
 
 
 def dia_spmm_plain(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     """The plain torch K2: shifted row blocks, multiply-add in diagonal
-    order (``formats/dia.py::dia_spmm``)."""
+    order (``formats/dia.py::dia_spmm``), in ``promote(out, float32)``
+    with one rounding where an operand is bfloat16."""
     dia_spmm_plain.calls += 1
-    return dia_spmm(dia, x)
+    wide = widened(dia.data, x)
+    if wide is None:
+        return dia_spmm(dia, x)
+    out, acc = wide
+    return dia_spmm(DiaMat(dia.data.to(acc), dia.offsets, dia.shape), x.to(acc)).to(out)
 
 
 dia_spmm_plain.calls = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    fn = getattr(build.load("dia_spmm"), _ENTRY[dtype])
+def _entry(form: str):
+    fn = getattr(build.load("dia_spmm"), f"sprs_dia_spmm_{form}")
     ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, ll, ll, ll, ll, vp, i, i, i, i, vp]
     fn.restype = ctypes.c_int
@@ -94,11 +103,7 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
             f"dia_spmm kernel needs data and X on one CUDA device, got "
             f"{data.device} and {x.device}"
         )
-    if data.dtype not in _ENTRY or x.dtype != data.dtype:
-        raise TypeError(
-            f"dia_spmm kernel takes float32 or float64 data and X of the "
-            f"same type, got {data.dtype} and {x.dtype}"
-        )
+    form = form_of("dia_spmm", data, x)
     n = dia.n_diags
     if n > MAX_DIAGS:
         raise ShapeError(f"dia_spmm kernel takes at most {MAX_DIAGS} diagonals, got {n}")
@@ -107,13 +112,13 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     if not (data.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_spmm kernel needs contiguous data and X")
     k = x.shape[1]
-    y = torch.empty((dia.rows, k), dtype=data.dtype, device=data.device)
+    y = torch.empty((dia.rows, k), dtype=x.dtype, device=data.device)  # X's type in every form
     if dia.rows == 0 or k == 0:
         return y
     kind = variant(k, x.element_size(), x.data_ptr())
     n_sm = torch.cuda.get_device_properties(data.device).multi_processor_count
     grid, _, runs = launch_config(dia.rows, k, n_sm, x.element_size(), kind == "vector")
-    err = _entry(data.dtype)(
+    err = _entry(form)(
         data.data_ptr(),
         x.data_ptr(),
         y.data_ptr(),
@@ -130,7 +135,7 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"dia_spmm kernel ({kind}) launch failed: CUDA error {err}")
-    dia_spmm_kernel.launches += 1
+    count_launch(dia_spmm_kernel, form)
     if kind == "vector":
         dia_spmm_kernel.launches_vector += 1
     else:
@@ -171,6 +176,6 @@ def dia_spmm_kernel(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     return _DiaSpmm.apply(dia.data, x, tuple(dia.offsets), tuple(dia.shape))
 
 
-dia_spmm_kernel.launches = 0
+zero_counts(dia_spmm_kernel)
 dia_spmm_kernel.launches_vector = 0
 dia_spmm_kernel.launches_scalar = 0

@@ -6,11 +6,13 @@ diagonals, x and y each cross device memory once) and how its design
 meets that bound.  This module holds what surrounds it:
 
 * :func:`dia_spmv_plain`, the plain torch version (the same arithmetic
-  as ``formats/dia.py::dia_spmv``), used for tensors on the CPU and as
-  the kernel's reference on the card;
+  as ``formats/dia.py::dia_spmv``, but widened for bfloat16 as
+  ``forms.widened`` says), used for tensors on the CPU and as the
+  kernel's reference on the card;
 * :func:`dia_spmv_kernel`, the wrapper: CPU tensors take the plain
-  version, CUDA tensors launch the kernel or raise — never both.  Its
-  ``launches`` attribute counts kernel launches;
+  version, CUDA tensors launch the kernel or raise — never both.  It
+  takes the type forms of ``forms.FORMS``.  Its ``launches`` attribute
+  counts kernel launches, and ``launches_<form>`` those of each form;
 * :class:`DiaTiledMat` and :func:`dia_tile`, the prepare-once operand of
   the solver loops.  The GPU kernel reads ``DiaMat``'s own (k, rows_pad)
   layout, so preparing only checks the operand and makes it contiguous;
@@ -33,6 +35,7 @@ import torch
 from ...errors import ShapeError
 from ...formats.dia import DiaMat, _padded_x, dia_spmv
 from . import build
+from .forms import count_launch, form_of, widened, zero_counts
 
 # Offsets travel to the kernel by value in a fixed struct of this many
 # ints (csrc/dia_spmv.cu: kMaxDiags), prepare_spmv's ceiling.
@@ -40,8 +43,6 @@ MAX_DIAGS = 64
 BLOCK = 256
 # Resident 256-thread blocks per SM at full occupancy (2048 threads).
 BLOCKS_PER_SM = 8
-
-_ENTRY = {torch.float32: "sprs_dia_spmv_f32", torch.float64: "sprs_dia_spmv_f64"}
 
 
 def launch_config(rows: int, n_sm: int) -> Tuple[int, int]:
@@ -54,17 +55,23 @@ def launch_config(rows: int, n_sm: int) -> Tuple[int, int]:
 
 def dia_spmv_plain(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     """The plain torch K1: shifted slices, multiply-add in diagonal order
-    (``formats/dia.py::dia_spmv``).  Its ``calls`` attribute counts calls."""
+    (``formats/dia.py::dia_spmv``), in ``promote(out, float32)`` with one
+    rounding where an operand is bfloat16.  Its ``calls`` attribute counts
+    calls."""
     dia_spmv_plain.calls += 1
-    return dia_spmv(dia, x)
+    wide = widened(dia.data, x)
+    if wide is None:
+        return dia_spmv(dia, x)
+    out, acc = wide
+    return dia_spmv(DiaMat(dia.data.to(acc), dia.offsets, dia.shape), x.to(acc)).to(out)
 
 
 dia_spmv_plain.calls = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    fn = getattr(build.load("dia_spmv"), _ENTRY[dtype])
+def _entry(form: str):
+    fn = getattr(build.load("dia_spmv"), f"sprs_dia_spmv_{form}")
     ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, ll, ll, ll, vp, i, i, i, vp]
     fn.restype = ctypes.c_int
@@ -78,11 +85,7 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
             f"dia_spmv kernel needs data and x on one CUDA device, got "
             f"{data.device} and {x.device}"
         )
-    if data.dtype not in _ENTRY or x.dtype != data.dtype:
-        raise TypeError(
-            f"dia_spmv kernel takes float32 or float64 data and x of the "
-            f"same type, got {data.dtype} and {x.dtype}"
-        )
+    form = form_of("dia_spmv", data, x)
     k = dia.n_diags
     if k > MAX_DIAGS:
         raise ShapeError(f"dia_spmv kernel takes at most {MAX_DIAGS} diagonals, got {k}")
@@ -90,12 +93,12 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
         raise ShapeError(f"dia_spmv: data {tuple(data.shape)} for {k} diagonals of {dia.shape}")
     if not (data.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_spmv kernel needs contiguous data and x")
-    y = torch.empty(dia.rows, dtype=data.dtype, device=data.device)
+    y = torch.empty(dia.rows, dtype=x.dtype, device=data.device)  # x's type in every form
     if dia.rows == 0:
         return y
     n_sm = torch.cuda.get_device_properties(data.device).multi_processor_count
     grid, block = launch_config(dia.rows, n_sm)
-    err = _entry(data.dtype)(
+    err = _entry(form)(
         data.data_ptr(),
         x.data_ptr(),
         y.data_ptr(),
@@ -110,7 +113,7 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error {err}")
-    dia_spmv_kernel.launches += 1
+    count_launch(dia_spmv_kernel, form)
     return y
 
 
@@ -118,7 +121,13 @@ def dia_vjp(dia: DiaMat, x: torch.Tensor, g: torch.Tensor):
     """(ddata, dx) for y = A @ x (x of shape (cols,) or (cols, k)):
     ddata[d, i] = Σ_c g[i, c]·x[i+off_d, c] and dx[i+off_d] += data[d, i]·g[i],
     over the zero-padded x.  The plain torch form of the JAX package's
-    ``_bwd`` for both K1 and K2."""
+    ``_bwd`` for both K1 and K2; where an operand is bfloat16 it sums in
+    ``promote(out, float32)`` and rounds once, as the forward does."""
+    wide = widened(dia.data, x)
+    if wide is not None:
+        acc = wide[1]
+        ddata, dx = dia_vjp(DiaMat(dia.data.to(acc), dia.offsets, dia.shape), x.to(acc), g.to(acc))
+        return ddata.to(dia.dtype), dx.to(x.dtype)
     gp = g.new_zeros((dia.rows_pad,) + tuple(g.shape[1:]))
     gp[: dia.rows] = g
     xp, left = _padded_x(dia, x)
@@ -163,7 +172,7 @@ def dia_spmv_kernel(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     return _DiaSpmv.apply(dia.data, x, tuple(dia.offsets), tuple(dia.shape))
 
 
-dia_spmv_kernel.launches = 0
+zero_counts(dia_spmv_kernel)
 
 
 class DiaTiledMat(DiaMat):

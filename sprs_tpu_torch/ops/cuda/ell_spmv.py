@@ -7,14 +7,17 @@ and y each cross device memory once) and how its design meets that bound.
 This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
 
 * :func:`ell_spmv_plain`, the plain torch version (``formats/ell.py::
-  ell_spmv``), used for tensors on the CPU and as the kernel's reference
-  on the card.  Its ``calls`` attribute counts calls;
+  ell_spmv``; where an operand is bfloat16, a sum over the slots in slot
+  order in ``promote(out, float32)`` with one rounding, as
+  ``forms.widened`` says), used for tensors on the CPU and as the
+  kernel's reference on the card.  Its ``calls`` attribute counts calls;
 * :func:`ell_spmv_kernel`, the wrapper: CPU tensors take the plain
-  version, CUDA tensors launch the kernel or raise — never both.  Its
-  ``launches`` attribute counts kernel launches.  Every x takes the
-  kernel: the JAX package's escapes to XLA (x above 48 MB of VMEM, a
-  backend that cannot lower the gather) are TPU limits with no
-  counterpart here;
+  version, CUDA tensors launch the kernel or raise — never both.  It
+  takes the type forms of ``forms.FORMS``.  Its ``launches`` attribute
+  counts kernel launches, and ``launches_<form>`` those of each form.
+  Every x takes the kernel: the JAX package's escapes to XLA (x above
+  48 MB of VMEM, a backend that cannot lower the gather) are TPU limits
+  with no counterpart here;
 * a ``torch.autograd.Function`` whose forward is the kernel and whose
   backward (:func:`ell_vjp`) is the plain torch form of the JAX package's
   ``_bwd``.
@@ -31,12 +34,11 @@ import torch
 from ...errors import ShapeError
 from ...formats.ell import EllMat, ell_spmv
 from . import build
+from .forms import count_launch, form_of, widened, zero_counts
 
 BLOCK = 256  # csrc/ell_spmv.cu: kThreads
 # Resident 256-thread blocks per SM at full occupancy (2048 threads).
 BLOCKS_PER_SM = 8
-
-_ENTRY = {torch.float32: "sprs_ell_spmv_f32", torch.float64: "sprs_ell_spmv_f64"}
 
 
 def group_lanes(width: int) -> int:
@@ -60,32 +62,41 @@ def launch_config(rows: int, width: int, n_sm: int) -> Tuple[int, int]:
 
 def ell_spmv_plain(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
     """The plain torch K5: one gather and a row sum, pad slots included
-    (``formats/ell.py::ell_spmv``)."""
+    (``formats/ell.py::ell_spmv``); where an operand is bfloat16, the
+    slots added in slot order in ``promote(out, float32)`` and rounded
+    once."""
     ell_spmv_plain.calls += 1
-    return ell_spmv(ell, x)
+    wide = widened(ell.data, x)
+    if wide is None:
+        return ell_spmv(ell, x)
+    if x.shape != (ell.cols,):
+        raise ShapeError(f"ell_spmv: A is {ell.shape}, x is {tuple(x.shape)}")
+    out, acc = wide
+    data, xs, idx = ell.data.to(acc), x.to(acc), ell.indices.to(torch.int64)
+    y = torch.zeros(ell.rows_pad, dtype=acc, device=x.device)
+    for s in range(ell.width):
+        y = y + data[:, s] * xs[idx[:, s]]
+    return y[: ell.rows].to(out)
 
 
 ell_spmv_plain.calls = 0
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    fn = getattr(build.load("ell_spmv"), _ENTRY[dtype])
+def _entry(form: str):
+    fn = getattr(build.load("ell_spmv"), f"sprs_ell_spmv_{form}")
     ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [vp, vp, vp, vp, ll, ll, i, i, i, i, vp]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _check(ell: EllMat, x: torch.Tensor) -> None:
+def _check(ell: EllMat, x: torch.Tensor) -> str:
     """Refuse, before any launch, the types, shapes and layouts that the
-    kernel does not take (the device is checked by :func:`_launch`)."""
+    kernel does not take (the device is checked by :func:`_launch`);
+    return the type form."""
     idx, data = ell.indices, ell.data
-    if data.dtype not in _ENTRY or x.dtype != data.dtype:
-        raise TypeError(
-            f"ell_spmv kernel takes float32 or float64 data and x of the "
-            f"same type, got {data.dtype} and {x.dtype}"
-        )
+    form = form_of("ell_spmv", data, x)
     if idx.dtype != torch.int32:
         raise TypeError(f"ell_spmv kernel takes int32 indices, got {idx.dtype}")
     if idx.ndim != 2 or data.shape != idx.shape or ell.rows_pad < ell.rows:
@@ -94,6 +105,7 @@ def _check(ell: EllMat, x: torch.Tensor) -> None:
         )
     if not (idx.is_contiguous() and data.is_contiguous() and x.is_contiguous()):
         raise ValueError("ell_spmv kernel needs contiguous indices, data and x")
+    return form
 
 
 def _launch(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
@@ -103,15 +115,15 @@ def _launch(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
             f"ell_spmv kernel needs indices, data and x on one CUDA device, got "
             f"{idx.device}, {data.device} and {x.device}"
         )
-    _check(ell, x)
-    y = torch.empty(ell.rows, dtype=data.dtype, device=data.device)
+    form = _check(ell, x)
+    y = torch.empty(ell.rows, dtype=x.dtype, device=data.device)  # x's type in every form
     if ell.rows == 0:
         return y
     if ell.cols == 0:
         return y.zero_()
     n_sm = torch.cuda.get_device_properties(data.device).multi_processor_count
     grid, block = launch_config(ell.rows, ell.width, n_sm)
-    err = _entry(data.dtype)(
+    err = _entry(form)(
         idx.data_ptr(),
         data.data_ptr(),
         x.data_ptr(),
@@ -126,7 +138,7 @@ def _launch(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
     )
     if err != 0:
         raise RuntimeError(f"ell_spmv kernel launch failed: CUDA error {err}")
-    ell_spmv_kernel.launches += 1
+    count_launch(ell_spmv_kernel, form)
     return y
 
 
@@ -134,7 +146,14 @@ def ell_vjp(ell: EllMat, x: torch.Tensor, g: torch.Tensor):
     """(ddata, dx) for y = A @ x: ddata[r, j] = g[r]·x[indices[r, j]] (the
     forward gather against the cotangent) and dx[indices[r, j]] +=
     data[r, j]·g[r] (the transpose product in scatter form), pad rows
-    taking g = 0.  The plain torch form of the JAX package's ``_bwd``."""
+    taking g = 0.  The plain torch form of the JAX package's ``_bwd``;
+    where an operand is bfloat16 it sums in ``promote(out, float32)`` and
+    rounds once, as the forward does."""
+    wide = widened(ell.data, x)
+    if wide is not None:
+        acc = wide[1]
+        ddata, dx = ell_vjp(EllMat(ell.indices, ell.data.to(acc), ell.shape), x.to(acc), g.to(acc))
+        return ddata.to(ell.dtype), dx.to(x.dtype)
     gp = g.new_zeros(ell.rows_pad)
     gp[: ell.rows] = g
     idx = ell.indices.to(torch.int64)
@@ -175,4 +194,4 @@ def ell_spmv_kernel(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
     return _EllSpmv.apply(ell.indices, ell.data, x, tuple(ell.shape))
 
 
-ell_spmv_kernel.launches = 0
+zero_counts(ell_spmv_kernel)

@@ -3,12 +3,16 @@ picks a format per matrix.  The counterpart of ``sprs_tpu/ops/prod.py``.
 
 Both storage orders reduce to two plain torch primitives:
 
-* CSR (gather form):   y = index_add(data * x[indices], row_ids)
+* CSR (gather form):   y[row_ids] += data * x[indices]
 * CSC (scatter form):  y[indices] += data * x[col_ids]
 
-Padding entries carry the row sentinel ``n_outer`` and ``data == 0``;
-torch's ``index_add_`` raises on an out-of-range id where JAX's
-``segment_sum`` drops it, so padding is masked to row 0 with a zero
+each an accumulating ``index_put_``, not ``index_add_``: on a CUDA tensor
+``index_add_`` adds with atomics in no fixed order, and two runs of one
+product differed in their last bits on the card; ``index_put_`` sorts the
+ids stably and adds each run of equal ids in one order, as
+``util.compress_coo`` does.  Padding entries carry the row sentinel
+``n_outer`` and ``data == 0``; torch raises on an out-of-range id where
+JAX's ``segment_sum`` drops it, so padding is masked to row 0 with a zero
 contribution.
 """
 
@@ -49,7 +53,7 @@ def spmv(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
         raise ShapeError(f"spmv: A is {mat.shape}, x is {tuple(x.shape)}")
     dst, contrib = _contributions(mat, x)
     y = torch.zeros(mat.rows, dtype=contrib.dtype, device=contrib.device)
-    return y.index_add_(0, dst, contrib)
+    return y.index_put_((dst,), contrib, accumulate=True)
 
 
 def spmm(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
@@ -60,7 +64,7 @@ def spmm(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros(
         (mat.rows, x.shape[1]), dtype=contrib.dtype, device=contrib.device
     )
-    return y.index_add_(0, dst, contrib)
+    return y.index_put_((dst,), contrib, accumulate=True)
 
 
 def _route(mat: CsMat) -> str:

@@ -13,7 +13,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from ..formats.csmat import CSR, CsMat, csmat
-from ..formats.util import DEFAULT_DEVICE, np_dtype
+from ..formats.util import DEFAULT_DEVICE, as_tensor
 
 
 def rand_csr(
@@ -59,11 +59,8 @@ def rand_csr(
             chosen = np.fromiter(seen, dtype=np.int64, count=k)
         chosen.sort()
         indices[indptr[r] : indptr[r + 1]] = chosen
-    dt = np_dtype(dtype)
-    if values is None:
-        data = rng.standard_normal(nnz).astype(dt)
-    else:
-        data = np.asarray(values(rng, nnz), dtype=dt)
+    raw = rng.standard_normal(nnz) if values is None else values(rng, nnz)
+    data = as_tensor(raw, dtype=dtype, device="cpu")  # torch's cast rounds as numpy's and ml_dtypes' do
     m = csmat(
         (rows, cols),
         indptr.astype(np.int32),

@@ -22,13 +22,13 @@ import torch
 from ..errors import StructureError
 from ..formats.csmat import CsMat, csmat
 from ..formats.triplet import TriMat
-from ..formats.util import DEFAULT_DEVICE, np_dtype
+from ..formats.util import DEFAULT_DEVICE, as_tensor
 
 
 def _assemble(n, rows, cols, vals, dtype, device) -> CsMat:
     rows = np.concatenate(rows)
     cols = np.concatenate(cols)
-    vals = np.concatenate(vals).astype(np_dtype(dtype))
+    vals = np.concatenate(vals)
     order = np.lexsort((cols, rows))
     rows, cols, vals = rows[order], cols[order], vals[order]
     indptr = np.zeros(n + 1, dtype=np.int64)
@@ -37,7 +37,7 @@ def _assemble(n, rows, cols, vals, dtype, device) -> CsMat:
         (n, n),
         np.cumsum(indptr).astype(np.int32),
         cols.astype(np.int32),
-        vals,
+        as_tensor(vals, dtype=dtype, device="cpu"),
         validate=False,
         device=device,
     )

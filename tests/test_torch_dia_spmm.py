@@ -135,11 +135,14 @@ def test_backward_matches_torch_autograd_of_plain():
         (64, 2048, 4, True, 16, 1),
         # the few-sources expm width (f64, 3 columns)
         (1_048_576, 3, 8, False, 396, 85),
+        # bf16 X: 8 columns a vector, runs of 2 rows; 4 tiles of 16 runs
+        (128, 128, 2, True, 4, 16),
     ],
 )
 def test_launch_config(rows, k, itemsize, vector, grid, runs):
-    """(grid, block, runs per tile): a tile is as many 4-row runs as a
-    CTA's threads cover across k; at most one wave of 3 CTAs per SM."""
+    """(grid, block, runs per tile): a tile is as many runs (4 rows, 2 for
+    bf16 vectors) as a CTA's threads cover across k; at most one wave of 3
+    CTAs per SM."""
     assert launch_config(rows, k, 132, itemsize, vector) == (grid, k2.THREADS, runs)
 
 

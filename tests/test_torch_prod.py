@@ -55,6 +55,31 @@ def test_spmv_spmm(name):
     )
 
 
+@pytest.mark.parametrize("storage", ["csr", "csc"])
+def test_index_sums_bit_equal_to_jax(storage):
+    """The CSR and CSC products and the batched product sum by an
+    accumulating ``index_put_`` (a fixed order on the card, where
+    ``index_add_``'s atomics gave other bits from run to run): on the CPU
+    the sums stay the JAX package's ``segment_sum``, bit for bit."""
+    from sprs_tpu.ops.batch import batch_spmm as jax_batch_spmm
+    from sprs_tpu.ops.batch import batch_spmv as jax_batch_spmv
+
+    d = random_sparse(300, 250, 0.1, 7)
+    m = st.from_dense(d) if storage == "csr" else st.from_dense(d).to_csc()
+    t = port_of(m)
+    rng = np.random.default_rng(8)
+    x, xm = rng.standard_normal(250), rng.standard_normal((250, 6))
+    vals = np.stack([np.asarray(m.data), 2.0 * np.asarray(m.data)])
+    xb, xmb = rng.standard_normal((2, 250)), rng.standard_normal((2, 250, 3))
+    for got, want in (
+        (stt.spmv(t, torch.from_numpy(x)), st.spmv(m, x)),
+        (stt.spmm(t, torch.from_numpy(xm)), st.spmm(m, xm)),
+        (stt.ops.batch_spmv(t, vals, xb), jax_batch_spmv(m, vals, xb)),
+        (stt.ops.batch_spmm(t, vals, xmb), jax_batch_spmm(m, vals, xmb)),
+    ):
+        np.testing.assert_array_equal(got.numpy().view(np.int64), np.asarray(want).view(np.int64))
+
+
 @pytest.mark.parametrize("ndim", [1, 2])
 def test_dense_matmul_sparse(ndim):
     m = matrices()["csr"]
