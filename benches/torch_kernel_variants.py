@@ -11,11 +11,12 @@ opcodes counted by ``cuobjdump``) and timed in one process, in two
 rounds, by the profiler's device time per launch over 30 calls, after a
 check against the plain version (K6: bit for bit).  A candidate that
 does not build is reported and left out; the committed source or the
-baseline failing to build stops the run.  K1, K2 and K5 run in each type
-form their source holds (``ops/cuda/forms.py``: float32, float64 and the
-bfloat16 forms (bf16, bf16) and (bf16, f32)); a source without a form's
-entry point (an earlier tree, the inline candidate) skips that form.
-Each build prints ptxas' registers and spills per kernel instantiation
+baseline failing to build stops the run.  K1, K2 and K5 run in the forms
+of float32 and of 16-bit storage (``ops/cuda/forms.py``: (f32, f32),
+(f64, f64) for K2 and K5, and (t, t), (t, f32) for t bf16 and f16) where
+their source holds them; a source without a form's entry point (an
+earlier tree, the inline candidate) skips that form.  Each build prints
+ptxas' registers and spills per kernel instantiation, every form's
 ("ptxas ..." lines).
 
 Run from the repository root on a machine with one H100:
@@ -177,6 +178,16 @@ __device__ __forceinline__ __nv_bfloat16 ld_keep(const __nv_bfloat16* p, unsigne
   unsigned short v;
   asm("ld.global.nc.L2::cache_hint.b16 %0, [%1], %2;" : "=h"(v) : "l"(p), "l"(pol));
   return __ushort_as_bfloat16(v);
+}
+__device__ __forceinline__ __half ld_once(const __half* p, unsigned long long pol) {
+  unsigned short v;
+  asm("ld.global.nc.L1::no_allocate.L2::cache_hint.b16 %0, [%1], %2;" : "=h"(v) : "l"(p), "l"(pol));
+  return __ushort_as_half(v);
+}
+__device__ __forceinline__ __half ld_keep(const __half* p, unsigned long long pol) {
+  unsigned short v;
+  asm("ld.global.nc.L2::cache_hint.b16 %0, [%1], %2;" : "=h"(v) : "l"(p), "l"(pol));
+  return __ushort_as_half(v);
 }
 """),
     ("  const long long n_groups = (long long)gridDim.x * blockDim.x / G;\n",
@@ -471,10 +482,14 @@ def entry(lib, kernel, data, x):
     return getattr(lib, f"sprs_{kernel}_{FORMS[(data.dtype, x.dtype)]}", None)
 
 
+def out_dtype(data, x):
+    return torch.promote_types(data.dtype, x.dtype)
+
+
 def k1_call(lib, dia, x):
     fn = entry(lib, "dia_spmv", dia.data, x)
     fn.argtypes = [VP, VP, VP, LL, LL, LL, VP, I, I, I, VP]
-    y = torch.empty(dia.rows, dtype=x.dtype, device=x.device)
+    y = torch.empty(dia.rows, dtype=out_dtype(dia.data, x), device=x.device)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     grid, block = k1.launch_config(dia.rows, n_sm)
     n = dia.n_diags
@@ -489,7 +504,7 @@ def k2_call(lib, dia, x, blocks_per_sm, run):
     fn = entry(lib, "dia_spmm", dia.data, x)
     fn.argtypes = [VP, VP, VP, LL, LL, LL, LL, VP, I, I, I, I, VP]
     k = x.shape[1]
-    y = torch.empty((dia.rows, k), dtype=x.dtype, device=x.device)
+    y = torch.empty((dia.rows, k), dtype=out_dtype(dia.data, x), device=x.device)
     runs = max(k2.THREADS // (k * x.element_size() // k2.VECTOR_BYTES), 1)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     grid = min(-(-dia.rows // (runs * run)), n_sm * blocks_per_sm)
@@ -506,7 +521,7 @@ def k5_call(lib, ell, x, layout, blocks_per_sm):
     g = k5.group_lanes(ell.width) if layout == "group" else 1
     lanes = [] if layout == "baseline" else [g]
     fn.argtypes = [VP, VP, VP, VP, LL, LL, I] + [I] * len(lanes) + [I, I, VP]
-    y = torch.empty(ell.rows, dtype=x.dtype, device=x.device)
+    y = torch.empty(ell.rows, dtype=out_dtype(ell.data, x), device=x.device)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     grid = min(-(-ell.rows // (256 // g)), n_sm * blocks_per_sm)
     err = fn(ell.indices.data_ptr(), ell.data.data_ptr(), x.data_ptr(), y.data_ptr(), ell.rows,
@@ -544,25 +559,27 @@ def k3_cases():
     return out
 
 
-def bf16_forms(label, op, x, bf16_op):
-    """The float32 case and its two bfloat16 forms on the same operand."""
-    return [(f"{label} f32", op, x), (f"{label} bf16", bf16_op, x.to(torch.bfloat16)),
-            (f"{label} bf16 data, f32 x", bf16_op, x)]
+def half_forms(label, op, x):
+    """The float32 case and the forms of 16-bit storage on the same
+    operand: (t, t) and (t, f32) for t bf16 and f16."""
+    out = [(f"{label} f32", op, x)]
+    for t, name in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        half = cs.form_op(op, t)
+        out += [(f"{label} {name}", half, x.to(t)), (f"{label} {name} data, f32 x", half, x)]
+    return out
 
 
 def k1_cases():
     lap = grid_laplacian((cs.SPMV_SIDE,) * 2, torch.float32, device="cuda")
     dia = dia_tile(lap.to_dia())
-    out = bf16_forms(f"{cs.SPMV_SIDE}^2 grid", dia, cs.rhs_block(dia.cols, 1, torch.float32, 0)[:, 0],
-                     cs.bf16_dia(dia))
+    out = half_forms(f"{cs.SPMV_SIDE}^2 grid", dia, cs.rhs_block(dia.cols, 1, torch.float32, 0)[:, 0])
     return [(label, d, x, k1.dia_spmv_plain(d, x)) for label, d, x in out]
 
 
 def k2_cases():
     lap2 = dia_tile(grid_laplacian(cs.SPMM_GRID, torch.float32, device="cuda").to_dia())
     lap = dia_tile(grid_laplacian((cs.SOLVE_SIDE,) * 2, device="cuda").to_dia())
-    out = bf16_forms("2048x1024 grid k=128", lap2, cs.rhs_block(lap2.cols, 128, torch.float32, 30),
-                     cs.bf16_dia(lap2))
+    out = half_forms("2048x1024 grid k=128", lap2, cs.rhs_block(lap2.cols, 128, torch.float32, 30))
     out += [(f"1024^2 grid f64 k={k}", lap, cs.rhs_block(lap.cols, k, torch.float64, k)) for k in (24, 48, 256)]
     return [(label, d, x, k2.dia_spmm_plain(d, x)) for label, d, x in out]
 
@@ -575,7 +592,7 @@ def k5_cases():
     x = cs.rhs_block(mesh_a.cols, 1, torch.float64, 89)[:, 0].contiguous()
     _, r8, x8 = cs.random8_operand()
     out = [(f"{cs.MESH_SIDE}^2 mesh step f64 width {ell.width}", ell, x)]
-    out += bf16_forms(f"random8 n={cs.RANDOM8_N} width {r8.width}", r8, x8, cs.bf16_ell(r8))
+    out += half_forms(f"random8 n={cs.RANDOM8_N} width {r8.width}", r8, x8)
     return [(label, e, v, k5.ell_spmv_plain(e, v)) for label, e, v in out]
 
 
@@ -602,7 +619,7 @@ def checked(name, label, kernel, call, ref, x_dtype, strict=True):
     else:
         err = float((call().float() - ref.float()).abs().max())
         rel = err / float(ref.float().abs().max())
-        ok = rel <= (cs.BF16_GATE_LIMIT if x_dtype == torch.bfloat16 else cs.GATE_LIMIT[x_dtype])
+        ok = rel <= cs.FORM_GATE_LIMIT[ref.dtype]  # ref: the plain version's output
     if not ok and strict:
         raise AssertionError(f"{name} {label}: rel {rel}")
 

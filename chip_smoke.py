@@ -41,9 +41,15 @@ and prints no result):
    above, aligned and misaligned, (bf16, bf16) bit-equal to the plain
    version and (bf16, f32) within 1e-5 of max|y|; K5 on the mesh step,
    random8 and the small odd ELLs rounded to bfloat16, within one
-   bfloat16 step (2⁻⁷ of max|y|) or 1e-5; the backwards of K1 (bf16,
+   bfloat16 step (2⁻⁷ of max|y|) or 1e-6; the backwards of K1 (bf16,
    f32), K2 (bf16, bf16) and K5 (bf16, f32) against torch's autograd of
-   the plain versions on the CPU;
+   the plain versions on the CPU; and the twelve other (data, x) forms
+   of float16, bfloat16, float32 and float64 (output promote(data, x)):
+   K1 on the random band and the 1024² grid Laplacian, K2 on both at 3
+   (scalar variant), 8, 24 and 128 RHS and on a misaligned X, K5 on the
+   small odd ELLs and random8, each bit-equal to its plain version where
+   the output is 16-bit (K5: one 16-bit step), else within 1e-6 (float32)
+   or 1e-13 (float64) of max|y|, each checking its own form's counter;
 4. timing, with CUDA events, beside each kernel's bound, its plain
    version and one library call (K2-K6 also with the profiler's device
    time per launch, ``device_ms``): K1 at the 4096×4096-grid SpMV
@@ -60,7 +66,8 @@ and prints no result):
    K1 at the 4096² grid, K2 at the 2048×1024 grid with 128 RHS and K5 at
    random8, each beside its bytes bound and ``torch.mv`` / ``torch.sparse.mm``
    on the bfloat16 CSR tensor (the row says so where torch refuses the
-   types);
+   types); the same three rows for each of the twelve other forms, y's
+   bytes in promote(data, x);
 5. main paths, each with the launch counts set to 0 just before and read
    just after:
    a. BiCGSTAB and CG at 1024² float64 through ``prepare_spmv`` and K1
@@ -167,6 +174,20 @@ and prints no result):
       ``lsolve``, each run twice on one input, bits compared (a
       difference fails the run: the index-summed products sum by an
       accumulating ``index_put_``);
+   l. float64 solvers over float32-stored and float32 solvers over
+      float16-stored operators: CG at 1024² on the Dirichlet Laplacian
+      (tol 5e-9 in f64, 1e-5 in f32) stored both ways, in turns, through
+      K1 (f32, f64) / (f16, f32) and K1 (f64) / (f32), iterations and x
+      bit-equal (the entries are exact), iters+2 launches each, profiled;
+      ``expm_multiply`` from 256 sources over the same operator through
+      K2 (f32, f64) / (f16, f32), bit-equal, one launch per SpMM; CG on
+      phase 5d's mesh step stored in float32 (f64 b) and in float16 (f32
+      b) through K5 (converged, true residual in float64 against the
+      rounded operator within 1e-8 / 1e-4 of ‖b‖, iters+2 launches,
+      iterations within 10 % of the wider-stored CG); one product per
+      remaining form on each route (the 4096² SpMV, the 128-RHS SpMM,
+      random8) against its plain version; the phase's seconds beside its
+      90 s budget;
 6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
    step against a dense solve;
    LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
@@ -182,10 +203,11 @@ and prints no result):
    the dense route and the break-even that sets
    ``AUTO_DENSE_PRODUCTS_PER_MAC``), the direct_panel line (phase 5h's
    numbers), the io and distributed lines (phases 5i and 5j), the
-   bf16_solvers line (phase 5k), the determinism line, the kernels line
-   (each bfloat16 form under its kernel's entry, in ``forms``: its time,
-   device time, bound, plain and library times, main-path launches and
-   gate error), then the last line
+   bf16_solvers and forms_solvers lines (phases 5k and 5l), the
+   determinism line, the kernels line (each form other than float32 and
+   float64 under its kernel's entry, in ``forms``: its time, device time,
+   bound and share, plain and library times or the library's refusal,
+   main-path launches and gate error), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -299,11 +321,9 @@ GATE_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-12}
 # (as the JAX package does), in another order; a bfloat16 output may
 # round to a neighbouring value: one step at the largest magnitude.
 BSR_GATE_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-5, torch.bfloat16: 2.0**-7}
-# The bfloat16 forms of K1, K2 and K5 against their plain versions: a
-# float32 output within GATE_LIMIT[float32]; a bfloat16 output of K5 within
-# one bfloat16 step at the largest magnitude (its lane tree sums in
-# another order); K1 and K2 in (bf16, bf16) bit for bit (every product is
-# exact in float32 and the sum runs in the plain version's order).
+# One bfloat16 step at the largest magnitude: K5's bfloat16 outputs
+# against their plain versions (its lane tree sums in another order) and
+# the bfloat16 gradients; FORM_GATE_LIMIT holds every form's outputs.
 BF16_GATE_LIMIT = 2.0**-7
 SOLVE_TOL = 1e-8
 SOLVE_SIDE = 1024
@@ -867,10 +887,15 @@ def timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak, **extra):
     return row
 
 
-def peak_of(x_dtype):
+def peak_of(data_dtype, x_dtype):
     """The CUDA-core peak of K1's, K2's and K5's accumulator type,
-    promote(out, float32); the output has x's type in every form."""
-    return PEAK_FLOPS[torch.promote_types(x_dtype, torch.float32)]
+    promote(out, float32), out = promote(data, x)."""
+    return PEAK_FLOPS[torch.promote_types(torch.promote_types(data_dtype, x_dtype), torch.float32)]
+
+
+def out_size(data, x):
+    """The element size of K1's, K2's and K5's output, promote(data, x)."""
+    return torch.promote_types(data.dtype, x.dtype).itemsize
 
 
 def library_time(fn, ref, reps):
@@ -890,9 +915,10 @@ def timing_spmv(label, mat, dia, x, reps):
     plain_ms = time_ms(lambda: dia_spmv_plain(dia, x), max(reps // 5, 3))
     csr = csr_twin(mat)
     library_ms, lib_err, lib_error = library_time(lambda: torch.mv(csr, x), dia_spmv_plain(dia, x), reps)
-    nbytes = dia.data.numel() * dia.data.element_size() + (x.numel() + dia.rows) * x.element_size()
+    nbytes = (dia.data.numel() * dia.data.element_size() + x.numel() * x.element_size()
+              + dia.rows * out_size(dia.data, x))
     flops = 2 * dia.n_diags * dia.rows
-    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak_of(x.dtype),
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak_of(dia.dtype, x.dtype),
                       kernel="dia_spmv", device_ms=dev_ms, library="torch.mv (CSR)",
                       library_max_abs_err=lib_err, library_error=lib_error)
 
@@ -905,10 +931,11 @@ def timing_spmm(label, mat, dia, x, reps):
     library_ms, lib_err, lib_error = library_time(lambda: torch.sparse.mm(csr, x),
                                                   dia_spmm_kernel(dia, x), reps)
     k = x.shape[1]
-    nbytes = dia.data.numel() * dia.data.element_size() + (x.numel() + dia.rows * k) * x.element_size()
+    nbytes = (dia.data.numel() * dia.data.element_size() + x.numel() * x.element_size()
+              + dia.rows * k * out_size(dia.data, x))
     flops = 2 * dia.n_diags * dia.rows * k
     kind = k2.variant(k, x.element_size(), x.data_ptr())
-    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak_of(x.dtype),
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak_of(dia.dtype, x.dtype),
                       kernel=f"dia_spmm_{kind}", device_ms=dev_ms, library="torch.sparse.mm (CSR)",
                       library_max_abs_err=lib_err, library_error=lib_error)
 
@@ -1595,14 +1622,15 @@ def timing_ell(label, mat, ell, x, reps):
     plain_ms = time_ms(lambda: ell_spmv_plain(ell, x), max(reps // 5, 3))
     csr = csr_twin(mat)
     library_ms, lib_err, lib_error = library_time(lambda: torch.mv(csr, x), ell_spmv_plain(ell, x), reps)
-    # as utils/profile.py::ell_spmv_bytes counts them, x and y in x's type
-    nbytes = ell.rows_pad * ell.width * (4 + ell.data.element_size()) + (
-        ell.cols + ell.rows_pad) * x.element_size()
+    # as utils/profile.py::ell_spmv_bytes counts them, padded rows of y
+    # included, y in promote(data, x)
+    nbytes = (ell.rows_pad * ell.width * (4 + ell.data.element_size()) + ell.cols * x.element_size()
+              + ell.rows_pad * out_size(ell.data, x))
     flops = 2 * ell.rows_pad * ell.width
     # a diagnostic beside the bound, not the bound: each gather of x (pad
     # slots included) reads one 32-byte L2 sector, whatever x's type
     sectors = ell.rows * ell.width * 32
-    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak_of(x.dtype),
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak_of(ell.dtype, x.dtype),
                       kernel="ell_spmv", device_ms=dev_ms, library="torch.mv (CSR)",
                       library_max_abs_err=lib_err, library_error=lib_error, width=ell.width,
                       gather_l2_sector_bytes=sectors)
@@ -1735,14 +1763,25 @@ def check_small_mesh():
 
 
 # ---------------------------------------------------------------------------
-# the bfloat16 forms of K1, K2 and K5, and f32 solvers over bf16-stored
-# operators (phase 5k)
+# the type forms of K1, K2 and K5 (bfloat16 first, phase 5k), and the
+# solvers over operators stored in a narrower type
 # ---------------------------------------------------------------------------
 
 BF16 = torch.bfloat16
+F16 = torch.float16
 # the forms' errors against their plain versions, by (kernel line name, form)
 FORM_ERRS = {}
-FORM_LABEL = {"bf16": "(bfloat16, bfloat16) -> bfloat16", "bf16_f32": "(bfloat16, float32) -> float32"}
+FORM_LABEL = {
+    form: f"({str(d)[6:]}, {str(x)[6:]}) -> {str(torch.promote_types(d, x))[6:]}"
+    for (d, x), form in FORMS.items()
+}
+# a form's output against its plain version's, relative to max|y|, where
+# the two may add in other orders (K5's shuffle tree; FMA contraction in
+# K1 and K2): one step of a 16-bit output at max|y|, else a few roundings
+FORM_GATE_LIMIT = {BF16: BF16_GATE_LIMIT, F16: 2.0**-10, torch.float32: 1e-6, torch.float64: 1e-13}
+# the forms phase 3 gated first: float32, float64 and PR 11's bfloat16 ones
+BASE_FORMS = ("f32", "f64", "bf16", "bf16_f32")
+NEW_FORMS = tuple(pair for pair, form in FORMS.items() if form not in BASE_FORMS)
 # CG's stop in phase 5k: in float32 at 1024² the recursive residual
 # reaches about 1e-6·‖b‖
 BF16_CG_TOL = 1e-5
@@ -1754,24 +1793,26 @@ BF16_MESH_ITERS_SLACK = 0.10
 
 
 def check_form(name, kname, kernel, y, ref, data_dtype, x_dtype, before):
-    """A bfloat16 form's output against its plain version's; the form's
-    launch counter must have moved by one."""
+    """A form's output (type promote(data, x)) against its plain
+    version's: K1 and K2 bit-equal where the output is 16-bit (the same
+    order of additions, exact or rounded products), else within
+    FORM_GATE_LIMIT; the form's launch counter must have moved by one."""
     form = FORMS[(data_dtype, x_dtype)]
+    out = torch.promote_types(data_dtype, x_dtype)
     if getattr(kernel, f"launches_{form}") != before + 1:
         raise AssertionError(f"gate {name}: the {form} form did not launch")
-    if y.dtype != x_dtype or ref.dtype != x_dtype or y.shape != ref.shape or not bool(
+    if y.dtype != out or ref.dtype != out or y.shape != ref.shape or not bool(
             torch.isfinite(y).all()):
         raise AssertionError(f"gate {name}: bad output {tuple(y.shape)} {y.dtype}")
-    err = float((y.float() - ref.float()).abs().max())
-    ref_max = float(ref.float().abs().max())
-    if form == "bf16" and kname != "ell_spmv":
-        same = torch.equal(y.view(torch.int16), ref.view(torch.int16))
+    err = float((y.double() - ref.double()).abs().max())
+    ref_max = float(ref.double().abs().max())
+    if out.itemsize == 2 and kname != "ell_spmv":
+        same = bits_equal(y, ref)
         log(f"gate {name} [{form}]: bit-equal to plain {same}, max_abs_err {err!r}")
         if not same:
-            raise AssertionError(f"gate {name}: (bf16, bf16) differs from the plain version")
+            raise AssertionError(f"gate {name}: {FORM_LABEL[form]} differs from the plain version")
     else:
-        check_rel(f"{name} [{form}]", err, ref_max,
-                  BF16_GATE_LIMIT if y.dtype == BF16 else GATE_LIMIT[torch.float32])
+        check_rel(f"{name} [{form}]", err, ref_max, FORM_GATE_LIMIT[out])
     FORM_ERRS.setdefault((kname, form), []).append(err)
     return err
 
@@ -1807,12 +1848,12 @@ def gate_ell_form(name, ell, x):
     return check_form(name, "ell_spmv", ell_spmv_kernel, y, ref, ell.dtype, x.dtype, before)
 
 
-def bf16_ell(ell):
-    return EllMat(ell.indices, ell.data.to(BF16), ell.shape)
-
-
-def bf16_dia(dia):
-    return dia_tile(type(dia)(dia.data.to(BF16), dia.offsets, dia.shape))
+def form_op(op, dtype):
+    """``op`` (a prepared DIA operand or an EllMat) with its values in
+    ``dtype``."""
+    if isinstance(op, EllMat):
+        return EllMat(op.indices, op.data.to(dtype), op.shape)
+    return dia_tile(type(op)(op.data.to(dtype), op.offsets, op.shape))
 
 
 def gate_grads_bf16():
@@ -1820,8 +1861,8 @@ def gate_grads_bf16():
     on small bfloat16 operands against torch's autograd of the plain
     versions on the CPU: ddata in bfloat16, dx in x's type, within one
     bfloat16 step or 1e-5 of their max."""
-    dia = bf16_dia(laplacian_operand(grid_laplacian((64, 64), device=DEVICE), 7)[0])
-    ell = bf16_ell(small_ells()[1][1])
+    dia = form_op(laplacian_operand(grid_laplacian((64, 64), device=DEVICE), 7)[0], BF16)
+    ell = form_op(small_ells()[1][1], BF16)
     cases = (
         ("K1", dia_spmv_kernel, dia_spmv_plain, dia, rhs_block(dia.cols, 1, torch.float32, 130)[:, 0]),
         ("K2", dia_spmm_kernel, dia_spmm_plain, dia, rhs_block(dia.cols, 24, BF16, 131)),
@@ -1858,7 +1899,7 @@ def phase_gate_bf16(lap_spmv, mesh_a, random8):
     uses (aligned and misaligned X), K5 in both forms on the small odd
     ELLs, the mesh step and random8 rounded to bfloat16, and the
     backwards."""
-    band = bf16_dia(band_dia(5000, 4803, BAND_OFFSETS, np.float32, 3))
+    band = form_op(band_dia(5000, 4803, BAND_OFFSETS, np.float32, 3), BF16)
     lap64 = grid_laplacian((64, 64), BF16, device=DEVICE)
     ops = (
         ("64x64 grid", dia_tile(lap64.to_dia())),
@@ -1870,8 +1911,8 @@ def phase_gate_bf16(lap_spmv, mesh_a, random8):
     )
     big = dia_tile(lap_spmv.astype(BF16).to_dia())
     ells = [(f"{MESH_SIDE}^2 mesh step", ell_from_csmat(mesh_a.astype(BF16))),
-            (f"random8 n={RANDOM8_N}", bf16_ell(random8[1]))]
-    ells += [(label.replace(" torch.float32", ""), bf16_ell(ell)) for label, ell, _ in small_ells()
+            (f"random8 n={RANDOM8_N}", form_op(random8[1], BF16))]
+    ells += [(label.replace(" torch.float32", ""), form_op(ell, BF16)) for label, ell, _ in small_ells()
              if ell.dtype == torch.float32]
     for xdt in (BF16, torch.float32):
         for label, dia in ops[:4] + ((f"{SPMV_SIDE}^2 grid", big),):
@@ -1920,7 +1961,7 @@ def phase_timing_bf16(lap_spmv, random8):
             f"{SPMM_GRID[0]}x{SPMM_GRID[1]} grid bfloat16 k=128, X {str(xdt)[6:]}", lap2, dia2, X.to(xdt), reps=20)
     del lap2, dia2, X
     mat = random8[0].astype(BF16)
-    ell = bf16_ell(random8[1])
+    ell = form_op(random8[1], BF16)
     for xdt in (BF16, torch.float32):
         rows[("ell_spmv", FORMS[(BF16, xdt)])] = timing_ell(
             f"random8 n={RANDOM8_N} bfloat16, x {str(xdt)[6:]}", mat, ell, random8[2].to(xdt), reps=50)
@@ -1937,22 +1978,19 @@ def form_counts(kernel, form, plain):
     return kernel.launches, getattr(kernel, f"launches_{form}"), plain.calls
 
 
-def phase_main_bf16(mesh, lap_spmv, random8):
-    """Phase 5k (see the module note).  Returns {(kernel line name, form):
-    launches} and the bf16_solvers line."""
-    t_phase = time.perf_counter()
+def cg_stored_both(tag, make, b, tol, ref_dtype, dtype):
+    """CG on ``b`` over the operator ``make(t)`` stored in ``ref_dtype``
+    and in ``dtype``, in turns (ref, new, new, ref: the second of each is
+    reported, with a profiled window), each through ``prepare_spmv`` and
+    K1 in its form (iters+2 launches of it, the plain version's calls 0).
+    The operator's entries are exact in ``dtype``, so the two must agree
+    bit for bit, x and iteration count.  Returns (row, the new form's
+    launches)."""
     side = SOLVE_SIDE
-    n = side * side
-    launches = {}
-    row = {"card_tol": BF16_CG_TOL}
-
-    # a. CG over the Dirichlet Laplacian stored in bf16 and in f32, in
-    # turns (f32, bf16, bf16, f32: the second of each is reported)
-    b = torch.from_numpy(np.random.default_rng(120).standard_normal(n).astype(np.float32)).to(DEVICE)
-    runs = {}
-    for label, dtype, form in (("float32", torch.float32, "f32"), ("bfloat16", BF16, "bf16_f32"),
-                               ("bfloat16", BF16, "bf16_f32"), ("float32", torch.float32, "f32")):
-        mat = dirichlet_laplacian((side, side), dtype, device=DEVICE)
+    row, runs, launches = {}, {}, 0
+    for stored in (ref_dtype, dtype, dtype, ref_dtype):
+        label, form = str(stored)[6:], FORMS[(stored, b.dtype)]
+        mat = make(stored)
         sync()
         t0 = time.perf_counter()
         fn, prepared = prepare_spmv(mat)
@@ -1960,19 +1998,19 @@ def phase_main_bf16(mesh, lap_spmv, random8):
         prep_s = time.perf_counter() - t0
         reset_counts()
         t0 = time.perf_counter()
-        res = cg(mat, b, tol=BF16_CG_TOL, max_iter=MAX_ITER)
+        res = cg(mat, b, tol=tol, max_iter=MAX_ITER)
         sync()
         wall = time.perf_counter() - t0
         total, mine, plain = form_counts(dia_spmv_kernel, form, dia_spmv_plain)
-        if form == "bf16_f32":
-            launches[("dia_spmv", form)] = launches.get(("dia_spmv", form), 0) + mine
-        second = label in runs
-        if second:
-            prof = profile_window(f"cg {side}^2 dirichlet stored in {label}, f32 b, {PROFILE_ITERS} "
-                                  f"iterations", lambda: cg(lambda v: fn(prepared, v), b, tol=BF16_CG_TOL,
-                                                             max_iter=PROFILE_ITERS), "dia_spmv")
+        if stored == dtype:
+            launches += mine
+        if label in runs:
+            prof = profile_window(f"cg {side}^2 dirichlet stored in {label}, {str(b.dtype)[6:]} b, "
+                                  f"{PROFILE_ITERS} iterations",
+                                  lambda: cg(lambda v: fn(prepared, v), b, tol=tol, max_iter=PROFILE_ITERS),
+                                  "dia_spmv")
             if not (res.iterations == runs[label].iterations and bits_equal(res.x, runs[label].x)):
-                raise AssertionError(f"5k cg {label}: two runs differ")
+                raise AssertionError(f"{tag} cg {label}: two runs differ")
             row[f"cg_{label}"] = {"iterations": res.iterations, "s": wall, "first_s": row.pop(label),
                                   "prepare_spmv_s": prep_s,
                                   "ms_per_iteration": wall / max(res.iterations, 1) * 1e3,
@@ -1980,26 +2018,36 @@ def phase_main_bf16(mesh, lap_spmv, random8):
         else:
             row[label] = wall
         runs[label] = res
-        log(f"5k cg {side}^2 dirichlet stored in {label}, f32 b, tol {BF16_CG_TOL}: iterations "
+        log(f"{tag} cg {side}^2 dirichlet stored in {label}, {str(b.dtype)[6:]} b, tol {tol}: iterations "
             f"{res.iterations} converged {res.converged} wall {wall!r} s "
             f"({wall / max(res.iterations, 1) * 1e3!r} ms per iteration; prepare_spmv {prep_s!r} s), "
             f"K1 launches {total} ({form} {mine}, expected {res.iterations + 2}), plain calls {plain}")
         if not res.converged or not (total == mine == res.iterations + 2) or plain != 0:
-            raise AssertionError(f"5k cg {label}: converged {res.converged}, launches {total}/{mine}, "
+            raise AssertionError(f"{tag} cg {label}: converged {res.converged}, launches {total}/{mine}, "
                                  f"plain {plain}")
-    same = runs["float32"].iterations == runs["bfloat16"].iterations and bits_equal(
-        runs["float32"].x, runs["bfloat16"].x)
-    log(f"5k cg: bf16-stored iterations and x bit-equal to the f32-stored run: {same}")
+        if res.x.dtype != b.dtype:
+            raise AssertionError(f"{tag} cg {label}: x is {res.x.dtype}, b {b.dtype}")
+        del mat, prepared
+    ref, new = runs[str(ref_dtype)[6:]], runs[str(dtype)[6:]]
+    same = ref.iterations == new.iterations and bits_equal(ref.x, new.x)
+    log(f"{tag} cg: {str(dtype)[6:]}-stored iterations and x bit-equal to the {str(ref_dtype)[6:]}-stored "
+        f"run: {same}")
     if not same:
-        raise AssertionError("5k cg: the bf16-stored run differs from the f32-stored one")
+        raise AssertionError(f"{tag} cg: the {dtype}-stored run differs from the {ref_dtype}-stored one")
+    return row, launches
 
-    # b. expm_multiply from EXPM_SOURCES sources over the grid Laplacian
-    src = np.random.default_rng(50).choice(n, EXPM_SOURCES, replace=False)
-    B = torch.zeros((n, EXPM_SOURCES), dtype=torch.float32, device=DEVICE)
-    B[torch.from_numpy(src).to(DEVICE), torch.arange(EXPM_SOURCES, device=DEVICE)] = 1.0
-    ys = {}
-    for label, dtype, form in (("float32", torch.float32, "f32"), ("bfloat16", BF16, "bf16_f32")):
-        lap = grid_laplacian((side, side), dtype, device=DEVICE)
+
+def expm_stored_both(tag, make, B, ref_dtype, dtype):
+    """``expm_multiply(A, B, t=-1)`` over ``make(t)`` stored in
+    ``ref_dtype`` and in ``dtype`` through ``prepare_spmm`` and K2's
+    vector variant: bit-equal (the entries are exact in ``dtype``), one
+    launch per SpMM (counted by a callable that computes the CsMat path's
+    substeps, 2A with t/2, term for term), the plain version's calls 0,
+    column sums in (0, 1].  Returns (row, the new form's launches)."""
+    row, ys = {}, {}
+    for stored in (ref_dtype, dtype):
+        label, form = str(stored)[6:], FORMS[(stored, B.dtype)]
+        lap = make(stored)
         sync()
         reset_counts()
         t0 = time.perf_counter()
@@ -2008,91 +2056,264 @@ def phase_main_bf16(mesh, lap_spmv, random8):
         wall = time.perf_counter() - t0
         total, mine, plain = form_counts(dia_spmm_kernel, form, dia_spmm_plain)
         vector = dia_spmm_kernel.launches_vector
-        if form == "bf16_f32":
-            launches[("dia_spmm_vector", form)] = mine
+        if stored == dtype:
+            launches = mine
             fn, prepared = prepare_spmm(lap)
             spmms = [0]
 
-            def op(v):  # 2A with t/2: the CsMat path's substeps, term for term (check_expm)
+            def op(v):
                 spmms[0] += 1
                 return 2.0 * fn(prepared, v)
 
             same_ref = bits_equal(expm_multiply(op, B, t=-0.5), ys[label])
         row[f"expm_{label}"] = {"s": wall, "launches": total}
-        log(f"5k expm_multiply {side}^2 grid stored in {label}, {EXPM_SOURCES} f32 sources: wall "
-            f"{wall!r} s, K2 launches {total} ({form} {mine}, vector {vector}), plain calls {plain}")
+        log(f"{tag} expm_multiply {SOLVE_SIDE}^2 stored in {label}, {B.shape[1]} {str(B.dtype)[6:]} "
+            f"sources: wall {wall!r} s, K2 launches {total} ({form} {mine}, vector {vector}), plain calls "
+            f"{plain}")
         if not (total == mine == vector > 0) or plain != 0:
-            raise AssertionError(f"5k expm {label}: launches {total}/{mine}/{vector}, plain {plain}")
-    col_sums = ys["bfloat16"].sum(0)
-    same = bits_equal(ys["float32"], ys["bfloat16"])
-    log(f"5k expm: bf16-stored bit-equal to the f32-stored call {same}; SpMMs by a counting "
-        f"callable {spmms[0]} (bit-equal {same_ref}) against {launches[('dia_spmm_vector', 'bf16_f32')]} "
-        f"K2 launches")
-    if not (same and same_ref and spmms[0] == launches[("dia_spmm_vector", "bf16_f32")]):
-        raise AssertionError("5k expm: not bit-equal, or not one launch per SpMM")
+            raise AssertionError(f"{tag} expm {label}: launches {total}/{mine}/{vector}, plain {plain}")
+        del lap
+    new = ys[str(dtype)[6:]]
+    col_sums = new.sum(0)
+    same = bits_equal(ys[str(ref_dtype)[6:]], new)
+    log(f"{tag} expm: {str(dtype)[6:]}-stored bit-equal to the {str(ref_dtype)[6:]}-stored call {same}; "
+        f"SpMMs by a counting callable {spmms[0]} (bit-equal {same_ref}) against {launches} K2 launches")
+    if not (same and same_ref and spmms[0] == launches):
+        raise AssertionError(f"{tag} expm: not bit-equal, or not one launch per SpMM")
     if not bool(((col_sums > 0) & (col_sums <= 1.0 + 1e-6)).all()):
-        raise AssertionError("5k expm: column sums outside (0, 1]")
+        raise AssertionError(f"{tag} expm: column sums outside (0, 1]")
+    return row, launches
 
-    # c. CG on the mesh step rounded to bf16, through the ELL arm and K5
-    a16 = mesh["a"].astype(BF16)
-    b32 = mesh["b"].to(torch.float32)
+
+def mesh_cg_stored(tag, mesh, dtype, ref_dtype, b_dtype, tol, residual):
+    """CG on phase 5d's mesh step stored in ``dtype`` (its values rounded)
+    with ``b`` in ``b_dtype``, through the ELL arm of ``prepare_spmv``
+    and K5 in that form: converged, iters+2 launches, the plain version's
+    calls 0, the true residual (in float64, against the rounded operator)
+    within ``residual``·‖b‖, and the iterations within
+    BF16_MESH_ITERS_SLACK of the same CG over the step stored in
+    ``ref_dtype``.  Returns (row, launches)."""
+    form = FORMS[(dtype, b_dtype)]
+    a = mesh["a"].astype(dtype)
+    b = mesh["b"].to(b_dtype)
     sync()
     t0 = time.perf_counter()
-    fn, prepared = prepare_spmv(a16)
+    fn, prepared = prepare_spmv(a)
     sync()
     prep_s = time.perf_counter() - t0
     if ROUTE_OF[type(prepared).__name__] != "ell" or prepared.width != 7:
-        raise AssertionError(f"5k mesh step routed to {type(prepared).__name__}")
+        raise AssertionError(f"{tag} mesh step routed to {type(prepared).__name__}")
     reset_counts()
     t0 = time.perf_counter()
-    res = cg(a16, b32, tol=BF16_CG_TOL, max_iter=MAX_ITER)
+    res = cg(a, b, tol=tol, max_iter=MAX_ITER)
     sync()
     wall = time.perf_counter() - t0
-    total, mine, plain = form_counts(ell_spmv_kernel, "bf16_f32", ell_spmv_plain)
-    launches[("ell_spmv", "bf16_f32")] = mine
-    a64 = a16.astype(torch.float64)
-    b_norm = float(torch.linalg.vector_norm(b32.double()))
-    true_res = float(torch.linalg.vector_norm(b32.double() - spmv(a64, res.x.double())))
-    ref = cg(mesh["a"].astype(torch.float32), b32, tol=BF16_CG_TOL, max_iter=MAX_ITER)
-    row["cg_mesh"] = {"iterations": res.iterations, "f32_stored_iterations": ref.iterations, "s": wall,
-                      "prepare_spmv_s": prep_s, "true_residual_rel": true_res / b_norm}
-    log(f"5k cg mesh {MESH_SIDE}^2 step stored in bfloat16, f32 b: iterations {res.iterations} "
-        f"converged {res.converged} wall {wall!r} s (prepare_spmv {prep_s!r} s), true residual "
-        f"{true_res / b_norm!r} of ||b|| (limit {BF16_MESH_RESIDUAL}), K5 launches {total} (bf16_f32 "
-        f"{mine}, expected {res.iterations + 2}), plain calls {plain}; f32-stored CG "
+    total, mine, plain = form_counts(ell_spmv_kernel, form, ell_spmv_plain)
+    b_norm = float(torch.linalg.vector_norm(b.double()))
+    true_res = float(torch.linalg.vector_norm(b.double() - spmv(a.astype(torch.float64), res.x.double())))
+    ref = cg(mesh["a"].astype(ref_dtype), b, tol=tol, max_iter=MAX_ITER)
+    row = {"iterations": res.iterations, f"{str(ref_dtype)[6:]}_stored_iterations": ref.iterations,
+           "s": wall, "prepare_spmv_s": prep_s, "true_residual_rel": true_res / b_norm}
+    log(f"{tag} cg mesh {MESH_SIDE}^2 step stored in {str(dtype)[6:]}, {str(b_dtype)[6:]} b: iterations "
+        f"{res.iterations} converged {res.converged} wall {wall!r} s (prepare_spmv {prep_s!r} s), true "
+        f"residual {true_res / b_norm!r} of ||b|| (limit {residual}), K5 launches {total} ({form} {mine}, "
+        f"expected {res.iterations + 2}), plain calls {plain}; {str(ref_dtype)[6:]}-stored CG "
         f"{ref.iterations} iterations")
-    if not (res.converged and true_res <= BF16_MESH_RESIDUAL * b_norm):
-        raise AssertionError(f"5k cg mesh: converged {res.converged}, true residual {true_res}")
+    if not (res.converged and true_res <= residual * b_norm) or res.x.dtype != b_dtype:
+        raise AssertionError(f"{tag} cg mesh: converged {res.converged}, true residual {true_res}")
     if not (total == mine == res.iterations + 2) or plain != 0:
-        raise AssertionError(f"5k cg mesh: launches {total}/{mine}, plain {plain}")
+        raise AssertionError(f"{tag} cg mesh: launches {total}/{mine}, plain {plain}")
     if abs(res.iterations - ref.iterations) > BF16_MESH_ITERS_SLACK * ref.iterations:
-        raise AssertionError(f"5k cg mesh: {res.iterations} iterations against {ref.iterations}")
-    del a16, a64
+        raise AssertionError(f"{tag} cg mesh: {res.iterations} iterations against {ref.iterations}")
+    return row, mine
 
-    # d. one (bf16, bf16) product on each route
+
+def route_products(tag, pairs, lap_spmv, random8):
+    """One product per (data, x) pair in ``pairs`` on each route at phase
+    4's full shapes, through ``prepare_spmv`` / ``prepare_spmm``: the
+    4096² SpMV (K1), the 128-RHS SpMM on the 2048×1024 grid (K2's vector
+    variant) and random8 (K5), each against its plain version.  Returns
+    {(kernel line name, form): launches}."""
+    launches = {}
     for kname, kernel, plain_fn, make, route in (
-        ("dia_spmv", dia_spmv_kernel, dia_spmv_plain, lambda: lap_spmv.astype(BF16), "spmv"),
+        ("dia_spmv", dia_spmv_kernel, dia_spmv_plain, lambda t: lap_spmv.astype(t), "spmv"),
         ("dia_spmm_vector", dia_spmm_kernel, dia_spmm_plain,
-         lambda: grid_laplacian(SPMM_GRID, BF16, device=DEVICE), "spmm"),
-        ("ell_spmv", ell_spmv_kernel, ell_spmv_plain, lambda: random8[0].astype(BF16), "spmv"),
+         lambda t: grid_laplacian(SPMM_GRID, t, device=DEVICE), "spmm"),
+        ("ell_spmv", ell_spmv_kernel, ell_spmv_plain, lambda t: random8[0].astype(t), "spmv"),
     ):
-        mat = make()
-        fn, prepared = (prepare_spmv if route == "spmv" else prepare_spmm)(mat)
-        x = rhs_block(mat.cols, 128 if route == "spmm" else 1, BF16, 136)
-        x = x if route == "spmm" else x[:, 0].contiguous()
-        sync()
-        reset_counts()
-        y = fn(prepared, x)
-        sync()
-        total, mine, plain = form_counts(kernel, "bf16", plain_fn)
-        launches[(kname, "bf16")] = mine
-        if not (total == mine == 1) or plain != 0:
-            raise AssertionError(f"5k {kname} (bf16, bf16): launches {total}/{mine}, plain {plain}")
-        check_form(f"5k {kname} {type(prepared).__name__} {tuple(mat.shape)}", kname, kernel, y,
-                   plain_fn(prepared, x), BF16, BF16, mine - 1)
-        del mat, prepared
+        for data_dtype in dict.fromkeys(d for d, _ in pairs):
+            mat = make(data_dtype)
+            fn, prepared = (prepare_spmv if route == "spmv" else prepare_spmm)(mat)
+            gen = torch.Generator(device=DEVICE).manual_seed(136)
+            x64 = torch.randn((mat.cols, 128) if route == "spmm" else (mat.cols,), generator=gen,
+                              device=DEVICE, dtype=torch.float64)
+            for x_dtype in (x for d, x in pairs if d == data_dtype):
+                form = FORMS[(data_dtype, x_dtype)]
+                x = x64.to(x_dtype)
+                sync()
+                reset_counts()
+                y = fn(prepared, x)
+                sync()
+                total, mine, plain = form_counts(kernel, form, plain_fn)
+                launches[(kname, form)] = mine
+                if not (total == mine == 1) or plain != 0:
+                    raise AssertionError(f"{tag} {kname} {form}: launches {total}/{mine}, plain {plain}")
+                check_form(f"{tag} {kname} {type(prepared).__name__} {tuple(mat.shape)}", kname, kernel, y,
+                           plain_fn(prepared, x), data_dtype, x_dtype, mine - 1)
+            del mat, prepared, x64
+    return launches
+
+
+def phase_main_bf16(mesh, lap_spmv, random8):
+    """Phase 5k (see the module note).  Returns {(kernel line name, form):
+    launches} and the bf16_solvers line."""
+    t_phase = time.perf_counter()
+    n = SOLVE_SIDE * SOLVE_SIDE
+    row = {"card_tol": BF16_CG_TOL}
+    # a. CG over the Dirichlet Laplacian stored in bf16 and in f32
+    b = torch.from_numpy(np.random.default_rng(120).standard_normal(n).astype(np.float32)).to(DEVICE)
+    cg_row, k1 = cg_stored_both("5k", lambda t: dirichlet_laplacian((SOLVE_SIDE,) * 2, t, device=DEVICE),
+                                b, BF16_CG_TOL, torch.float32, BF16)
+    row.update(cg_row)
+    launches = {("dia_spmv", "bf16_f32"): k1}
+    # b. expm_multiply from EXPM_SOURCES sources over the grid Laplacian
+    src = np.random.default_rng(50).choice(n, EXPM_SOURCES, replace=False)
+    B = torch.zeros((n, EXPM_SOURCES), dtype=torch.float32, device=DEVICE)
+    B[torch.from_numpy(src).to(DEVICE), torch.arange(EXPM_SOURCES, device=DEVICE)] = 1.0
+    expm_row, launches[("dia_spmm_vector", "bf16_f32")] = expm_stored_both(
+        "5k", lambda t: grid_laplacian((SOLVE_SIDE,) * 2, t, device=DEVICE), B, torch.float32, BF16)
+    row.update(expm_row)
+    # c. CG on the mesh step rounded to bf16, through the ELL arm and K5
+    row["cg_mesh"], launches[("ell_spmv", "bf16_f32")] = mesh_cg_stored(
+        "5k", mesh, BF16, torch.float32, torch.float32, BF16_CG_TOL, BF16_MESH_RESIDUAL)
+    # d. one (bf16, bf16) product on each route
+    launches.update(route_products("5k", [(BF16, BF16)], lap_spmv, random8))
     row["phase_s"] = time.perf_counter() - t_phase
     log(f"5k: {row['phase_s']!r} s")
+    return launches, row
+
+
+# ---------------------------------------------------------------------------
+# every other (data, x) pair of f16, bf16, f32 and f64 through K1, K2 and
+# K5, and f64 solvers over f32-stored, f32 solvers over f16-stored
+# operators (phase 5l)
+# ---------------------------------------------------------------------------
+
+# f64 CG over an f32-stored operator stops where phases 5i and 5j do;
+# f32 CG over an f16-stored one where phase 5k does
+FORMS_CG_TOL = {torch.float64: CG_TOL, torch.float32: BF16_CG_TOL}
+FORMS_MESH_RESIDUAL = {torch.float64: SOLVE_TOL, torch.float32: BF16_MESH_RESIDUAL}
+FORMS_PHASE_BUDGET_S = 90.0  # phase 5l's share of the script's time, recorded beside its seconds
+
+
+def phase_gate_forms(random8):
+    """Phase 3's gates of the twelve forms of NEW_FORMS, each against its
+    plain version: K1 on the random band and the 1024² grid Laplacian; K2
+    on both at RHS widths 3 (scalar variant), 8, 24 and 128 (vector), and
+    at 24 on an X off a 16-byte boundary (scalar); K5 on the small odd
+    ELLs and random8.  Each gate checks its own form's counter."""
+    t0 = time.perf_counter()
+    band = band_dia(5000, 4803, BAND_OFFSETS, np.float64, 3)
+    grid = dia_tile(grid_laplacian((SOLVE_SIDE,) * 2, device=DEVICE).to_dia())
+    ells = [(f"random8 n={RANDOM8_N}", random8[1])]
+    ells += [(label.replace(" torch.float32", ""), ell) for label, ell, _ in small_ells()
+             if ell.dtype == torch.float32]
+    gen = torch.Generator(device=DEVICE).manual_seed(138)
+    # one block of the widest RHS per operand, drawn on the card, whose
+    # leading columns give every width
+    ops = [(label, dia, torch.randn((dia.cols, 128), generator=gen, device=DEVICE, dtype=torch.float64))
+           for label, dia in ((f"band 5000x4803 {BAND_OFFSETS}", band), (f"{SOLVE_SIDE}^2 grid", grid))]
+    for data_dtype, x_dtype in NEW_FORMS:
+        for label, dia, block in ops:
+            op = form_op(dia, data_dtype)
+            gate_spmv_form(f"K1 {label}", op, block[:, 0].to(x_dtype).contiguous())
+            for k in (3, 8, 24, 128):
+                gate_spmm_form(f"K2 {label} k={k}", op, block[:, :k].to(x_dtype).contiguous())
+        gate_spmm_form(f"K2 {label} k=24 misaligned X", op,
+                       misaligned_copy(block[:, :24].to(x_dtype).contiguous()))
+        for label, ell in ells:
+            x = torch.randn(ell.cols, generator=gen, device=DEVICE, dtype=torch.float64).to(x_dtype)
+            gate_ell_form(f"K5 {label}", form_op(ell, data_dtype), x)
+    log(f"gate forms: {len(NEW_FORMS)} forms in {time.perf_counter() - t0!r} s")
+
+
+def phase_timing_forms(lap_spmv, random8):
+    """Phase 4's rows of the twelve forms of NEW_FORMS beside the float32
+    and bfloat16 rows: K1 at the 4096² grid, K2 at the 2048×1024 grid with
+    128 RHS, K5 at random8, each with its bytes bound and the library
+    call on the CSR tensor of the data's type (or the message where torch
+    refuses the types).  Returns {(kernel line name, form): row}."""
+    t0 = time.perf_counter()
+    rows = {}
+    data_dtypes = dict.fromkeys(d for d, _ in NEW_FORMS)
+    # phase 4's float32 x (laplacian_operand's), in each x type
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(lap_spmv.cols)).to(DEVICE)
+    for data_dtype in data_dtypes:
+        lap = lap_spmv.astype(data_dtype)
+        dia = dia_tile(lap.to_dia())
+        for d, xdt in NEW_FORMS:
+            if d == data_dtype:
+                rows[("dia_spmv", FORMS[(d, xdt)])] = timing_spmv(
+                    f"{SPMV_SIDE}^2 grid {FORM_LABEL[FORMS[(d, xdt)]]}", lap, dia, x.to(xdt), reps=50)
+        del lap, dia
+    del x
+    gen = torch.Generator(device=DEVICE).manual_seed(30)
+    X = torch.randn((SPMM_GRID[0] * SPMM_GRID[1], 128), generator=gen, device=DEVICE, dtype=torch.float64)
+    for data_dtype in data_dtypes:
+        lap2 = grid_laplacian(SPMM_GRID, data_dtype, device=DEVICE)
+        dia2 = dia_tile(lap2.to_dia())
+        for d, xdt in NEW_FORMS:
+            if d == data_dtype:
+                rows[("dia_spmm_vector", FORMS[(d, xdt)])] = timing_spmm(
+                    f"{SPMM_GRID[0]}x{SPMM_GRID[1]} grid k=128 {FORM_LABEL[FORMS[(d, xdt)]]}", lap2, dia2,
+                    X.to(xdt), reps=20)
+        del lap2, dia2
+    del X
+    for data_dtype in data_dtypes:
+        mat = random8[0].astype(data_dtype)
+        ell = form_op(random8[1], data_dtype)
+        for d, xdt in NEW_FORMS:
+            if d == data_dtype:
+                rows[("ell_spmv", FORMS[(d, xdt)])] = timing_ell(
+                    f"random8 n={RANDOM8_N} {FORM_LABEL[FORMS[(d, xdt)]]}", mat, ell, random8[2].to(xdt),
+                    reps=50)
+        del mat, ell
+    log(f"timing forms: {len(rows)} rows in {time.perf_counter() - t0!r} s")
+    return rows
+
+
+def phase_main_forms(mesh, lap_spmv, random8):
+    """Phase 5l (see the module note).  Returns {(kernel line name, form):
+    launches} and the forms_solvers line."""
+    t_phase = time.perf_counter()
+    n = SOLVE_SIDE * SOLVE_SIDE
+    dirichlet = lambda t: dirichlet_laplacian((SOLVE_SIDE,) * 2, t, device=DEVICE)  # noqa: E731
+    row = {"card_tol": {str(t)[6:]: tol for t, tol in FORMS_CG_TOL.items()}}
+    launches = {}
+    src = np.random.default_rng(51).choice(n, EXPM_SOURCES, replace=False)
+    B = torch.zeros((n, EXPM_SOURCES), dtype=torch.float64, device=DEVICE)
+    B[torch.from_numpy(src).to(DEVICE), torch.arange(EXPM_SOURCES, device=DEVICE)] = 1.0
+    # a-c: float64 vectors over float32 storage; d: float32 over float16
+    for tag, vec, ref_dtype, dtype, seed in (("5l f64/f32", torch.float64, torch.float64, torch.float32, 140),
+                                             ("5l f32/f16", torch.float32, torch.float32, F16, 141)):
+        form = FORMS[(dtype, vec)]
+        b = torch.from_numpy(np.random.default_rng(seed).standard_normal(n)).to(DEVICE, vec)
+        part = {}
+        cg_row, launches[("dia_spmv", form)] = cg_stored_both(tag, dirichlet, b, FORMS_CG_TOL[vec],
+                                                              ref_dtype, dtype)
+        part.update(cg_row)
+        expm_row, launches[("dia_spmm_vector", form)] = expm_stored_both(tag, dirichlet, B.to(vec),
+                                                                         ref_dtype, dtype)
+        part.update(expm_row)
+        part["cg_mesh"], launches[("ell_spmv", form)] = mesh_cg_stored(
+            tag, mesh, dtype, ref_dtype, vec, FORMS_CG_TOL[vec], FORMS_MESH_RESIDUAL[vec])
+        row[f"{str(vec)[6:]}_over_{str(dtype)[6:]}"] = part
+    # e. one product per remaining pair on each route
+    rest = [pair for pair in NEW_FORMS if FORMS[pair] not in ("f32_f64", "f16_f32")]
+    launches.update(route_products("5l", rest, lap_spmv, random8))
+    row["phase_s"] = time.perf_counter() - t_phase
+    row["phase_budget_s"] = FORMS_PHASE_BUDGET_S
+    log(f"5l: {row['phase_s']!r} s (budget {FORMS_PHASE_BUDGET_S} s)")
     return launches, row
 
 
@@ -3390,7 +3611,9 @@ def main() -> int:
     errs.update(phase_gate_unstructured(mesh_a, random8))
     timing.update(phase_timing_unstructured(mesh_a, random8))
     phase_gate_bf16(lap_spmv, mesh_a, random8)
+    phase_gate_forms(random8)
     form_rows = phase_timing_bf16(lap_spmv, random8)
+    form_rows.update(phase_timing_forms(lap_spmv, random8))
     del mesh_a  # random8 stays for phase 5k
 
     check_small_against_dense()
@@ -3405,10 +3628,13 @@ def main() -> int:
     launches["sort_rows"] = phase_main_sort()
     form_launches, bf16_row = phase_main_bf16(mesh, lap_spmv, random8)
     bf16_row["card"] = smi
+    more, forms_row = phase_main_forms(mesh, lap_spmv, random8)
+    forms_row["card"] = smi
+    form_launches.update(more)
     del random8
     for (kname, form), n in form_launches.items():
         if n == 0:
-            raise AssertionError(f"phase 5k launched no {kname} kernel in its {form} form")
+            raise AssertionError(f"phases 5k-5l launched no {kname} kernel in its {form} form")
         launches[kname] += n
     determinism = phase_determinism(mesh)
     for kname, n in phase_eigen_checks().items():
@@ -3477,7 +3703,7 @@ def main() -> int:
             {"form": FORM_LABEL[form], "launches": form_launches[(kname, form)],
              "max_abs_err": max(FORM_ERRS[(kname, form)]),
              **{key: frow[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                           "library_ms", "library_error")}}
+                                           "roofline_share", "library_ms", "library_error")}}
             for (k, form), frow in form_rows.items() if k == kname
         ]
         if forms:
@@ -3487,6 +3713,7 @@ def main() -> int:
     print(json.dumps({"io": io_row}))
     print(json.dumps({"distributed": dist_row}))
     print(json.dumps({"bf16_solvers": bf16_row}))
+    print(json.dumps({"forms_solvers": forms_row}))
     print(json.dumps({"determinism": determinism, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(

@@ -5,10 +5,13 @@
 // with x[j] read as 0 outside [0, cols).  The sum runs over the diagonals
 // in storage order, from 0, in Acc = promote(out, f32), and is rounded
 // once to the output type out = promote(data, x), as the Pallas kernels
-// do.  Four forms (data, x) -> y: (f32, f32) -> f32 and (f64, f64) -> f64;
-// (bf16, bf16) -> bf16 and (bf16, f32) -> f32, both with Acc = f32.  A
-// product of two bf16 values is exact in f32, so the (bf16, bf16) form
-// equals its plain version bit for bit.
+// do.  Sixteen forms (data, x), every pair of f16, bf16, f32 and f64:
+// Acc is f64 where either is f64, else f32.  (f16, f16) alone rounds each
+// product to f16 before adding it (Mul), as the Pallas kernels' f16
+// products are rounded; a product of two f16 values is exact in f32, so
+// that is the correctly rounded f16 product.  A product of two bf16
+// values is exact in f32, so the (bf16, bf16) and (f16, f16) forms equal
+// their plain versions bit for bit.
 //
 // Replaces the TPU kernel family of sprs_tpu/ops/pallas/dia_spmv.py:
 // _dia_spmv_flatg (the prepared path), _dia_spmv_pallas ("lag" and
@@ -21,7 +24,7 @@
 // Bound: bytes.  One call must move k * n * sizeof(data) + n * (sizeof(x)
 // + sizeof(y)) bytes: the k diagonals once, x once, y once (k = 5,
 // n = 16.8M, f32: 470 MB, about 140 us at 3.35 TB/s; bf16: half that),
-// against 2 * k * n flops.  Design: one thread per
+// against 2 * k * n flops; bytes bound every form.  Design: one thread per
 // row in a grid-stride loop, so a warp reads 32 consecutive entries of
 // each diagonal and 32 consecutive entries of x for each offset -- every
 // load is coalesced.  x is read k times by the kernel but k - 1 of those
@@ -29,12 +32,15 @@
 // so device memory sees it about once.  No shared-memory window, hence no
 // limit on the bandwidth |off|.  Offsets arrive by value in a fixed
 // struct (kernel parameter space), at most kMaxDiags of them.  Index math
-// is 64-bit: d * rows_pad overflows int32 for large k * n.  A bf16 form
-// loads 2 bytes per thread per diagonal; a __nv_bfloat162 pair per thread
-// is the next step if that leaves it far from its bound.
+// is 64-bit: d * rows_pad overflows int32 for large k * n.  A 16-bit form
+// loads 2 bytes per thread per diagonal; a pair per thread (__half2,
+// __nv_bfloat162) is the next step if that leaves it far from its bound.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -45,8 +51,9 @@ struct DiaOffsets {
   int off[kMaxDiags];
 };
 
-// A stored type to and from its accumulator; bf16 by the intrinsics, whose
-// rounding (to nearest even) is that of torch's and XLA's casts.
+// A stored type to and from its accumulator; bf16 and f16 by the
+// intrinsics, whose rounding (to nearest even) is that of torch's and
+// XLA's casts.
 template <typename T>
 struct Cvt {
   __device__ static T in(T v) { return v; }
@@ -57,6 +64,22 @@ struct Cvt<__nv_bfloat16> {
   __device__ static float in(__nv_bfloat16 v) { return __bfloat162float(v); }
   __device__ static __nv_bfloat16 out(float v) { return __float2bfloat16_rn(v); }
 };
+template <>
+struct Cvt<__half> {
+  __device__ static float in(__half v) { return __half2float(v); }
+  __device__ static __half out(float v) { return __float2half_rn(v); }
+};
+
+// The product a * b of two values already in Acc, as the form takes it:
+// for (f16, f16) rounded to f16 and back, else in Acc.
+template <typename TD, typename TX, typename Acc>
+__device__ __forceinline__ Acc mul(Acc a, Acc b) {
+  if constexpr (std::is_same_v<TD, __half> && std::is_same_v<TX, __half>) {
+    return __half2float(__float2half_rn(a * b));
+  } else {
+    return a * b;
+  }
+}
 
 template <typename TD, typename TX, typename TY, typename Acc>
 __global__ void dia_spmv_kernel(const TD* __restrict__ data,
@@ -70,8 +93,8 @@ __global__ void dia_spmv_kernel(const TD* __restrict__ data,
     for (int d = 0; d < offs.k; ++d) {
       const long long j = i + offs.off[d];
       if (j >= 0 && j < cols) {
-        acc += (Acc)Cvt<TD>::in(data[(long long)d * rows_pad + i]) *
-               (Acc)Cvt<TX>::in(x[j]);
+        acc += mul<TD, TX, Acc>((Acc)Cvt<TD>::in(data[(long long)d * rows_pad + i]),
+                                (Acc)Cvt<TX>::in(x[j]));
       }
     }
     y[i] = Cvt<TY>::out(acc);
@@ -94,9 +117,9 @@ int launch(const void* data, const void* x, void* y, long long rows,
 }  // namespace
 
 // Plain C interface, bound with ctypes: one entry per form (data, x),
-// named by it (f32, f64, bf16 for (bf16, bf16), bf16_f32 for bf16 data
-// and f32 x).  ``offsets`` is a host array of k ints.  Returns
-// cudaGetLastError() after the launch (0 on success).
+// named sprs_dia_spmv_<data>_<x>, or sprs_dia_spmv_<t> where both are t
+// (ops/cuda/forms.py::FORMS).  ``offsets`` is a host array of k ints.
+// Returns cudaGetLastError() after the launch (0 on success).
 #define SPRS_DIA_SPMV_ENTRY(NAME, TD, TX, TY, ACC)                              \
   extern "C" int NAME(const void* data, const void* x, void* y, long long rows, \
                       long long cols, long long rows_pad, const int* offsets,   \
@@ -105,7 +128,21 @@ int launch(const void* data, const void* x, void* y, long long rows,
                                    k, grid, block, stream);                     \
   }
 
+#define F16 __half
+#define BF16 __nv_bfloat16
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f16, F16, F16, F16, float)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f16_bf16, F16, BF16, float, float)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f16_f32, F16, float, float, float)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f16_f64, F16, double, double, double)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_bf16_f16, BF16, F16, float, float)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_bf16, BF16, BF16, BF16, float)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_bf16_f32, BF16, float, float, float)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_bf16_f64, BF16, double, double, double)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f32_f16, float, F16, float, float)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f32_bf16, float, BF16, float, float)
 SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f32, float, float, float, float)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f32_f64, float, double, double, double)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f64_f16, double, F16, double, double)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f64_bf16, double, BF16, double, double)
+SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f64_f32, double, float, double, double)
 SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f64, double, double, double, double)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_bf16, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16, float)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_bf16_f32, __nv_bfloat16, float, float, float)

@@ -6,12 +6,14 @@
 // pad slots included (index 0, data 0: they add 0 * x[0], as the plain
 // torch version does, so a non-finite x[0] gives the same result in both).
 // Products and sums are taken in Acc = promote(out, f32), out =
-// promote(data, x), and rounded once to out.  Four forms (data, x) -> y:
-// (f32, f32) -> f32 and (f64, f64) -> f64; (bf16, bf16) -> bf16 and
-// (bf16, f32) -> f32, both with Acc = f32 (the first is the Pallas
-// kernel's, the second what the JAX package's prepare_spmv ELL arm
-// computes).  An index outside [0, cols) is clamped into range, so no
-// operand can make a read leave x.
+// promote(data, x), and rounded once to out.  Sixteen forms (data, x),
+// every pair of f16, bf16, f32 and f64: Acc is f64 where either is f64,
+// else f32; (f16, f16) alone rounds each product to f16 before adding it
+// (Mul), as the Pallas kernel's f16 products are rounded.  The Pallas
+// kernel takes the ten pairs whose promotion is the data's type (its
+// output has the data's type); the other six are what the JAX package's
+// prepare_spmv ELL arm computes, in XLA.  An index outside [0, cols) is
+// clamped into range, so no operand can make a read leave x.
 //
 // Replaces the TPU kernel sprs_tpu/ops/pallas/spmv.py::_ell_spmv_pallas
 // (body _kernel).  That kernel keeps x resident in VMEM and streams
@@ -36,8 +38,8 @@
 //   lane issues its gather at once, and a shuffle tree of log2(G) steps
 //   sums the row.  The tree sums in
 //   another order than the plain version's row sum: the results agree to
-//   rounding (1e-5 of max|y| for an f32 output, 1e-12 for f64, one bf16
-//   step, 2^-7 of max|y|, for a bf16 output);
+//   rounding (1e-5 of max|y| for an f32 output, 1e-12 for f64, one step
+//   of a 16-bit output: 2^-7 of max|y| for bf16, 2^-10 for f16);
 // - a group takes one row per pass of its grid-stride loop and the grid
 //   is one wave at full occupancy (32 registers, 8 blocks of 256 per SM):
 //   2048 gathers in flight per SM keep L2 busy.  Cache policies that keep
@@ -47,14 +49,18 @@
 // Index math is 64-bit: rows * width overflows int32 above 2^31 slots.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kThreads = 256;
 
-// A stored type to and from its accumulator; bf16 by the intrinsics, whose
-// rounding (to nearest even) is that of torch's and XLA's casts.
+// A stored type to and from its accumulator; bf16 and f16 by the
+// intrinsics, whose rounding (to nearest even) is that of torch's and
+// XLA's casts.
 template <typename T>
 struct Cvt {
   __device__ static T in(T v) { return v; }
@@ -65,6 +71,23 @@ struct Cvt<__nv_bfloat16> {
   __device__ static float in(__nv_bfloat16 v) { return __bfloat162float(v); }
   __device__ static __nv_bfloat16 out(float v) { return __float2bfloat16_rn(v); }
 };
+template <>
+struct Cvt<__half> {
+  __device__ static float in(__half v) { return __half2float(v); }
+  __device__ static __half out(float v) { return __float2half_rn(v); }
+};
+
+// The product a * b of two values already in Acc, as the form takes it:
+// for (f16, f16) rounded to f16 and back (exact in f32 before the
+// rounding, so the correctly rounded f16 product), else in Acc.
+template <typename TD, typename TX, typename Acc>
+__device__ __forceinline__ Acc mul(Acc a, Acc b) {
+  if constexpr (std::is_same_v<TD, __half> && std::is_same_v<TX, __half>) {
+    return __half2float(__float2half_rn(a * b));
+  } else {
+    return a * b;
+  }
+}
 
 template <typename TD, typename TX, typename TY, typename Acc, int G>
 __global__ void __launch_bounds__(kThreads)
@@ -87,7 +110,8 @@ ell_spmv_kernel(const int* __restrict__ indices, const TD* __restrict__ data,
       if (j < width) {
         long long c = __ldg(&indices[base + j]);
         c = c < 0 ? 0 : (c >= cols ? cols - 1 : c);
-        acc += (Acc)Cvt<TD>::in(__ldg(&data[base + j])) * (Acc)Cvt<TX>::in(__ldg(&x[c]));
+        acc += mul<TD, TX, Acc>((Acc)Cvt<TD>::in(__ldg(&data[base + j])),
+                                (Acc)Cvt<TX>::in(__ldg(&x[c])));
       }
     }
 #pragma unroll
@@ -122,11 +146,11 @@ int launch(const void* indices, const void* data, const void* x, void* y,
 }  // namespace
 
 // Plain C interface, bound with ctypes: one entry per form (data, x),
-// named by it (f32, f64, bf16 for (bf16, bf16), bf16_f32 for bf16 data
-// and f32 x).  `lanes` is G, a power of two up to 32, which the wrapper
-// chooses (ops/cuda/ell_spmv.py::group_lanes) and sizes the grid by; any
-// such G computes the product.  `block` must be 256 (kThreads).  Returns
-// cudaGetLastError() after the launch (0 on success).
+// named sprs_ell_spmv_<data>_<x>, or sprs_ell_spmv_<t> where both are t
+// (ops/cuda/forms.py::FORMS).  `lanes` is G, a power of two up to 32,
+// which the wrapper chooses (ops/cuda/ell_spmv.py::group_lanes) and sizes
+// the grid by; any such G computes the product.  `block` must be 256
+// (kThreads).  Returns cudaGetLastError() after the launch (0 on success).
 #define SPRS_ELL_SPMV_ENTRY(NAME, TD, TX, TY, ACC)                              \
   extern "C" int NAME(const void* indices, const void* data, const void* x,     \
                       void* y, long long rows, long long cols, int width,       \
@@ -135,7 +159,21 @@ int launch(const void* indices, const void* data, const void* x, void* y,
                                    lanes, grid, block, stream);                 \
   }
 
+#define F16 __half
+#define BF16 __nv_bfloat16
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f16, F16, F16, F16, float)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f16_bf16, F16, BF16, float, float)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f16_f32, F16, float, float, float)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f16_f64, F16, double, double, double)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_bf16_f16, BF16, F16, float, float)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_bf16, BF16, BF16, BF16, float)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_bf16_f32, BF16, float, float, float)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_bf16_f64, BF16, double, double, double)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f32_f16, float, F16, float, float)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f32_bf16, float, BF16, float, float)
 SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f32, float, float, float, float)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f32_f64, float, double, double, double)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f64_f16, double, F16, double, double)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f64_bf16, double, BF16, double, double)
+SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f64_f32, double, float, double, double)
 SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_f64, double, double, double, double)
-SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_bf16, __nv_bfloat16, __nv_bfloat16, __nv_bfloat16, float)
-SPRS_ELL_SPMV_ENTRY(sprs_ell_spmv_bf16_f32, __nv_bfloat16, float, float, float)

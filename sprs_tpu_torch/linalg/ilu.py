@@ -25,6 +25,7 @@ import torch
 from .. import native
 from ..errors import NonSquareMatrixError, SingularMatrixError
 from ..formats.csmat import CsMat, csmat
+from ..formats.util import as_tensor, host_array
 from .trisolve import LevelPlan, TriSchedule, build_schedule
 
 
@@ -114,18 +115,21 @@ def _ic0_host(indptr, indices, data):
 
 def _host_csr(mat: CsMat, what: str):
     """(indptr, live indices, live data) of ``mat`` in CSR with stored
-    zeros dropped, on the host."""
+    zeros dropped, on the host; bfloat16 data as float32 (``host_array``),
+    which :func:`_tri` casts back."""
     if mat.shape[0] != mat.shape[1]:
         raise NonSquareMatrixError(f"{what} needs square, got {mat.shape}")
     a = mat.to_csr().compact()
     indptr = a.indptr.cpu().numpy()
     nnz = int(indptr[-1])
-    return indptr, a.indices[:nnz].cpu().numpy(), a.data[:nnz].detach().cpu().numpy()
+    return indptr, a.indices[:nnz].cpu().numpy(), host_array(a.data[:nnz])
 
 
-def _tri(n, indptr, indices, vals, device) -> CsMat:
+def _tri(n, indptr, indices, vals, mat: CsMat) -> CsMat:
+    """A factor on ``mat``'s device in ``mat``'s type, as the JAX
+    package's factors are."""
     return csmat((n, n), np.asarray(indptr).astype(np.int32), np.asarray(indices).astype(np.int32),
-                 vals, device=device)
+                 as_tensor(vals, dtype=mat.dtype, device=mat.device), device=mat.device)
 
 
 def _plan(mat: CsMat, sched: TriSchedule) -> LevelPlan:
@@ -179,10 +183,10 @@ class Ilu0:
         order = np.lexsort((l_cols, l_rows))
         l_indptr = np.zeros(n + 1, np.int64)
         np.add.at(l_indptr, l_rows + 1, 1)
-        lmat = _tri(n, np.cumsum(l_indptr), l_cols[order], l_vals[order], mat.device)
+        lmat = _tri(n, np.cumsum(l_indptr), l_cols[order], l_vals[order], mat)
         u_indptr = np.zeros(n + 1, np.int64)
         np.add.at(u_indptr, rows[upper] + 1, 1)
-        umat = _tri(n, np.cumsum(u_indptr), indices[upper], vals[upper], mat.device)
+        umat = _tri(n, np.cumsum(u_indptr), indices[upper], vals[upper], mat)
         l_sched = build_schedule(lmat, lower=True)
         u_sched = build_schedule(umat, lower=False)
         return cls(lmat, umat, l_sched, u_sched, _plan(lmat, l_sched), _plan(umat, u_sched))
@@ -226,7 +230,7 @@ class Ic0:
                 raise SingularMatrixError(str(e)) from None
         if vals is None:
             vals = _ic0_host(l_indptr, l_cols, l_data)
-        lmat = _tri(n, l_indptr, l_cols, vals, mat.device)
+        lmat = _tri(n, l_indptr, l_cols, vals, mat)
         ltmat = lmat.T.to_csr().compact()
         l_sched = build_schedule(lmat, lower=True)
         lt_sched = build_schedule(ltmat, lower=False)

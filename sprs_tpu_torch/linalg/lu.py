@@ -25,6 +25,7 @@ import torch
 from .. import native
 from ..errors import NonSquareMatrixError, SingularMatrixError
 from ..formats.csmat import CSC, CsMat, csmat
+from ..formats.util import as_tensor, host_array
 from ..ops.permutation import Permutation
 from .trisolve import LevelPlan, TriSchedule, build_schedule
 
@@ -310,9 +311,9 @@ def splu(
     indptr = csc.indptr.cpu().numpy().astype(np.int64)
     nnz = int(indptr[-1])
     indices = csc.indices[:nnz].cpu().numpy().astype(np.int64)
-    data = csc.data[:nnz].detach().cpu().numpy()
-    dtype = data.dtype
-    data = data.astype(np.float64 if dtype.kind == "f" else dtype)
+    data = host_array(csc.data[:nnz])  # bfloat16 as float32: exact
+    data = data.astype(np.float64 if data.dtype.kind == "f" else data.dtype)
+    dtype = csc.dtype  # the factors' and the scale's, as the JAX package's
 
     # row scaling R = 1/max|row|
     if scale:
@@ -350,9 +351,9 @@ def splu(
             qptr, qidx, qdat, n, pivot_threshold)
         li, lx, ld = _cols_to_csc(l_rows, l_vals, n, data.dtype, unit_diag=True)
         ui, ux, ud = _cols_to_csc(u_rows, u_vals, n, data.dtype, unit_diag=False)
-    l_mat = csmat((n, n), li.astype(np.int32), lx.astype(np.int32), ld.astype(dtype),
+    l_mat = csmat((n, n), li.astype(np.int32), lx.astype(np.int32), as_tensor(ld, dtype=dtype, device=device),
                   storage=CSC, validate=False, device=device)
-    u_mat = csmat((n, n), ui.astype(np.int32), ux.astype(np.int32), ud.astype(dtype),
+    u_mat = csmat((n, n), ui.astype(np.int32), ux.astype(np.int32), as_tensor(ud, dtype=dtype, device=device),
                   storage=CSC, validate=False, device=device)
     l_sched, l_plan = _plan(l_mat, lower=True)
     u_sched, u_plan = _plan(u_mat, lower=False)
@@ -361,7 +362,7 @@ def splu(
         _u=u_mat,
         row_perm=Permutation.from_array(perm_r.astype(np.int32), device=device),
         col_perm=Permutation.from_array(q.astype(np.int32), device=device),
-        scale=torch.from_numpy(r.astype(dtype)).to(device),
+        scale=as_tensor(r, dtype=dtype, device=device),
         _l_sched=l_sched,
         _u_sched=u_sched,
         _l_plan=l_plan,

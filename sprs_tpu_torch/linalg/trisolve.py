@@ -42,7 +42,7 @@ from .. import native
 from ..errors import NonSquareMatrixError, ShapeError, SingularMatrixError
 from ..formats.csmat import CsMat
 from ..formats.csvec import CsVec, csvec
-from ..formats.util import as_tensor
+from ..formats.util import as_tensor, host_array
 
 
 def _check_square(mat: CsMat):
@@ -555,9 +555,9 @@ def lsolve_csc_sparse_rhs(l_mat: CsMat, b: CsVec) -> CsVec:
     n = csc.shape[0]
     indptr = csc.indptr.cpu().numpy()
     indices = csc.indices.cpu().numpy()
-    data = csc.data.detach().cpu().numpy()
+    data = host_array(csc.data)  # bfloat16 as float32: exact
     b_idx = b.indices[: b.nnz].cpu().numpy()
-    b_val = b.data[: b.nnz].detach().cpu().numpy()
+    b_val = host_array(b.data[: b.nnz])
 
     visited = np.zeros(n, dtype=bool)
     topo: list = []
@@ -596,4 +596,5 @@ def lsolve_csc_sparse_rhs(l_mat: CsMat, b: CsVec) -> CsVec:
         x[col_idx[below]] -= col_val[below] * x[j]
 
     pattern = np.sort(np.asarray(topo, dtype=np.int64))
-    return csvec(n, pattern.astype(np.int32), x[pattern], device=l_mat.device)
+    return csvec(n, pattern.astype(np.int32),
+                 as_tensor(x[pattern], dtype=b.data.dtype, device=l_mat.device), device=l_mat.device)

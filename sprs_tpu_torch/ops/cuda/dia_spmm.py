@@ -6,7 +6,7 @@ and Y each cross device memory once) and how its design meets that bound.
 This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
 
 * :func:`dia_spmm_plain`, the plain torch version (``formats/dia.py::
-  dia_spmm``, widened for bfloat16 as ``forms.widened`` says), used for
+  dia_spmm``, widened for 16-bit operands as ``forms.widened`` says), used for
   tensors on the CPU and as the kernel's reference on the card.  Its
   ``calls`` attribute counts calls;
 * :func:`dia_spmm_kernel`, the wrapper: CPU tensors take the plain
@@ -17,10 +17,11 @@ This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
   the kernel: the JAX package's ``k >= 256`` cut (``ops/prod.py``) is a
   TPU measurement and has no counterpart here;
 * :func:`variant`, the rule that picks the kernel's variant: "vector"
-  (16-byte loads of X and stores of Y) when a row of X is whole 16-byte
-  vectors and X starts on a 16-byte boundary, else "scalar".  Y has X's
-  type in every form, so X's element size decides, whatever the
-  diagonals' type;
+  (16-byte loads of X, and 16-byte stores of Y) when a row of X is whole
+  16-byte vectors and X starts on a 16-byte boundary, else "scalar".  X's
+  element size decides, whatever the diagonals' type: Y's type,
+  ``promote(data, X)``, is at least as wide as X's, so its rows are then
+  whole 16-byte vectors too, and Y is allocated here, aligned;
 * a ``torch.autograd.Function`` whose forward is the kernel and whose
   backward is :func:`~.dia_spmv.dia_vjp`, the plain torch form of the JAX
   package's ``_bwd``.
@@ -40,7 +41,7 @@ import torch
 from ...errors import ShapeError
 from ...formats.dia import DiaMat, dia_spmm
 from . import build
-from .dia_spmv import MAX_DIAGS, dia_vjp
+from .dia_spmv import MAX_DIAGS, dia_vjp, widened_sum
 from .forms import count_launch, form_of, widened, zero_counts
 
 THREADS = 256  # csrc/dia_spmm.cu: kThreads
@@ -51,7 +52,8 @@ VECTOR_BYTES = 16
 
 def variant(k: int, itemsize: int, x_ptr: int) -> str:
     """"vector" when every row of X is whole 16-byte vectors and X starts
-    on a 16-byte boundary (Y is allocated here, aligned), else "scalar"."""
+    on a 16-byte boundary (Y, at least as wide, is allocated here,
+    aligned), else "scalar"."""
     if (k * itemsize) % VECTOR_BYTES == 0 and x_ptr % VECTOR_BYTES == 0:
         return "vector"
     return "scalar"
@@ -74,14 +76,15 @@ def launch_config(rows: int, k: int, n_sm: int, itemsize: int, vector: bool) -> 
 
 def dia_spmm_plain(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     """The plain torch K2: shifted row blocks, multiply-add in diagonal
-    order (``formats/dia.py::dia_spmm``), in ``promote(out, float32)``
-    with one rounding where an operand is bfloat16."""
+    order (``formats/dia.py::dia_spmm``); where an operand is 16-bit, in
+    ``promote(out, float32)`` with one rounding (``dia_spmv.widened_sum``)."""
     dia_spmm_plain.calls += 1
     wide = widened(dia.data, x)
     if wide is None:
         return dia_spmm(dia, x)
-    out, acc = wide
-    return dia_spmm(DiaMat(dia.data.to(acc), dia.offsets, dia.shape), x.to(acc)).to(out)
+    if x.ndim != 2 or x.shape[0] != dia.cols:
+        raise ShapeError(f"dia_spmm: A is {dia.shape}, X is {tuple(x.shape)}")
+    return widened_sum(dia, x, wide)
 
 
 dia_spmm_plain.calls = 0
@@ -112,7 +115,7 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     if not (data.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_spmm kernel needs contiguous data and X")
     k = x.shape[1]
-    y = torch.empty((dia.rows, k), dtype=x.dtype, device=data.device)  # X's type in every form
+    y = torch.empty((dia.rows, k), dtype=torch.promote_types(data.dtype, x.dtype), device=data.device)
     if dia.rows == 0 or k == 0:
         return y
     kind = variant(k, x.element_size(), x.data_ptr())

@@ -6,7 +6,7 @@ diagonals, x and y each cross device memory once) and how its design
 meets that bound.  This module holds what surrounds it:
 
 * :func:`dia_spmv_plain`, the plain torch version (the same arithmetic
-  as ``formats/dia.py::dia_spmv``, but widened for bfloat16 as
+  as ``formats/dia.py::dia_spmv``, but widened for 16-bit operands as
   ``forms.widened`` says), used for tensors on the CPU and as the
   kernel's reference on the card;
 * :func:`dia_spmv_kernel`, the wrapper: CPU tensors take the plain
@@ -53,17 +53,35 @@ def launch_config(rows: int, n_sm: int) -> Tuple[int, int]:
     return max(1, min(blocks, n_sm * BLOCKS_PER_SM)), BLOCK
 
 
+def widened_sum(dia: DiaMat, x: torch.Tensor, wide) -> torch.Tensor:
+    """Σ_d data[d, i]·x[i + off_d] for x of shape (cols,) or (cols, k),
+    as ``forms.widened``'s (out, acc, prod) say: each product taken in
+    ``prod``, added in ``acc`` in diagonal order, rounded once to ``out``.
+    The arithmetic of K1's and K2's plain versions on 16-bit operands."""
+    out, acc, prod = wide
+    xp, left = _padded_x(dia, x.to(prod))
+    data = dia.data.to(prod)
+    if x.ndim == 2:
+        data = data[:, :, None]
+    n = dia.rows_pad
+    y = torch.zeros((n,) + tuple(x.shape[1:]), dtype=acc, device=x.device)
+    for d, off in enumerate(dia.offsets):
+        y = y + (data[d] * xp[left + off : left + off + n]).to(acc)
+    return y[: dia.rows].to(out)
+
+
 def dia_spmv_plain(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     """The plain torch K1: shifted slices, multiply-add in diagonal order
-    (``formats/dia.py::dia_spmv``), in ``promote(out, float32)`` with one
-    rounding where an operand is bfloat16.  Its ``calls`` attribute counts
-    calls."""
+    (``formats/dia.py::dia_spmv``); where an operand is 16-bit, in
+    ``promote(out, float32)`` with one rounding (:func:`widened_sum`).
+    Its ``calls`` attribute counts calls."""
     dia_spmv_plain.calls += 1
     wide = widened(dia.data, x)
     if wide is None:
         return dia_spmv(dia, x)
-    out, acc = wide
-    return dia_spmv(DiaMat(dia.data.to(acc), dia.offsets, dia.shape), x.to(acc)).to(out)
+    if x.shape != (dia.cols,):
+        raise ShapeError(f"dia_spmv: A is {dia.shape}, x is {tuple(x.shape)}")
+    return widened_sum(dia, x, wide)
 
 
 dia_spmv_plain.calls = 0
@@ -93,7 +111,7 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
         raise ShapeError(f"dia_spmv: data {tuple(data.shape)} for {k} diagonals of {dia.shape}")
     if not (data.is_contiguous() and x.is_contiguous()):
         raise ValueError("dia_spmv kernel needs contiguous data and x")
-    y = torch.empty(dia.rows, dtype=x.dtype, device=data.device)  # x's type in every form
+    y = torch.empty(dia.rows, dtype=torch.promote_types(data.dtype, x.dtype), device=data.device)
     if dia.rows == 0:
         return y
     n_sm = torch.cuda.get_device_properties(data.device).multi_processor_count
@@ -120,26 +138,27 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
 def dia_vjp(dia: DiaMat, x: torch.Tensor, g: torch.Tensor):
     """(ddata, dx) for y = A @ x (x of shape (cols,) or (cols, k)):
     ddata[d, i] = Σ_c g[i, c]·x[i+off_d, c] and dx[i+off_d] += data[d, i]·g[i],
-    over the zero-padded x.  The plain torch form of the JAX package's
-    ``_bwd`` for both K1 and K2; where an operand is bfloat16 it sums in
-    ``promote(out, float32)`` and rounds once, as the forward does."""
+    over the zero-padded x, each in its input's type.  The plain torch
+    form of the JAX package's ``_bwd`` for both K1 and K2; where an
+    operand is 16-bit it takes products and sums as the forward does
+    (``forms.widened``) and rounds once."""
     wide = widened(dia.data, x)
-    if wide is not None:
-        acc = wide[1]
-        ddata, dx = dia_vjp(DiaMat(dia.data.to(acc), dia.offsets, dia.shape), x.to(acc), g.to(acc))
-        return ddata.to(dia.dtype), dx.to(x.dtype)
-    gp = g.new_zeros((dia.rows_pad,) + tuple(g.shape[1:]))
+    if wide is None:
+        acc = prod = torch.promote_types(dia.dtype, g.dtype)
+    else:
+        _, acc, prod = wide
+    gp = g.new_zeros((dia.rows_pad,) + tuple(g.shape[1:]), dtype=prod)
     gp[: dia.rows] = g
-    xp, left = _padded_x(dia, x)
+    xp, left = _padded_x(dia, x.to(prod))
     n = dia.rows_pad
-    prods = [gp * xp[left + off : left + off + n] for off in dia.offsets]
+    prods = [(gp * xp[left + off : left + off + n]).to(acc) for off in dia.offsets]
     if x.ndim == 2:
         prods = [p.sum(1) for p in prods]
     ddata = torch.stack(prods).to(dia.dtype)
-    data = dia.data if x.ndim == 1 else dia.data[:, :, None]
-    dxp = torch.zeros_like(xp, dtype=torch.promote_types(dia.dtype, g.dtype))
+    data = dia.data.to(prod) if x.ndim == 1 else dia.data.to(prod)[:, :, None]
+    dxp = torch.zeros(xp.shape, dtype=acc, device=xp.device)
     for d, off in enumerate(dia.offsets):
-        dxp[left + off : left + off + n] += data[d] * gp
+        dxp[left + off : left + off + n] += (data[d] * gp).to(acc)
     return ddata, dxp[left : left + dia.cols].to(x.dtype)
 
 

@@ -7,7 +7,7 @@ and y each cross device memory once) and how its design meets that bound.
 This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
 
 * :func:`ell_spmv_plain`, the plain torch version (``formats/ell.py::
-  ell_spmv``; where an operand is bfloat16, a sum over the slots in slot
+  ell_spmv``; where an operand is 16-bit, a sum over the slots in slot
   order in ``promote(out, float32)`` with one rounding, as
   ``forms.widened`` says), used for tensors on the CPU and as the
   kernel's reference on the card.  Its ``calls`` attribute counts calls;
@@ -62,20 +62,20 @@ def launch_config(rows: int, width: int, n_sm: int) -> Tuple[int, int]:
 
 def ell_spmv_plain(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
     """The plain torch K5: one gather and a row sum, pad slots included
-    (``formats/ell.py::ell_spmv``); where an operand is bfloat16, the
-    slots added in slot order in ``promote(out, float32)`` and rounded
-    once."""
+    (``formats/ell.py::ell_spmv``); where an operand is 16-bit, each
+    product taken in ``prod`` and the slots added in slot order in
+    ``promote(out, float32)``, rounded once (``forms.widened``)."""
     ell_spmv_plain.calls += 1
     wide = widened(ell.data, x)
     if wide is None:
         return ell_spmv(ell, x)
     if x.shape != (ell.cols,):
         raise ShapeError(f"ell_spmv: A is {ell.shape}, x is {tuple(x.shape)}")
-    out, acc = wide
-    data, xs, idx = ell.data.to(acc), x.to(acc), ell.indices.to(torch.int64)
+    out, acc, prod = wide
+    data, xs, idx = ell.data.to(prod), x.to(prod), ell.indices.to(torch.int64)
     y = torch.zeros(ell.rows_pad, dtype=acc, device=x.device)
     for s in range(ell.width):
-        y = y + data[:, s] * xs[idx[:, s]]
+        y = y + (data[:, s] * xs[idx[:, s]]).to(acc)
     return y[: ell.rows].to(out)
 
 
@@ -116,7 +116,7 @@ def _launch(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
             f"{idx.device}, {data.device} and {x.device}"
         )
     form = _check(ell, x)
-    y = torch.empty(ell.rows, dtype=x.dtype, device=data.device)  # x's type in every form
+    y = torch.empty(ell.rows, dtype=torch.promote_types(data.dtype, x.dtype), device=data.device)
     if ell.rows == 0:
         return y
     if ell.cols == 0:
@@ -146,20 +146,20 @@ def ell_vjp(ell: EllMat, x: torch.Tensor, g: torch.Tensor):
     """(ddata, dx) for y = A @ x: ddata[r, j] = g[r]·x[indices[r, j]] (the
     forward gather against the cotangent) and dx[indices[r, j]] +=
     data[r, j]·g[r] (the transpose product in scatter form), pad rows
-    taking g = 0.  The plain torch form of the JAX package's ``_bwd``;
-    where an operand is bfloat16 it sums in ``promote(out, float32)`` and
-    rounds once, as the forward does."""
+    taking g = 0, each in its input's type.  The plain torch form of the
+    JAX package's ``_bwd``; where an operand is 16-bit it takes products
+    and sums as the forward does (``forms.widened``) and rounds once."""
     wide = widened(ell.data, x)
-    if wide is not None:
-        acc = wide[1]
-        ddata, dx = ell_vjp(EllMat(ell.indices, ell.data.to(acc), ell.shape), x.to(acc), g.to(acc))
-        return ddata.to(ell.dtype), dx.to(x.dtype)
-    gp = g.new_zeros(ell.rows_pad)
+    if wide is None:
+        acc = prod = torch.promote_types(ell.dtype, g.dtype)
+    else:
+        _, acc, prod = wide
+    gp = g.new_zeros(ell.rows_pad, dtype=prod)
     gp[: ell.rows] = g
     idx = ell.indices.to(torch.int64)
-    ddata = (x[idx] * gp[:, None]).to(ell.dtype)
-    contrib = ell.data * gp[:, None]
-    dx = torch.zeros_like(x, dtype=contrib.dtype).index_add_(
+    ddata = (x.to(prod)[idx] * gp[:, None]).to(ell.dtype)
+    contrib = (ell.data.to(prod) * gp[:, None]).to(acc)
+    dx = torch.zeros(x.shape, dtype=acc, device=x.device).index_add_(
         0, idx.reshape(-1), contrib.reshape(-1)
     )
     return ddata, dx.to(x.dtype)

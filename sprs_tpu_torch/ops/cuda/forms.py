@@ -1,11 +1,15 @@
 """The operand types that the real products K1 (``dia_spmv``), K2
 (``dia_spmm``) and K5 (``ell_spmv``) take on the card, and the rule their
-plain versions follow for bfloat16.
+plain versions follow for 16-bit operands.
 
+Every (data, x) pair of float16, bfloat16, float32 and float64 is a form.
 As in the Pallas kernels, the output type is ``promote(data, x)`` and the
 products and sums run in ``promote(out, float32)``, rounded once to the
-output.  Each form is one C entry point of the kernel's source, named by
-its suffix here; any other pair raises ``TypeError`` on the card.  Each
+output; (float16, float16) alone rounds each product to float16 before
+its float32 sum, as the Pallas kernels' float16 products do.  Each form
+is one C entry point of the kernel's source, named by its suffix here
+(``<data>_<x>``, or ``<t>`` where both are ``t``); any other pair (a
+complex or an integer operand) raises ``TypeError`` on the card.  Each
 wrapper counts its launches by form in ``launches_<suffix>``.
 """
 
@@ -15,23 +19,23 @@ from typing import Optional, Tuple
 
 import torch
 
+SHORT = {torch.float16: "f16", torch.bfloat16: "bf16", torch.float32: "f32", torch.float64: "f64"}
+HALVES = (torch.float16, torch.bfloat16)
+
 # (data dtype, x dtype) -> the suffix of the form's entry point
 FORMS = {
-    (torch.float32, torch.float32): "f32",
-    (torch.float64, torch.float64): "f64",
-    (torch.bfloat16, torch.bfloat16): "bf16",
-    (torch.bfloat16, torch.float32): "bf16_f32",
+    (d, x): SHORT[d] if d == x else f"{SHORT[d]}_{SHORT[x]}" for d in SHORT for x in SHORT
 }
 
 
 def form_of(kernel: str, data: torch.Tensor, x: torch.Tensor) -> str:
     """The suffix of the form of (``data``, ``x``); TypeError naming the
-    forms ``kernel`` takes when it has none."""
+    types ``kernel`` takes when it has none."""
     form = FORMS.get((data.dtype, x.dtype))
     if form is None:
-        names = ", ".join(f"({d}, {v})".replace("torch.", "") for d, v in FORMS)
+        names = ", ".join(str(t).replace("torch.", "") for t in SHORT)
         raise TypeError(
-            f"{kernel} kernel takes (data, x) of types {names}, got {data.dtype} and {x.dtype}"
+            f"{kernel} kernel takes data and x of the types {names}, got {data.dtype} and {x.dtype}"
         )
     return form
 
@@ -49,12 +53,19 @@ def zero_counts(wrapper) -> None:
         setattr(wrapper, f"launches_{form}", 0)
 
 
-def widened(data: torch.Tensor, x: torch.Tensor) -> Optional[Tuple[torch.dtype, torch.dtype]]:
-    """(out, acc) where ``data`` or ``x`` is bfloat16: a plain version
-    widens both to ``acc = promote(out, float32)`` and rounds once to
-    ``out = promote(data, x)``, as the kernels do.  None otherwise: the
-    plain product's own arithmetic is then the kernels'."""
-    if torch.bfloat16 not in (data.dtype, x.dtype):
+def widened(
+    data: torch.Tensor, x: torch.Tensor
+) -> Optional[Tuple[torch.dtype, torch.dtype, torch.dtype]]:
+    """(out, acc, prod) where ``data`` or ``x`` is 16-bit: a plain version
+    takes each product in ``prod`` and adds it in ``acc = promote(out,
+    float32)``, rounding once to ``out = promote(data, x)``, as the kernels
+    do.  ``prod`` is float16 for (float16, float16), whose products the
+    kernels round to float16, and ``acc`` otherwise.  None where neither
+    operand is 16-bit: the plain product's own arithmetic is then the
+    kernels'."""
+    if data.dtype not in HALVES and x.dtype not in HALVES:
         return None
     out = torch.promote_types(data.dtype, x.dtype)
-    return out, torch.promote_types(out, torch.float32)
+    acc = torch.promote_types(out, torch.float32)
+    prod = torch.float16 if data.dtype == x.dtype == torch.float16 else acc
+    return out, acc, prod

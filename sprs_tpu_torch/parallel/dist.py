@@ -47,7 +47,7 @@ import torch
 
 from ..errors import ShapeError
 from ..formats.csmat import CSR, CsMat
-from ..formats.util import INDEX_DTYPE, as_tensor, compress_coo
+from ..formats.util import INDEX_DTYPE, as_tensor, compress_coo, host_array
 from ..ops.prod import spmv
 from ..ops.spgemm import _expand_from_rows, spgemm
 
@@ -178,13 +178,15 @@ def _csmat_to(m: CsMat, device) -> CsMat:
 
 
 def _csr_host(mat: CsMat):
+    """(CSR, indptr, indices, data) with the arrays on the host; bfloat16
+    data as float32 (``host_array``), which ``_on(..., dtype)`` casts
+    back."""
     csr = mat.to_csr()
-    return (csr, csr.indptr.cpu().numpy(), csr.indices.cpu().numpy(),
-            csr.data.detach().cpu().numpy())
+    return (csr, csr.indptr.cpu().numpy(), csr.indices.cpu().numpy(), host_array(csr.data))
 
 
-def _on(arrays: Sequence[np.ndarray], devices) -> Tensors:
-    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(d) for a, d in zip(arrays, devices))
+def _on(arrays: Sequence[np.ndarray], devices, dtype=None) -> Tensors:
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(d, dtype) for a, d in zip(arrays, devices))
 
 
 def _host_stack(tensors: Tensors) -> np.ndarray:
@@ -315,7 +317,8 @@ def shard_csr_rows(
         ix[s, :k] = indices[base : base + k]
         dt[s, :k] = data[base : base + k]
     devs = _placement(device, n_shards, mat.device)
-    return DistCsMat(_on(ip, devs), _on(ix, devs), _on(dt, devs), _on(rid, devs), (rows, cols))
+    return DistCsMat(_on(ip, devs), _on(ix, devs), _on(dt, devs, csr.dtype), _on(rid, devs),
+                     (rows, cols))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -740,11 +743,11 @@ def shard_csr_2d(mat: CsMat, grid: Tuple[int, int], *, device=None) -> Tuple[Dis
     np.cumsum(lr_counts, axis=1, out=ip[:, 1:])
     devs = _placement(device, R * C, mat.device)
 
-    def grid_of(arr):
-        flat = _on(arr, devs)
+    def grid_of(arr, dtype=None):
+        flat = _on(arr, devs, dtype)
         return tuple(tuple(flat[i * C : (i + 1) * C]) for i in range(R))
 
-    return Dist2DCsMat(grid_of(ip), grid_of(ix), grid_of(dt), (rows, cols)), cp
+    return Dist2DCsMat(grid_of(ip), grid_of(ix), grid_of(dt, csr.dtype), (rows, cols)), cp
 
 
 def dist_spmv_2d(

@@ -106,7 +106,7 @@ def shard_csr_rows_halo(mat: CsMat, n_shards: int, *, device=None) -> HaloCsMat:
     places the shards as in ``shard_csr_rows``."""
     ip, ix, dt, halo, shape = _halo_host(mat, n_shards)
     devs = _placement(device, n_shards, mat.device)
-    return HaloCsMat(_on(ip, devs), _on(ix, devs), _on(dt, devs), shape, halo)
+    return HaloCsMat(_on(ip, devs), _on(ix, devs), _on(dt, devs, mat.dtype), shape, halo)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,10 +173,10 @@ def shard_csr_rows_halo_split(mat: CsMat, n_shards: int, *, device=None) -> Halo
     return HaloSplitCsMat(
         _on(ii_p, devs),
         _on(pack(ii_x, cap_i, np.int32), devs),
-        _on(pack(ii_d, cap_i, dt.dtype), devs),
+        _on(pack(ii_d, cap_i, dt.dtype), devs, mat.dtype),
         _on(bi_p, devs),
         _on(pack(bi_x, cap_b, np.int32), devs),
-        _on(pack(bi_d, cap_b, dt.dtype), devs),
+        _on(pack(bi_d, cap_b, dt.dtype), devs, mat.dtype),
         shape,
         halo,
     )

@@ -22,7 +22,7 @@ import torch
 
 from ..errors import ShapeError
 from ..formats.csmat import CSR, CsMat, csmat
-from ..formats.util import as_tensor
+from ..formats.util import as_tensor, host_array
 
 
 @dataclasses.dataclass
@@ -109,7 +109,7 @@ def block_jacobi_ldl(mat: CsMat, n_shards: int, *, fill: str = "camd") -> BlockJ
     nnz = int(ip[-1])
     rows = np.repeat(np.arange(csr.rows, dtype=np.int64), np.diff(ip))[:nnz]
     cols = csr.indices[:nnz].cpu().numpy().astype(np.int64)
-    vals = csr.data[:nnz].detach().cpu().numpy()
+    vals = host_array(csr.data[:nnz])  # bfloat16 as float32: exact
 
     shard_of = rows // m
     in_block = shard_of == (cols // m)
@@ -140,7 +140,7 @@ def block_jacobi_ldl(mat: CsMat, n_shards: int, *, fill: str = "camd") -> BlockJ
     sym = Ldl().fill_in_reduction(fill).check_symmetry(False).symbolic(pattern)
     plan = sym.super_plan()
     sched = sym.round_schedule(plan)
-    lx, d = numeric_batched(plan, sched, torch.from_numpy(data_s).to(mat.device))
+    lx, d = numeric_batched(plan, sched, torch.from_numpy(data_s).to(mat.device, mat.dtype))
     perm = inv = None
     if sym.perm is not None:
         perm = sym.perm.perm.cpu().numpy()

@@ -160,16 +160,16 @@ def test_launch_refuses_cpu_and_mixed_devices():
 
 
 def test_launch_checks_refuse_types_and_layouts():
-    """What ``_launch`` refuses after the device check: another dtype or
-    mixed dtypes, int64 indices, mismatched shapes, non-contiguous
-    operands."""
+    """What ``_launch`` refuses after the device check: complex or integer
+    data (every pair of float16, bfloat16, float32 and float64 is a form),
+    int64 indices, mismatched shapes, non-contiguous operands."""
     _, tell, x = operands(20, 16, 0.3, 16, np.float32)
     xt = torch.from_numpy(x)
     k5._check(tell, xt)
     idx, data = tell.indices, tell.data
     cases = [
-        (EllMat(idx, data.double(), tell.shape), xt, TypeError),
-        (EllMat(idx, data.half(), tell.shape), xt.half(), TypeError),
+        (EllMat(idx, data.to(torch.complex64), tell.shape), xt.to(torch.complex64), TypeError),
+        (EllMat(idx, data.to(torch.int32), tell.shape), xt.to(torch.int32), TypeError),
         (EllMat(idx.to(torch.int64), data, tell.shape), xt, TypeError),
         (EllMat(idx, data[:, :1].contiguous(), tell.shape), xt, ShapeError),
         (EllMat(idx.t().contiguous().t(), data, tell.shape), xt, ValueError),
