@@ -15,7 +15,10 @@ baseline failing to build stops the run.  K1, K2 and K5 run in the forms
 of float32 and of 16-bit storage (``ops/cuda/forms.py``: (f32, f32),
 (f64, f64) for K2 and K5, and (t, t), (t, f32) for t bf16 and f16) where
 their source holds them; a source without a form's entry point (an
-earlier tree, the inline candidate) skips that form.  Each build prints
+earlier tree, the inline candidate) skips that form.  K3's design
+variants run its bf16, f32 and f64 cases; its thirteen other forms run
+as committed and with every form in three TF32 passes (the pass rule's
+cost on the same bytes).  Each build prints
 ptxas' registers and spills per kernel instantiation, every form's
 ("ptxas ..." lines).
 
@@ -93,13 +96,29 @@ def tf32_min_blocks(n):
 # not checked): the split cut out (every part is the raw bits: three MMAs,
 # no split arithmetic), and float32 taken in one pass (one MMA per
 # fragment pair, no split).
-TF32_NO_SPLIT = ("""  if (PASSES == 1) {
+TF32_NO_SPLIT = ("""  if (!kSplit) {
     hi = __float_as_uint(v);
+    hx = kSafe && (hi & 0x7F800000u) == 0x7F800000u ? 0u : hi;
     return;
   }""", """  hi = hx = lo = __float_as_uint(v);
   return;""")
-TF32_ONE_PASS = ("SPRS_BSR_SPMM_TF32_ENTRY(sprs_bsr_spmm_tf32x3_f32, float, 3)",
-                 "SPRS_BSR_SPMM_TF32_ENTRY(sprs_bsr_spmm_tf32x3_f32, float, 1)")
+TF32_ONE_PASS = ("SPRS_BSR_SPMM_TF32_ENTRY(sprs_bsr_spmm_tf32x3_f32, float, float, float, 3)",
+                 "SPRS_BSR_SPMM_TF32_ENTRY(sprs_bsr_spmm_tf32x3_f32, float, float, float, 1)")
+# The forms with a 16-bit operand in three passes, as the float32 form
+# takes them (the 16-bit side's lo is 0, so the sums are the same): the
+# pass rule's cost on the same bytes.  Each entry line of the source,
+# rebuilt from the rule, must be found as it stands.
+C_TYPE = {torch.float16: "F16", torch.bfloat16: "BF16", torch.float32: "float",
+          torch.float64: "double"}
+
+
+def tf32_entry(pair, passes):
+    return (f"SPRS_BSR_SPMM_TF32_ENTRY(sprs_bsr_spmm_tf32x3_{FORMS[pair]}, {C_TYPE[pair[0]]}, "
+            f"{C_TYPE[pair[1]]}, {C_TYPE[torch.promote_types(*pair)]}, {passes})")
+
+
+TF32_THREE_PASSES = [(tf32_entry(pair, k3.tf32_passes(*pair)), tf32_entry(pair, 3))
+                     for pair in FORMS if k3.tf32_passes(*pair) < 3]
 # Candidates: no per-slice finite check (every slice through the split
 # with the non-finite rule); the k8 loop with its runtime exit on every
 # slice; both together, at 8 warps, are the design of PR 6's variants
@@ -108,10 +127,10 @@ TF32_ONE_PASS = ("SPRS_BSR_SPMM_TF32_ENTRY(sprs_bsr_spmm_tf32x3_f32, float, 3)",
 # only), and every MMA into the row's accumulator with no 32-deep partial
 # sums (its error is reported, not gated).
 TF32_NO_CHECK = (
-    "    const bool mine_finite = fast && PASSES == 3 && fast_stage.finite(stage_a(it), stage_x(it), bs);",
+    "    const bool mine_finite = fast && PASSES > 1 && fast_stage.finite(stage_a(it), stage_x(it), bs);",
     "    const bool mine_finite = false;")
-TF32_RUNTIME_DEPTH = [("mma_slice<T, PASSES, true, true>", "mma_slice<T, PASSES, true, false>"),
-                      ("mma_slice<T, PASSES, false, true>", "mma_slice<T, PASSES, false, false>")]
+TF32_RUNTIME_DEPTH = [("mma_slice<TA, TX, PASSES, true, true>", "mma_slice<TA, TX, PASSES, true, false>"),
+                      ("mma_slice<TA, TX, PASSES, false, true>", "mma_slice<TA, TX, PASSES, false, false>")]
 TF32_FINITE_ONLY = ("  const bool finite = r == r;", "  const bool finite = true;")
 TF32_NO_FLUSH = [
     ("  if (first) {\n    asm(", "  if (false) {\n    asm("),
@@ -313,34 +332,38 @@ extern "C" int sprs_ell_spmv_f64(const void* indices, const void* data, const vo
 # "baseline:<name>" (from --baseline) or "inline:<name>" (held here).
 # Params: K3 (kind: "tc", "tf32x3" or "cuda_core"; columns per CTA; the
 # check against the plain version: "gate" raises past the gate, "report"
-# prints the error, None skips it); K2 (CTAs per SM, rows per run); K5 (layout: "baseline", the
+# prints the error, None skips it; the case sets it runs on: "base", the
+# bf16, f32 and f64 shapes, and "forms", the thirteen other forms); K2 (CTAs per SM, rows per run); K5 (layout: "baseline", the
 # earlier C interface without `lanes` and a thread per row, "row", a
 # thread per row, or "group", a group of lanes per row; CTAs per SM); K6
 # (rows per CTA, CTAs per SM).
 VARIANTS = {
     "k1 as committed (thread per row)": ("k1", "dia_spmv", [], ()),
-    "k3 wgmma as committed (4 stages, 1 CTA/SM)": ("k3", "bsr_spmm", [], ("tc", 128, "gate")),
-    "k3 wgmma pipelined": ("k3", "bsr_spmm", [K3_PIPELINED], ("tc", 128, "gate")),
+    "k3 wgmma as committed (4 stages, 1 CTA/SM)": ("k3", "bsr_spmm", [], ("tc", 128, "gate", ("base", "forms"))),
+    "k3 wgmma pipelined": ("k3", "bsr_spmm", [K3_PIPELINED], ("tc", 128, "gate", ("base",))),
     "k3 wgmma pipelined, 3 stages (2 CTAs/SM)": (
-        "k3", "bsr_spmm", [K3_PIPELINED, stages(3)], ("tc", 128, "gate")),
-    "k3 wgmma pipelined, 6 stages": ("k3", "bsr_spmm", [K3_PIPELINED, stages(6)], ("tc", 128, "gate")),
-    "k3 baseline (CUDA cores)": ("k3", "baseline:bsr_spmm", [], ("cuda_core", 64, "gate")),
-    "k3 3xTF32 as committed (16 warps, 128 columns, 3 stages)": ("k3", "bsr_spmm", [], ("tf32x3", 128, "gate")),
-    "k3 3xTF32 8 warps": ("k3", "bsr_spmm", [tf32_threads(256)], ("tf32x3", 128, "gate")),
-    "k3 3xTF32 64 columns": ("k3", "bsr_spmm", [tf32_tile(64)], ("tf32x3", 64, "gate")),
+        "k3", "bsr_spmm", [K3_PIPELINED, stages(3)], ("tc", 128, "gate", ("base",))),
+    "k3 wgmma pipelined, 6 stages": ("k3", "bsr_spmm", [K3_PIPELINED, stages(6)], ("tc", 128, "gate", ("base",))),
+    "k3 baseline (CUDA cores)": ("k3", "baseline:bsr_spmm", [], ("cuda_core", 64, "gate", ("base",))),
+    "k3 3xTF32 as committed (16 warps, 128 columns, 3 stages)": (
+        "k3", "bsr_spmm", [], ("tf32x3", 128, "gate", ("base", "forms"))),
+    "k3 TF32, the 16-bit forms in 3 passes": (
+        "k3", "bsr_spmm", TF32_THREE_PASSES, ("tf32x3", 128, "gate", ("forms",))),
+    "k3 3xTF32 8 warps": ("k3", "bsr_spmm", [tf32_threads(256)], ("tf32x3", 128, "gate", ("base",))),
+    "k3 3xTF32 64 columns": ("k3", "bsr_spmm", [tf32_tile(64)], ("tf32x3", 64, "gate", ("base",))),
     "k3 3xTF32 8 warps, 64 columns, 2 CTAs/SM": (
-        "k3", "bsr_spmm", [tf32_threads(256), tf32_tile(64), tf32_min_blocks(2)], ("tf32x3", 64, "gate")),
-    "k3 3xTF32 2 stages": ("k3", "bsr_spmm", [tf32_stages(2)], ("tf32x3", 128, "gate")),
-    "k3 3xTF32 diagnostic: no split": ("k3", "bsr_spmm", [TF32_NO_SPLIT], ("tf32x3", 128, None)),
-    "k3 3xTF32 diagnostic: one pass": ("k3", "bsr_spmm", [TF32_ONE_PASS], ("tf32x3", 128, None)),
-    "k3 3xTF32 no finite check": ("k3", "bsr_spmm", [TF32_NO_CHECK], ("tf32x3", 128, "gate")),
-    "k3 3xTF32 runtime depth": ("k3", "bsr_spmm", TF32_RUNTIME_DEPTH, ("tf32x3", 128, "gate")),
+        "k3", "bsr_spmm", [tf32_threads(256), tf32_tile(64), tf32_min_blocks(2)], ("tf32x3", 64, "gate", ("base",))),
+    "k3 3xTF32 2 stages": ("k3", "bsr_spmm", [tf32_stages(2)], ("tf32x3", 128, "gate", ("base",))),
+    "k3 3xTF32 diagnostic: no split": ("k3", "bsr_spmm", [TF32_NO_SPLIT], ("tf32x3", 128, None, ("base",))),
+    "k3 3xTF32 diagnostic: one pass": ("k3", "bsr_spmm", [TF32_ONE_PASS], ("tf32x3", 128, None, ("base",))),
+    "k3 3xTF32 no finite check": ("k3", "bsr_spmm", [TF32_NO_CHECK], ("tf32x3", 128, "gate", ("base",))),
+    "k3 3xTF32 runtime depth": ("k3", "bsr_spmm", TF32_RUNTIME_DEPTH, ("tf32x3", 128, "gate", ("base",))),
     "k3 3xTF32 8 warps, no finite check, runtime depth": (
-        "k3", "bsr_spmm", [tf32_threads(256), TF32_NO_CHECK] + TF32_RUNTIME_DEPTH, ("tf32x3", 128, "gate")),
+        "k3", "bsr_spmm", [tf32_threads(256), TF32_NO_CHECK] + TF32_RUNTIME_DEPTH, ("tf32x3", 128, "gate", ("base",))),
     "k3 3xTF32 8 warps, finite-only split": (
         "k3", "bsr_spmm", [tf32_threads(256), TF32_NO_CHECK, TF32_FINITE_ONLY] + TF32_RUNTIME_DEPTH,
-        ("tf32x3", 128, "gate")),
-    "k3 3xTF32 no partial sums": ("k3", "bsr_spmm", TF32_NO_FLUSH, ("tf32x3", 128, "report")),
+        ("tf32x3", 128, "gate", ("base",))),
+    "k3 3xTF32 no partial sums": ("k3", "bsr_spmm", TF32_NO_FLUSH, ("tf32x3", 128, "report", ("base",))),
     "k2 as committed (3 CTAs/SM, 4-row runs)": ("k2", "dia_spmm", [], (3, 4)),
     "k2 2 CTAs/SM": ("k2", "dia_spmm", [min_blocks(2)], (2, 4)),
     "k2 4 CTAs/SM": ("k2", "dia_spmm", [min_blocks(4)], (4, 4)),
@@ -446,26 +469,26 @@ def sass_opcodes(lib):
 LL, VP, I = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 
 
-# K3's kinds: the operand types each takes, its profiler key and its
-# entry point by type
+# K3's kinds: the types each runs in the base cases, and its profiler key;
+# in the "forms" cases "tf32x3" runs every form and "tc" its two
 K3_DTYPES = {"tc": (torch.bfloat16,), "tf32x3": (torch.float32, torch.float64),
              "cuda_core": (torch.float32, torch.float64)}
+TC_PAIRS = ((torch.bfloat16, torch.bfloat16), (torch.float16, torch.float16))
 K3_KEYS = {"tc": "bsr_spmm_tc_kernel", "tf32x3": "bsr_spmm_tf32x3_kernel",
            "cuda_core": "bsr_spmm_kernel<"}
-K3_SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 
 
-def k3_call(lib, bsr, x, kind, tile_n, _check):
+def k3_call(lib, bsr, x, kind, tile_n, _check, _sets):
     """One launch of a K3 kind: "tc" (wgmma), "tf32x3", or "cuda_core"
     (PR 5's CUDA-core kernel, in a baseline tree), ``tile_n`` columns
-    per CTA."""
+    per CTA, in the form of (blocks, X); Y in promote(blocks, X)."""
     tc = kind == "tc"
     prefix = {"tc": "sprs_bsr_spmm_tc_", "tf32x3": "sprs_bsr_spmm_tf32x3_",
               "cuda_core": "sprs_bsr_spmm_"}[kind]
-    fn = getattr(lib, prefix + K3_SUFFIX[x.dtype])
+    fn = getattr(lib, prefix + FORMS[(bsr.dtype, x.dtype)])
     fn.argtypes = [VP, VP, VP, VP, VP, VP, LL, LL, LL, I] + ([LL] if tc else []) + [I, I, VP]
     k = x.shape[1]
-    y = torch.empty((bsr.rows, k), dtype=x.dtype, device=x.device)
+    y = torch.empty((bsr.rows, k), dtype=out_dtype(bsr.blocks, x), device=x.device)
     row_ptr, order = bsr.row_order
     gx, gy = max(bsr.n_block_rows, 1), max(-(-k // tile_n), 1)
     err = fn(bsr.blocks.data_ptr(), bsr.bcols.data_ptr(), row_ptr.data_ptr(), order.data_ptr(),
@@ -546,7 +569,8 @@ def k6_call(lib, keys, vals, rows_per_block, blocks_per_sm):
 
 def k3_cases():
     """chip_smoke.py's timing shapes: n 4096 and 16384 in bf16 and f32,
-    n 4096 in f64."""
+    n 4096 in f64 (set "base"); the thirteen other forms at n 4096 (set
+    "forms"), the f32 operand and X rounded to each form's types."""
     out = []
     for dtype, ns in ((torch.bfloat16, (cs.BSR_N, cs.BSR_BIG_N)), (torch.float32, (cs.BSR_N, cs.BSR_BIG_N)),
                       (torch.float64, (cs.BSR_N,))):
@@ -554,8 +578,14 @@ def k3_cases():
             seed = 40 if n == cs.BSR_N else 42
             bsr = bsr_random(seed, (n, n), 128, 0.125, dtype, device="cuda")
             x = cs.rhs_block(n, cs.BSR_K, dtype, seed + 1)
-            out.append((f"n={n} k={cs.BSR_K} bs=128 {K3_SUFFIX[dtype]}", bsr, x,
+            out.append((f"n={n} k={cs.BSR_K} bs=128 {FORMS[(dtype, dtype)]}", "base", bsr, x,
                         bsr_spmm_plain(bsr, x).float()))
+    bsr = bsr_random(40, (cs.BSR_N,) * 2, 128, 0.125, torch.float32, device="cuda")
+    x = cs.rhs_block(cs.BSR_N, cs.BSR_K, torch.float32, 41)
+    for d, xd in cs.NEW_K3_FORMS:
+        b = cs.form_bsr(bsr, d)
+        out.append((f"n={cs.BSR_N} k={cs.BSR_K} bs=128 {FORMS[(d, xd)]}", "forms", b, x.to(xd),
+                    bsr_spmm_plain(b, x.to(xd)).float()))
     return out
 
 
@@ -604,12 +634,12 @@ def k6_cases():
     return out
 
 
-def checked(name, label, kernel, call, ref, x_dtype, strict=True):
+def checked(name, label, kernel, call, ref, out_dtype, strict=True):
     """Raise unless the variant's output agrees with the plain version
     (with ``strict`` false, only print the error)."""
     if kernel == "k3":
         rel = float((call().float() - ref).abs().max() / ref.abs().max())
-        ok = rel <= cs.BSR_GATE_LIMIT[x_dtype]
+        ok = rel <= cs.BSR_GATE_LIMIT[out_dtype]
         print(f"check {name} {label}: rel {rel!r}", flush=True)
     elif kernel == "k6":
         ks, vs = call()
@@ -652,11 +682,16 @@ def main() -> int:
             for case in cases[kernel]:
                 label, ref = case[0], case[-1]
                 key = KEYS.get(kernel)
+                out = None
                 if kernel == "k3":
-                    if case[2].dtype not in K3_DTYPES[params[0]]:
+                    _, group, bsr, x, _ = case
+                    if group not in params[3] or (
+                            x.dtype not in K3_DTYPES[params[0]] if group == "base"
+                            else params[0] == "tc" and (bsr.dtype, x.dtype) not in TC_PAIRS):
                         continue
-                    call = functools.partial(k3_call, libs[name], case[1], case[2], *params)
+                    call = functools.partial(k3_call, libs[name], bsr, x, *params)
                     key = K3_KEYS[params[0]]
+                    out = torch.promote_types(bsr.dtype, x.dtype)
                 elif kernel in ("k1", "k2", "k5"):
                     src = {"k1": "dia_spmv", "k2": "dia_spmm", "k5": "ell_spmv"}[kernel]
                     if entry(libs[name], src, case[1].data, case[2]) is None:
@@ -666,7 +701,7 @@ def main() -> int:
                 else:
                     call = functools.partial(k6_call, libs[name], case[1], case[2], *params)
                 if kernel != "k3" or params[2] is not None:
-                    checked(name, label, kernel, call, ref, case[2].dtype,
+                    checked(name, label, kernel, call, ref, out,
                             strict=kernel != "k3" or params[2] == "gate")
                 ms = cs.device_ms(call, key, 30)
                 print(f"round {rnd} {name} {label}: device ms {ms!r}", flush=True)

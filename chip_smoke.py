@@ -50,6 +50,17 @@ and prints no result):
    small odd ELLs and random8, each bit-equal to its plain version where
    the output is 16-bit (K5: one 16-bit step), else within 1e-6 (float32)
    or 1e-13 (float64) of max|y|, each checking its own form's counter;
+   and K3 and K4 in the thirteen other (blocks, X) forms, Y in
+   promote(blocks, X): at block sizes 16 and 128 the 1000×900 shape at
+   k = 201, 256 and 1, an X off a 16-byte boundary, a sliced and
+   unsorted operand, an empty block row, the K4 repack at group 4 and
+   block magnitudes 2⁻²⁰ to 2²⁰ (float16 blocks 2⁻²⁴ to 2⁸); inf and NaN
+   in the blocks and in X, where the plain version puts them; the
+   backward against ``bsr_vjp`` on the CPU (dblocks in the blocks' type,
+   dX in X's); within 1e-5 of max|Y| (2⁻⁷ for a bfloat16 Y, 2⁻¹⁰ for
+   float16), each checking the variant the rule picks (wgmma for
+   (f16, f16) on aligned X at bs 128), the form that launched and its
+   TF32 passes;
 4. timing, with CUDA events, beside each kernel's bound, its plain
    version and one library call (K2-K6 also with the profiler's device
    time per launch, ``device_ms``): K1 at the 4096×4096-grid SpMV
@@ -67,7 +78,11 @@ and prints no result):
    random8, each beside its bytes bound and ``torch.mv`` / ``torch.sparse.mm``
    on the bfloat16 CSR tensor (the row says so where torch refuses the
    types); the same three rows for each of the twelve other forms, y's
-   bytes in promote(data, x);
+   bytes in promote(data, x); K3 and K4 (group 8) in the thirteen other
+   forms at n = 4096, k = 512, bs = 128, density 0.125, each bound by
+   bytes or by operations at 989 TFLOP/s (wgmma) or 495/p for p TF32
+   passes, beside dense ``torch.matmul`` in promote(blocks, X) and
+   torch's BSR ``@`` (or its refusal);
 5. main paths, each with the launch counts set to 0 just before and read
    just after:
    a. BiCGSTAB and CG at 1024² float64 through ``prepare_spmv`` and K1
@@ -188,6 +203,20 @@ and prints no result):
       remaining form on each route (the 4096² SpMV, the 128-RHS SpMM,
       random8) against its plain version; the phase's seconds beside its
       90 s budget;
+   m. block-sparse products in the production mixes (run after 5f, whose
+      C_bsr it takes): (a) the K3 cell's operator stored in bfloat16
+      times float32 X through ``@`` (K3 (bf16, f32), two TF32 passes),
+      within 1e-5 of max|Y| of the dense product of the same rounded
+      blocks, timed beside the float32-stored product, then one backward
+      through ``@`` (dblocks in bfloat16, dX in float32, against the
+      dense formulas); (b) phase 5f's C_bsr stored in bfloat16 times
+      float32 X of 256 columns; (c) the float32 C_bsr times float64 X,
+      ``@`` in float32 (the JAX ``@``'s type) and ``bsr_spmm_kernel`` in
+      float64 (the Pallas type), equal in value; (d) the K3 cell in
+      (f16, f16) through ``@`` (the wgmma variant), timed; (e) one
+      product per remaining form through ``@`` and K4 in every form;
+      launches by form exact, the plain version's calls 0; the phase's
+      seconds beside its 60 s budget;
 6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
    step against a dense solve;
    LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
@@ -204,10 +233,12 @@ and prints no result):
    ``AUTO_DENSE_PRODUCTS_PER_MAC``), the direct_panel line (phase 5h's
    numbers), the io and distributed lines (phases 5i and 5j), the
    bf16_solvers and forms_solvers lines (phases 5k and 5l), the
-   determinism line, the kernels line (each form other than float32 and
-   float64 under its kernel's entry, in ``forms``: its time, device time,
-   bound and share, plain and library times or the library's refusal,
-   main-path launches and gate error), then the last line
+   bsr_forms line (phase 5m), the determinism line, the kernels line
+   (each form other than float32 and float64 under its kernel's entry,
+   in ``forms``: its time, device time, bound and share, plain and
+   library times or the library's refusal, main-path launches and gate
+   error; K3's and K4's also their variant, TF32 passes and torch's BSR
+   ``@`` time or refusal), then the last line
    ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 
 Run from the repository root: ``python3 chip_smoke.py``.
@@ -317,10 +348,11 @@ TF32_TC_FLOPS = 495e12
 # K1/K2 vs plain: the same sum order over the diagonals; only FMA
 # contraction differs.  Relative to max |y|.
 GATE_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-12}
-# K3/K4 vs plain: both take products and sums in float32 for every type
-# (as the JAX package does), in another order; a bfloat16 output may
-# round to a neighbouring value: one step at the largest magnitude.
-BSR_GATE_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-5, torch.bfloat16: 2.0**-7}
+# K3/K4 vs plain, by Y's type: both take products and sums in float32 for
+# every form (as the JAX package does), in another order; a 16-bit output
+# may round to a neighbouring value: one step at the largest magnitude.
+BSR_GATE_LIMIT = {torch.float32: 1e-5, torch.float64: 1e-5, torch.bfloat16: 2.0**-7,
+                  torch.float16: 2.0**-10}
 # One bfloat16 step at the largest magnitude: K5's bfloat16 outputs
 # against their plain versions (its lane tree sums in another order) and
 # the bfloat16 gradients; FORM_GATE_LIMIT holds every form's outputs.
@@ -355,6 +387,14 @@ BSR_GROUP = 8
 TC_BLOCK_SIZES = (64, 128)
 # the 3xTF32 variant's gates
 TF32_BLOCK_SIZES = (8, 16, 64, 128)
+# the K3/K4 forms gated in every form: one block size on the 16-byte
+# staging (and the wgmma variant for (f16, f16)), one off it
+K3_FORM_BLOCK_SIZES = (16, 128)
+# the wide-magnitude gate's exponents: 2^-20..2^20, and for float16
+# blocks 2^-24..2^8 (its subnormals, and sums an f16 Y holds)
+WIDE_EXPONENTS = {torch.float16: (-24, 8)}
+K3_FORMS_PHASE_BUDGET_S = 60.0  # phase 5m's share of the script's time, recorded beside its seconds
+K3_MAIN_REPS = 20  # CUDA-event reps of phase 5m's timed products
 # The unstructured path: a 1024² vertex mesh, labels permuted, step
 # I + τL with τ = 10 (scipy's CG took 85 iterations to 1e-8 at this size).
 MESH_SIDE = 1024
@@ -568,25 +608,44 @@ def misaligned_copy(x):
     return out
 
 
+def bsr_kind(bsr, x):
+    """The K3 variant the wrapper's rule picks for ``bsr @ x``."""
+    return k3.variant(bsr.dtype, bsr.block_size, x.shape[1], x.data_ptr(), bsr.blocks.data_ptr(),
+                      x.dtype)
+
+
+def bsr_launched(name, counter, kind, form, before):
+    """Raise unless ``counter``'s ``kind`` variant and ``form`` counts moved
+    by one since ``before`` (their values then)."""
+    now = (getattr(counter, f"launches_{kind}"), getattr(counter, f"launches_{form}"))
+    if now != (before[0] + 1, before[1] + 1):
+        raise AssertionError(f"gate {name}: the {kind} variant did not launch in its {form} form")
+
+
 def gate_bsr(name, fn, bsr, x, counter=bsr_spmm_kernel, expect=None):
-    """K3 (or K4, ``counter`` = its wrapper) against the plain version;
-    the variant the wrapper's rule picks must be the one that launched,
-    and ``expect`` when given."""
-    kind = k3.variant(x.dtype, bsr.block_size, x.shape[1], x.data_ptr(), bsr.blocks.data_ptr())
+    """K3 (or K4, ``counter`` = its wrapper) against the plain version,
+    Y in promote(blocks, X); the variant and the form the wrapper's rule
+    picks must be the ones that launched, and the variant ``expect`` when
+    given.  A form of NEW_K3_FORMS files its error under FORM_ERRS."""
+    kind = bsr_kind(bsr, x)
+    form = FORMS[(bsr.dtype, x.dtype)]
+    out = torch.promote_types(bsr.dtype, x.dtype)
     if expect is not None and kind != expect:
         raise AssertionError(f"gate {name}: the rule picks {kind}, expected {expect}")
-    before = getattr(counter, f"launches_{kind}")
+    before = (getattr(counter, f"launches_{kind}"), getattr(counter, f"launches_{form}"))
     y = fn(bsr, x)
     ref = bsr_spmm_plain(bsr, x)
     sync()
-    if getattr(counter, f"launches_{kind}") != before + 1:
-        raise AssertionError(f"gate {name}: the {kind} variant did not launch")
-    if y.shape != (bsr.rows, x.shape[1]) or y.dtype != x.dtype or not bool(torch.isfinite(y).all()):
+    bsr_launched(name, counter, kind, form, before)
+    if y.shape != (bsr.rows, x.shape[1]) or y.dtype != out or not bool(torch.isfinite(y).all()):
         raise AssertionError(f"gate {name}: bad output {tuple(y.shape)} {y.dtype}")
     err = float((y.float() - ref.float()).abs().max())
-    err = check_rel(f"{name} ({kind})", err, float(ref.float().abs().max()), BSR_GATE_LIMIT[x.dtype])
+    err = check_rel(f"{name} ({kind}, {form})", err, float(ref.float().abs().max()), BSR_GATE_LIMIT[out])
     key = "bsr_spmm_grouped" if counter is bsr_spmm_grouped_kernel else f"bsr_spmm_{kind}"
-    GATE_ERRS.setdefault(key, []).append(err)
+    if (bsr.dtype, x.dtype) in NEW_K3_FORMS:
+        FORM_ERRS.setdefault((key, form), []).append(err)
+    else:
+        GATE_ERRS.setdefault(key, []).append(err)
     return err
 
 
@@ -688,35 +747,42 @@ def gate_tf32x3(bs, dtype):
 
 def wide_magnitude(bsr, seed):
     """``bsr`` with its block entries replaced by ±2^e, e uniform in
-    [-20, 20]."""
+    WIDE_EXPONENTS' range for its type ([-20, 20] unless named)."""
     rng = np.random.default_rng(seed)
     shape = tuple(bsr.blocks.shape)
-    vals = rng.choice([-1.0, 1.0], shape) * 2.0 ** rng.uniform(-20, 20, shape)
+    lo, hi = WIDE_EXPONENTS.get(bsr.dtype, (-20, 20))
+    vals = rng.choice([-1.0, 1.0], shape) * 2.0 ** rng.uniform(lo, hi, shape)
     blocks = torch.from_numpy(vals).to(DEVICE, bsr.dtype)
     return BsrMat(bsr.brows, bsr.bcols, blocks, bsr.shape, bsr.n_blocks)
 
 
-def gate_nonfinite(dtype):
-    """K3's 3xTF32 variant on blocks holding +inf, -inf and NaN, against
-    X of small integers with zeros among them (exact in TF32, so their lo
-    is 0: inf·0 must stay out of the cross terms): NaN and ±inf where
-    the plain version puts them, the finite entries within 1e-5 of their
-    max."""
-    bsr = bsr_random(90, (1000, 900), 128, 0.3, dtype, device=DEVICE)
-    blocks = bsr.blocks.clone()
-    blocks[0, 3, 5] = float("inf")
-    blocks[1, 7, 2] = float("-inf")
-    blocks[2, 0, 0] = float("nan")
-    bsr = BsrMat(bsr.brows, bsr.bcols, blocks, bsr.shape, bsr.n_blocks)
+def gate_nonfinite(dtype, x_dtype=None, in_x=False):
+    """K3 on blocks (X where ``in_x``) holding +inf, -inf and NaN, against
+    the other operand of small integers with zeros among them (exact in
+    TF32, so their lo is 0: inf·0 must stay out of the cross terms), at
+    k = 256 (the 16-byte staging and its finite check): NaN and ±inf where
+    the plain version puts them, the finite entries within the form's
+    limit of their max.  ``x_dtype``: X's type, the blocks' where not
+    given."""
+    x_dtype = dtype if x_dtype is None else x_dtype
     rng = np.random.default_rng(91)
-    x = torch.from_numpy(rng.integers(-3, 4, (900, 256)).astype(np.float64)).to(DEVICE, dtype)
-    name = f"K3 bs128 inf/NaN {dtype}"
-    before = bsr_spmm_kernel.launches_tf32x3
+    ints = lambda shape: torch.from_numpy(rng.integers(-3, 4, shape).astype(np.float64))  # noqa: E731
+    bsr = bsr_random(90, (1000, 900), 128, 0.3, torch.float32, device=DEVICE)
+    blocks = (ints(tuple(bsr.blocks.shape)).to(DEVICE) * (bsr.blocks != 0) if in_x else bsr.blocks).to(dtype)
+    x = ints((900, 256)).to(DEVICE, x_dtype)
+    if in_x:
+        x[3, 5], x[7, 2], x[0, 0] = float("inf"), float("-inf"), float("nan")
+    else:
+        blocks[0, 3, 5], blocks[1, 7, 2], blocks[2, 0, 0] = float("inf"), float("-inf"), float("nan")
+    bsr = BsrMat(bsr.brows, bsr.bcols, blocks, bsr.shape, bsr.n_blocks)
+    form = FORMS[(dtype, x_dtype)]
+    kind = bsr_kind(bsr, x)
+    name = f"K3 bs128 inf/NaN in {'X' if in_x else 'blocks'} {FORM_LABEL[form]}"
+    before = (getattr(bsr_spmm_kernel, f"launches_{kind}"), getattr(bsr_spmm_kernel, f"launches_{form}"))
     y = bsr_spmm_kernel(bsr, x)
     ref = bsr_spmm_plain(bsr, x)
     sync()
-    if bsr_spmm_kernel.launches_tf32x3 != before + 1:
-        raise AssertionError(f"gate {name}: the tf32x3 variant did not launch")
+    bsr_launched(name, bsr_spmm_kernel, kind, form, before)
     for mask in (torch.isnan, torch.isposinf, torch.isneginf):
         if not torch.equal(mask(y), mask(ref)):
             raise AssertionError(f"gate {name}: {mask.__name__} differs from the plain version")
@@ -724,8 +790,12 @@ def gate_nonfinite(dtype):
     if not (bool(torch.isnan(ref).any()) and bool(torch.isinf(ref).any())):
         raise AssertionError(f"gate {name}: the fixture gives no NaN or no inf")
     err = float((y.float() - ref.float())[fin].abs().max())
-    GATE_ERRS["bsr_spmm_tf32x3"].append(
-        check_rel(f"{name} (finite entries)", err, float(ref.float()[fin].abs().max()), 1e-5))
+    err = check_rel(f"{name} ({kind}, finite entries)", err, float(ref.float()[fin].abs().max()),
+                    BSR_GATE_LIMIT[torch.promote_types(dtype, x_dtype)])
+    if (dtype, x_dtype) in NEW_K3_FORMS:
+        FORM_ERRS.setdefault((f"bsr_spmm_{kind}", form), []).append(err)
+    else:
+        GATE_ERRS["bsr_spmm_tf32x3"].append(err)
 
 
 def gate_tc(bs):
@@ -948,26 +1018,30 @@ def torch_bsr_twin(bsr):
     )
 
 
-def bsr_peak(kind, dtype):
-    """The operation rate K3's bound takes: the bf16 tensor cores for the
-    wgmma variant; for the 3xTF32 variant the TF32 tensor cores over its
-    passes (three; one for bfloat16)."""
+def bsr_peak(kind, dtype, x_dtype):
+    """The operation rate K3's bound takes: the 16-bit tensor cores
+    (989 TFLOP/s, bf16 and f16 alike) for the wgmma variant; for the TF32
+    variant the TF32 tensor cores over the form's passes (495/p)."""
     if kind == "tc":
         return BF16_TC_FLOPS
-    return TF32_TC_FLOPS / (1 if dtype == torch.bfloat16 else 3)
+    return TF32_TC_FLOPS / k3.tf32_passes(dtype, x_dtype)
 
 
 def timing_bsr(label, name, fn, bsr, x, reps, product=None):
     """``product``: the matrix whose product ``fn`` computes, where
     ``bsr`` is a repack of it with zero padding blocks; the bound counts
-    the product's blocks, not the padding."""
-    kind = k3.variant(x.dtype, bsr.block_size, x.shape[1], x.data_ptr(), bsr.blocks.data_ptr())
+    the product's blocks, not the padding.  Bytes: the blocks in their
+    type, X in its own, Y in promote(blocks, X).  The library call is
+    dense ``torch.matmul`` in that type, and torch's BSR ``@`` where it
+    takes the pair."""
+    kind = bsr_kind(bsr, x)
+    out = torch.promote_types(bsr.dtype, x.dtype)
     ms = time_ms(lambda: fn(bsr, x), reps)
     dev_ms = device_ms(lambda: fn(bsr, x), f"bsr_spmm_{kind}_kernel", reps)
     plain_ms = time_ms(lambda: bsr_spmm_plain(bsr, x), max(reps // 5, 3))
-    dense = bsr.to_dense()
-    library_ms = time_ms(lambda: torch.matmul(dense, x), reps)
-    del dense
+    dense, x_out = bsr.to_dense().to(out), x.to(out)
+    library_ms = time_ms(lambda: torch.matmul(dense, x_out), reps)
+    del dense, x_out
     try:
         twin = torch_bsr_twin(bsr)
         lib_bsr_err = float((twin @ x - fn(bsr, x)).float().abs().max())
@@ -977,13 +1051,15 @@ def timing_bsr(label, name, fn, bsr, x, reps, product=None):
         lib_bsr_err = lib_bsr_ms = None
         lib_bsr = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
     k = x.shape[1]
-    size = x.element_size()
     bs = bsr.block_size
     n_blocks = (bsr if product is None else product).n_blocks
-    nbytes = (n_blocks * bs * bs + bsr.cols * k + bsr.rows * k) * size
+    nbytes = (n_blocks * bs * bs * bsr.blocks.element_size() + bsr.cols * k * x.element_size()
+              + bsr.rows * k * out.itemsize)
     flops = 2 * n_blocks * bs * bs * k
-    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, bsr_peak(kind, x.dtype),
-                      kernel=name, variant=kind, device_ms=dev_ms, library="torch.matmul (dense A)",
+    return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, bsr_peak(kind, bsr.dtype, x.dtype),
+                      kernel=name, variant=kind, device_ms=dev_ms,
+                      passes=None if kind == "tc" else k3.tf32_passes(bsr.dtype, x.dtype),
+                      library=f"torch.matmul (dense A, {str(out)[6:]})", library_error=None,
                       torch_bsr_ms=lib_bsr_ms, torch_bsr_max_abs_err=lib_bsr_err,
                       torch_bsr_error=lib_bsr, n_blocks=bsr.n_blocks,
                       block_density=bsr.block_density)
@@ -1171,10 +1247,10 @@ def phase_profile_bicgstab(lap, rhs):
 
 
 def reset_counts():
-    for fn in (dia_spmv_kernel, dia_spmm_kernel, ell_spmv_kernel):
+    for fn in (dia_spmv_kernel, dia_spmm_kernel, ell_spmv_kernel, bsr_spmm_kernel,
+               bsr_spmm_grouped_kernel):
         zero_counts(fn)
-    for fn in (bsr_spmm_kernel, bsr_spmm_grouped_kernel, sort_rows_kernel):
-        fn.launches = 0
+    sort_rows_kernel.launches = 0
     dia_spmm_kernel.launches_vector = dia_spmm_kernel.launches_scalar = 0
     for fn in (bsr_spmm_kernel, bsr_spmm_grouped_kernel):
         fn.launches_tc = fn.launches_tf32x3 = 0
@@ -1782,6 +1858,9 @@ FORM_GATE_LIMIT = {BF16: BF16_GATE_LIMIT, F16: 2.0**-10, torch.float32: 1e-6, to
 # the forms phase 3 gated first: float32, float64 and PR 11's bfloat16 ones
 BASE_FORMS = ("f32", "f64", "bf16", "bf16_f32")
 NEW_FORMS = tuple(pair for pair, form in FORMS.items() if form not in BASE_FORMS)
+# the K3/K4 forms other than float32, float64 and bfloat16 (those that
+# phases 3, 4 and 5c held first): thirteen (blocks, X) pairs
+NEW_K3_FORMS = tuple(pair for pair, form in FORMS.items() if form not in ("f32", "f64", "bf16"))
 # CG's stop in phase 5k: in float32 at 1024² the recursive residual
 # reaches about 1e-6·‖b‖
 BF16_CG_TOL = 1e-5
@@ -2316,6 +2395,236 @@ def phase_main_forms(mesh, lap_spmv, random8):
     log(f"5l: {row['phase_s']!r} s (budget {FORMS_PHASE_BUDGET_S} s)")
     return launches, row
 
+# ---------------------------------------------------------------------------
+# K3 and K4 in every form (phases 3, 4 and 5m)
+# ---------------------------------------------------------------------------
+
+
+def form_bsr(bsr, dtype):
+    """``bsr`` with its blocks rounded to ``dtype``."""
+    return BsrMat(bsr.brows, bsr.bcols, bsr.blocks.to(dtype), bsr.shape, bsr.n_blocks)
+
+
+def k3_launches(form):
+    """{(kernel line name, form): launches} of K3 and K4 in ``form`` since
+    the counts were set to 0: K3 under its variant's name (the rule gives
+    one variant per form at the shapes phase 5m runs), K4 under its own."""
+    kind = "tc" if form == FORMS[(F16, F16)] else "tf32x3"
+    return {(f"bsr_spmm_{kind}", form): getattr(bsr_spmm_kernel, f"launches_{form}"),
+            ("bsr_spmm_grouped", form): getattr(bsr_spmm_grouped_kernel, f"launches_{form}")}
+
+
+def gate_grad_bsr_form(data_dtype, x_dtype):
+    """The backward of K3 in one form on the card against ``bsr_vjp`` on
+    the CPU: dblocks in the blocks' type and dX in X's, each within the
+    limit of its type."""
+    bsr = form_bsr(bsr_random(11, (300, 260), 8, 0.3, torch.float32, device=DEVICE), data_dtype)
+    x = rhs_block(260, 20, x_dtype, 12)
+    g = rhs_block(300, 20, torch.promote_types(data_dtype, x_dtype), 13)
+    blocks = bsr.blocks.clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    y = bsr_spmm_kernel(BsrMat(bsr.brows, bsr.bcols, blocks, bsr.shape, bsr.n_blocks), xg)
+    db, dx = torch.autograd.grad(y, (blocks, xg), g)
+    cpu = BsrMat(bsr.brows.cpu(), bsr.bcols.cpu(), bsr.blocks.cpu(), bsr.shape, bsr.n_blocks)
+    db_c, dx_c = k3.bsr_vjp(cpu, cpu.blocks, x.cpu(), g.cpu())
+    if (db.dtype, dx.dtype) != (data_dtype, x_dtype) or (db_c.dtype, dx_c.dtype) != (data_dtype, x_dtype):
+        raise AssertionError(f"grad K3 {FORMS[(data_dtype, x_dtype)]}: dblocks {db.dtype}, dX {dx.dtype}")
+    return max(
+        check_rel(f"grad K3 {label} (bs 8, {FORM_LABEL[FORMS[(data_dtype, x_dtype)]]})",
+                  float((a.cpu().double() - b.double()).abs().max()), float(b.double().abs().max()),
+                  BSR_GATE_LIMIT[a.dtype])
+        for label, a, b in (("dblocks", db, db_c), ("dX", dx, dx_c)))
+
+
+def phase_gate_k3_forms():
+    """Phase 3's gates of K3 and K4 in the thirteen forms of NEW_K3_FORMS,
+    each against the plain version, at block sizes 16 and 128: the
+    1000×900 shape at k = 201, 256 and 1, an X off a 16-byte boundary, a
+    sliced and unsorted operand, an empty block row, the K4 repack at
+    group 4, and block magnitudes over WIDE_EXPONENTS; inf and NaN in the
+    blocks and in X; the backward against ``bsr_vjp`` on the CPU.  Each
+    gate checks the variant the rule picks (the wgmma one for (f16, f16)
+    on aligned X at bs 128), the form that launched, and the form's TF32
+    passes (1 + its operands wider than 16 bits)."""
+    t0 = time.perf_counter()
+    for data_dtype, x_dtype in NEW_K3_FORMS:
+        form = FORMS[(data_dtype, x_dtype)]
+        passes = k3.tf32_passes(data_dtype, x_dtype)
+        if passes != 1 + (data_dtype.itemsize > 2) + (x_dtype.itemsize > 2):
+            raise AssertionError(f"gate {form}: the rule takes {passes} TF32 passes")
+        for bs in K3_FORM_BLOCK_SIZES:
+            big = form_bsr(bsr_random(80 + bs, (1000, 900), bs, 0.3, torch.float32, device=DEVICE),
+                           data_dtype)
+            x = rhs_block(900, 256, x_dtype, 81)
+
+            def expect(xx):
+                tc = (data_dtype == x_dtype and bs in TC_BLOCK_SIZES and xx.shape[1] % 8 == 0
+                      and xx.data_ptr() % 16 == 0)
+                return "tc" if tc else "tf32x3"
+
+            label = f"bs{bs} {FORM_LABEL[form]} ({passes} TF32 passes off wgmma)"
+            for k in (201, 256, 1):
+                xk = x[:, :k].contiguous()
+                gate_bsr(f"K3 {label} 1000x900 k={k}", bsr_spmm_kernel, big, xk, expect=expect(xk))
+            mis = misaligned_copy(x)
+            gate_bsr(f"K3 {label} misaligned X", bsr_spmm_kernel, big, mis, expect=expect(mis))
+            gate_bsr(f"K3 {label} sliced+unsorted", bsr_spmm_kernel, unsorted_slice(big, 82), x,
+                     expect=expect(x))
+            gate_bsr(f"K3 {label} empty block row", bsr_spmm_kernel, without_row_one(big), x,
+                     expect=expect(x))
+            gate_bsr(f"K4 {label} group 4", lambda b, v: bsr_spmm_grouped_kernel(b, v, 4),
+                     bsr_group(big, 4), x, counter=bsr_spmm_grouped_kernel, expect=expect(x))
+            lo, hi = WIDE_EXPONENTS.get(data_dtype, (-20, 20))
+            gate_bsr(f"K3 {label} magnitudes 2^{lo}..2^{hi}", bsr_spmm_kernel,
+                     wide_magnitude(big, 86), x, expect=expect(x))
+        gate_nonfinite(data_dtype, x_dtype)
+        gate_nonfinite(data_dtype, x_dtype, in_x=True)
+        key = ("bsr_spmm_tf32x3", form)
+        FORM_ERRS[key].append(gate_grad_bsr_form(data_dtype, x_dtype))
+    log(f"gate K3/K4 forms: {len(NEW_K3_FORMS)} forms in {time.perf_counter() - t0!r} s")
+
+
+def phase_timing_k3_forms():
+    """Phase 4's rows of K3 and K4 in the thirteen forms of NEW_K3_FORMS
+    at the K3 cell (n = 4096, k = 512, bs = 128, density 0.125: phase 4's
+    float32 operand and X rounded to each form's types), K4 on its
+    ``bsr_group`` repack at group 8.  Returns {(kernel line name, form):
+    row}."""
+    t0 = time.perf_counter()
+    rows = {}
+    bsr32 = bsr_random(40, (BSR_N, BSR_N), BSR_BS, BSR_DENSITIES[0], torch.float32, device=DEVICE)
+    x64 = rhs_block(BSR_N, BSR_K, torch.float64, 41)
+    for data_dtype in dict.fromkeys(d for d, _ in NEW_K3_FORMS):
+        bsr = form_bsr(bsr32, data_dtype)
+        grouped = bsr_group(bsr, BSR_GROUP)
+        for d, x_dtype in NEW_K3_FORMS:
+            if d != data_dtype:
+                continue
+            form = FORMS[(d, x_dtype)]
+            x = x64.to(x_dtype)
+            shape = f"n={BSR_N} k={BSR_K} bs={BSR_BS} density {BSR_DENSITIES[0]} {FORM_LABEL[form]}"
+            row = timing_bsr(shape, "bsr_spmm", bsr_spmm_kernel, bsr, x, reps=20)
+            rows[(f"bsr_spmm_{row['variant']}", form)] = row
+            rows[("bsr_spmm_grouped", form)] = timing_bsr(
+                f"{shape} group {BSR_GROUP}", "bsr_spmm_grouped",
+                lambda b, v: bsr_spmm_grouped_kernel(b, v, BSR_GROUP), grouped, x, reps=20, product=bsr)
+    log(f"timing K3/K4 forms: {len(rows)} rows in {time.perf_counter() - t0!r} s")
+    return rows
+
+
+def check_close(name, y, ref, dtype, limit):
+    """``y`` of type ``dtype`` and the shape of ``ref``, finite, within
+    ``limit`` of max|ref|."""
+    if y.dtype != dtype or y.shape != ref.shape or not bool(torch.isfinite(y).all()):
+        raise AssertionError(f"{name}: bad output {tuple(y.shape)} {y.dtype}")
+    return check_rel(name, float((y.double() - ref.double()).abs().max()), float(ref.double().abs().max()),
+                     limit)
+
+
+def phase_main_bsr_forms(c_bsr):
+    """Phase 5m (see the module note): block-sparse products in the
+    production mixes at full width.  Returns {(kernel line name, form):
+    launches}, the float32 launches of K3 that (a) times beside them,
+    and the bsr_forms line."""
+    t_phase = time.perf_counter()
+    row = {}
+    bsr32 = bsr_random(64, (BSR_N, BSR_N), BSR_BS, BSR_DENSITIES[0], torch.float32, device=DEVICE)
+    x32 = rhs_block(BSR_N, BSR_K, torch.float32, 65)
+    bsr_bf = form_bsr(bsr32, BF16)
+    dense_bf = bsr_bf.to_dense().float()
+    want = dense_bf @ x32
+    g = rhs_block(BSR_N, BSR_K, torch.float32, 66)
+    chain_x = rhs_block(c_bsr.cols, CHAIN_K, torch.float32, 95)
+    chain_bf = form_bsr(c_bsr, BF16)
+    chain_x64 = chain_x.double()
+    bsr16 = form_bsr(bsr32, F16)
+    x16 = x32.to(F16)
+    want16 = bsr16.to_dense().float() @ x16.float()
+    rest = [pair for pair in NEW_K3_FORMS if FORMS[pair] not in ("bf16_f32", "f32_f64", "f16")]
+    rest_ops = {d: form_bsr(bsr32, d) for d in dict.fromkeys(d for d, _ in NEW_K3_FORMS)}
+    grouped = {d: bsr_group(op, BSR_GROUP) for d, op in rest_ops.items()}
+    sync()
+    reset_counts()
+    # a. bf16-stored blocks, f32 inputs (K3 (bf16, f32), 2 passes), timed
+    #    beside the f32-stored product, then one backward through @
+    y = bsr_bf @ x32
+    ms_bf = time_ms(lambda: bsr_bf @ x32, K3_MAIN_REPS)
+    ms_32 = time_ms(lambda: bsr32 @ x32, K3_MAIN_REPS)
+    blocks = bsr_bf.blocks.clone().requires_grad_(True)
+    xg = x32.clone().requires_grad_(True)
+    db, dx = torch.autograd.grad(BsrMat(bsr_bf.brows, bsr_bf.bcols, blocks, bsr_bf.shape,
+                                        bsr_bf.n_blocks) @ xg, (blocks, xg), g)
+    # b. the dense chain's C_bsr stored in bf16, f32 X
+    y_chain = chain_bf @ chain_x
+    # c. f32-stored C_bsr, f64 X: the @ (XLA type f32) and the kernel (Pallas type f64)
+    y_at = c_bsr @ chain_x64
+    y_k = bsr_spmm_kernel(c_bsr, chain_x64)
+    # d. (f16, f16) through the wgmma variant, timed
+    y16 = bsr16 @ x16
+    ms_16 = time_ms(lambda: bsr16 @ x16, K3_MAIN_REPS)
+    # e. one product per remaining form through @, and K4 in every form
+    ys = {pair: rest_ops[pair[0]] @ x32.to(pair[1]) for pair in rest}
+    ys4 = {pair: bsr_spmm_grouped_kernel(grouped[pair[0]], x32.to(pair[1]), group=BSR_GROUP)
+           for pair in NEW_K3_FORMS}
+    sync()
+    wall = time.perf_counter() - t_phase
+    launches = {}
+    for form in (FORMS[pair] for pair in NEW_K3_FORMS):
+        launches.update(k3_launches(form))
+    f32_launches = bsr_spmm_kernel.launches_f32
+    plain = bsr_spmm_plain.calls
+    timed = 1 + 3 + K3_MAIN_REPS  # the checked call, time_ms' warm-up and its reps
+    expected = {key: 1 for key in launches}
+    expected[("bsr_spmm_tf32x3", "bf16_f32")] = timed + 1 + 1  # + the backward's forward, the chain
+    expected[("bsr_spmm_tf32x3", "f32_f64")] = 2
+    expected[("bsr_spmm_tc", "f16")] = timed
+    log(f"5m: launches {json.dumps({f'{k}/{f}': n for (k, f), n in launches.items()})}, "
+        f"f32-stored {f32_launches}, plain calls {plain}")
+    if launches != expected or f32_launches != 3 + K3_MAIN_REPS or plain != 0:
+        raise AssertionError(f"5m: launches {launches}, expected {expected}; f32 {f32_launches}; "
+                             f"plain calls {plain}")
+    if bsr_spmm_kernel.launches_tc != expected[("bsr_spmm_tc", "f16")]:
+        raise AssertionError(f"5m: {bsr_spmm_kernel.launches_tc} wgmma launches")
+
+    errs = {}
+    errs["a"] = check_close("5m a: bf16 blocks @ f32 X", y, want, torch.float32, 1e-5)
+    dx_ref = dense_bf.T @ g
+    full = g @ x32.T  # every block's G[brow] @ X[bcol]ᵀ, as a dense (n, n)
+    db_ref = full.reshape(BSR_N // BSR_BS, BSR_BS, BSR_N // BSR_BS, BSR_BS).transpose(1, 2)[
+        bsr_bf.brows.long(), bsr_bf.bcols.long()]
+    errs["a_dX"] = check_close("5m a: dX (f32)", dx, dx_ref, torch.float32, 1e-5)
+    errs["a_dblocks"] = check_close("5m a: dblocks (bf16)", db, db_ref, BF16, 2.0**-7)
+    del dense_bf, full, db_ref
+    errs["b"] = check_close("5m b: bf16 C_bsr @ f32 X", y_chain, bsr_spmm_plain(chain_bf, chain_x),
+                            torch.float32, 1e-5)
+    same = y_k.dtype == torch.float64 and torch.equal(y_at.double(), y_k)
+    errs["c"] = check_close("5m c: f32 C_bsr @ f64 X (the @'s float32)", y_at,
+                            bsr_spmm_plain(c_bsr, chain_x64), torch.float32, 1e-5)
+    log(f"5m c: the kernel's {y_k.dtype} equal in value to the @'s {y_at.dtype}: {same}")
+    if not same:
+        raise AssertionError("5m c: @ and bsr_spmm_kernel differ in value")
+    errs["d"] = check_close("5m d: (f16, f16) @ (wgmma)", y16, want16, F16, 2.0**-10)
+    # e: @ gives float32 for a mixed pair (the JAX @'s type), K4 promote(blocks, X)
+    for tag, (d, xd), yy in [("@", pair, yy) for pair, yy in ys.items()] + [
+            ("K4", pair, yy) for pair, yy in ys4.items()]:
+        out = torch.promote_types(d, xd) if tag == "K4" else torch.float32
+        errs[f"e {tag} {FORMS[(d, xd)]}"] = check_close(
+            f"5m e: {tag} ({str(d)[6:]}, {str(xd)[6:]}) -> {str(out)[6:]}", yy,
+            bsr_spmm_plain(rest_ops[d], x32.to(xd)), out, BSR_GATE_LIMIT[out])
+    del ys, ys4, y_chain, y_at, y_k
+    row.update({
+        "shape": f"n={BSR_N} k={BSR_K} bs={BSR_BS} density {BSR_DENSITIES[0]}; C_bsr {c_bsr.rows}^2 "
+                 f"bs {c_bsr.block_size} ({c_bsr.n_blocks} blocks) @ X k={CHAIN_K}",
+        "bf16_f32_ms": ms_bf, "f32_ms": ms_32, "f16_tc_ms": ms_16, "c_equal": same,
+        "launches": {f"{k}/{f}": n for (k, f), n in launches.items()}, "f32_launches": f32_launches,
+        "max_abs_err": errs, "wall_s": wall,
+    })
+    row["phase_s"] = time.perf_counter() - t_phase
+    row["phase_budget_s"] = K3_FORMS_PHASE_BUDGET_S
+    log(f"5m: (bf16, f32) @ {ms_bf!r} ms against f32-stored {ms_32!r} ms, (f16, f16) {ms_16!r} ms; "
+        f"{row['phase_s']!r} s (budget {K3_FORMS_PHASE_BUDGET_S} s)")
+    return launches, f32_launches, row
+
 
 def phase_determinism(mesh):
     """Sums by index on the card: each product run twice on one input,
@@ -2481,7 +2790,7 @@ def phase_spgemm():
     """Phase 4's SpGEMM rows and phase 5f's SpGEMM checks at the JAX
     bench's points; at the densest one the forced-chunk run, the dense
     route with the break-even it gives, and the chain C_bsr @ X through
-    K3.  Returns (rows, K3's 3xTF32 launches on the chain)."""
+    K3.  Returns (rows, K3's 3xTF32 launches on the chain, C_bsr)."""
     rows = []
     for shape_a, shape_b, density in SPGEMM_POINTS[:-1]:
         row, *_ = spgemm_point(shape_a, shape_b, density)
@@ -2531,7 +2840,7 @@ def phase_spgemm():
     log(f"timing spgemm {json.dumps(row)}")
     rows.append(row)
     launches = phase_main_dense_chain(c_bsr, c)
-    return rows, launches
+    return rows, launches, c_bsr
 
 
 def phase_main_dense_chain(c_bsr, c_esc):
@@ -3612,8 +3921,10 @@ def main() -> int:
     timing.update(phase_timing_unstructured(mesh_a, random8))
     phase_gate_bf16(lap_spmv, mesh_a, random8)
     phase_gate_forms(random8)
+    phase_gate_k3_forms()
     form_rows = phase_timing_bf16(lap_spmv, random8)
     form_rows.update(phase_timing_forms(lap_spmv, random8))
+    form_rows.update(phase_timing_k3_forms())
     del mesh_a  # random8 stays for phase 5k
 
     check_small_against_dense()
@@ -3639,7 +3950,16 @@ def main() -> int:
     determinism = phase_determinism(mesh)
     for kname, n in phase_eigen_checks().items():
         launches[kname] += n
-    spgemm_rows, chain_launches = phase_spgemm()
+    spgemm_rows, chain_launches, c_bsr = phase_spgemm()
+    k3_more, f32_launches, bsr_forms_row = phase_main_bsr_forms(c_bsr)
+    bsr_forms_row["card"] = smi
+    del c_bsr
+    launches["bsr_spmm_tf32x3"] += f32_launches
+    for (kname, form), n in k3_more.items():
+        if n == 0:
+            raise AssertionError(f"phase 5m launched no {kname} kernel in its {form} form")
+        launches[kname] += n
+    form_launches.update(k3_more)
     k5, k1, lap2 = phase_main_biharmonic()
     check_small_sparse_ops()
     for kname, n in (("bsr_spmm_tf32x3", chain_launches), ("ell_spmv", k5), ("dia_spmv", k1)):
@@ -3703,7 +4023,9 @@ def main() -> int:
             {"form": FORM_LABEL[form], "launches": form_launches[(kname, form)],
              "max_abs_err": max(FORM_ERRS[(kname, form)]),
              **{key: frow[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-                                           "roofline_share", "library_ms", "library_error")}}
+                                           "roofline_share", "library_ms", "library_error")},
+             **{key: frow[key] for key in ("variant", "passes", "torch_bsr_ms", "torch_bsr_error")
+                if key in frow}}
             for (k, form), frow in form_rows.items() if k == kname
         ]
         if forms:
@@ -3714,6 +4036,7 @@ def main() -> int:
     print(json.dumps({"distributed": dist_row}))
     print(json.dumps({"bf16_solvers": bf16_row}))
     print(json.dumps({"forms_solvers": forms_row}))
+    print(json.dumps({"bsr_forms": bsr_forms_row}))
     print(json.dumps({"determinism": determinism, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(

@@ -126,7 +126,8 @@ def matmul(lhs, rhs, **kw):
 
     * ``BsrMat @ dense`` runs the block kernel K3 (on a CUDA tensor, at
       every block order: the kernel walks a row pointer, so it does not
-      need the blocks sorted by row); ``CsMat @ dense`` runs ``spmv`` or
+      need the blocks sorted by row) and returns the JAX ``@``'s type,
+      X's where the blocks share it, else float32; ``CsMat @ dense`` runs ``spmv`` or
       ``spmm``.  A dense ``rhs`` that is not a tensor goes to ``lhs``'s
       device.
     * ``CsMat @ CsMat`` is :func:`spgemm` (ESC); ``kw`` goes to it.
@@ -145,7 +146,11 @@ def matmul(lhs, rhs, **kw):
         rhs = as_tensor(rhs, device=lhs.device)
         if rhs.ndim not in (1, 2):
             raise ShapeError(f"matmul: rhs ndim {rhs.ndim} unsupported")
-        return bsr_spmv_kernel(lhs, rhs) if rhs.ndim == 1 else bsr_spmm_kernel(lhs, rhs)
+        y = bsr_spmv_kernel(lhs, rhs) if rhs.ndim == 1 else bsr_spmm_kernel(lhs, rhs)
+        # the JAX ``@``'s type (``bsr_spmm_xla``): X's where blocks and X
+        # share it, else float32; the kernel's float32 sums, held in
+        # promote(blocks, X), cast to it exactly
+        return y if rhs.dtype == lhs.dtype else y.to(torch.float32)
     if isinstance(lhs, CsMat):
         if isinstance(rhs, BsrMat):
             return spgemm_dense_bsr(lhs, rhs, block_size=rhs.block_size, **kw)

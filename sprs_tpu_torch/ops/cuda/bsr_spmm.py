@@ -15,15 +15,21 @@ about it.  This module holds what surrounds it:
 * a ``torch.autograd.Function`` whose backward (:func:`bsr_vjp`) is the
   plain torch form of the JAX package's ``_spmm_bwd``.
 
-The plain version is ``formats/bsr.py::bsr_spmm_plain``.  Each wrapper
-takes it for tensors on the CPU; tensors on a CUDA device launch a
-kernel or raise — never both.  The source has two kernels, both on the
-tensor cores, and :func:`variant` picks one by an explicit rule: the
-wgmma kernel ("tc": bfloat16, block size 64 or 128, k a multiple of 8,
-X and the blocks 16-byte aligned, as TMA needs) or the 3xTF32 kernel
-("tf32x3": everything else, float32 and float64 among it, in three TF32
-passes that hold float32 accuracy; bfloat16 in one).  Each wrapper's
-``launches`` counts its launches, and ``launches_tc`` and
+Every (blocks, X) pair of float16, bfloat16, float32 and float64 is a
+form (``forms.FORMS``).  As in the Pallas kernels, products and sums are
+taken in float32 and Y has the type promote(blocks, X), rounded once.
+The plain version is ``formats/bsr.py::bsr_spmm_plain`` (the counterpart
+of the JAX ``bsr_spmm_xla``, whose output type is X's where blocks and X
+share it, else float32); each wrapper takes it for tensors on the CPU and
+casts its float32 sums to promote(blocks, X), exactly.  Tensors on a CUDA
+device launch a kernel or raise — never both.  The source has two
+kernels, both on the tensor cores, and :func:`variant` picks one by an
+explicit rule: the wgmma kernel ("tc": float16 or bfloat16 blocks and X
+of one type, block size 64 or 128, k a multiple of 8, X and the blocks
+16-byte aligned, as TMA needs) or the TF32 kernel ("tf32x3": every other
+case, in the number of TF32 passes that :func:`tf32_passes` gives the
+form).  Each wrapper's ``launches`` counts its launches,
+``launches_<form>`` those of each form, and ``launches_tc`` and
 ``launches_tf32x3`` those of each variant.  The kernels read the
 block-row pointer that :attr:`BsrMat.row_order` builds once per matrix,
 so they take the blocks in any order.  The launch configuration is
@@ -44,6 +50,7 @@ from ...errors import ShapeError
 from ...formats.bsr import BsrMat, bsr_spmm_plain
 from ...formats.util import INDEX_DTYPE
 from . import build
+from .forms import FORMS, HALVES, count_launch, form_of, zero_counts
 
 THREADS = 512  # 16 warps in the 3xTF32 kernel (csrc/bsr_spmm.cu: kTf32Threads)
 TILE_N = 128  # output columns per CTA of both kernels (kTf32TileN, kTcTileN)
@@ -51,21 +58,33 @@ BLOCK_MULTIPLE = 8  # block sizes are multiples of an MMA's depth
 MAX_BLOCK = 128
 TC_BLOCK_SIZES = (64, 128)  # one or two 64-row wgmma tiles
 
-_ENTRY = {
-    torch.float32: "sprs_bsr_spmm_tf32x3_f32",
-    torch.bfloat16: "sprs_bsr_spmm_tf32x3_bf16",
-    torch.float64: "sprs_bsr_spmm_tf32x3_f64",
-}
-_TC_ENTRY = "sprs_bsr_spmm_tc_bf16"
+# (blocks dtype, X dtype) -> the TF32 kernel's entry point of that form
+_ENTRY = {pair: f"sprs_bsr_spmm_tf32x3_{form}" for pair, form in FORMS.items()}
+_TC_ENTRY = {torch.bfloat16: "sprs_bsr_spmm_tc_bf16", torch.float16: "sprs_bsr_spmm_tc_f16"}
 
 
-def variant(dtype: torch.dtype, bs: int, k: int, x_ptr: int, blocks_ptr: int) -> str:
-    """"tc" (the wgmma kernel) for bfloat16 at block size 64 or 128
-    when TMA can read X and the blocks: rows of X of whole 16 bytes (k a
-    multiple of 8) and both starting on 16-byte boundaries; else
-    "tf32x3"."""
+def tf32_passes(blocks_dtype: torch.dtype, x_dtype: torch.dtype) -> int:
+    """The TF32 passes the "tf32x3" kernel takes for a form: one, plus one
+    for each operand wider than 16 bits.  A 16-bit value is exact in TF32
+    (its 8- or 11-bit significand fits TF32's 11 bits, float16's
+    subnormals included), so its low part is 0 and only a wider operand
+    adds a pass (hi·hi, then lo·hi for each split side); float64 operands
+    are rounded to float32 first, as the Pallas kernel's float32 products
+    take them.  The C entry table of ``csrc/bsr_spmm.cu`` mirrors this."""
+    return 1 + sum(t not in HALVES for t in (blocks_dtype, x_dtype))
+
+
+def variant(
+    dtype: torch.dtype, bs: int, k: int, x_ptr: int, blocks_ptr: int, x_dtype: torch.dtype = None
+) -> str:
+    """"tc" (the wgmma kernel) for float16 or bfloat16 blocks (``dtype``)
+    and X (``x_dtype``, the blocks' type where not given) of one type, at
+    block size 64 or 128, when TMA can read X and the blocks: rows of X
+    of whole 16 bytes (k a multiple of 8) and both starting on 16-byte
+    boundaries; else "tf32x3"."""
     if (
-        dtype == torch.bfloat16
+        dtype in HALVES
+        and (x_dtype is None or x_dtype == dtype)
         and bs in TC_BLOCK_SIZES
         and k % 8 == 0
         and x_ptr % 16 == 0
@@ -87,7 +106,7 @@ def launch_config(n_block_rows: int, k: int, kind: str, bs: int) -> Tuple[Tuple[
 def _entry(name: str):
     fn = getattr(build.load("bsr_spmm"), name)
     ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-    if name == _TC_ENTRY:
+    if name in _TC_ENTRY.values():
         fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, i, ll, i, i, vp]
     else:
         fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, i, vp]
@@ -105,11 +124,7 @@ def _launch(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, counter) -> torc
             f"bsr_spmm kernel needs blocks and X on one CUDA device, got "
             f"{blocks.device} and {x.device}"
         )
-    if blocks.dtype not in _ENTRY or x.dtype != blocks.dtype:
-        raise TypeError(
-            f"bsr_spmm kernel takes float32, bfloat16 or float64 blocks and "
-            f"X of the same type, got {blocks.dtype} and {x.dtype}"
-        )
+    form = form_of("bsr_spmm", blocks, x)
     bs = bsr.block_size
     if bs % BLOCK_MULTIPLE or not BLOCK_MULTIPLE <= bs <= MAX_BLOCK:
         raise ShapeError(
@@ -119,11 +134,11 @@ def _launch(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, counter) -> torc
     if not (blocks.is_contiguous() and x.is_contiguous() and bsr.bcols.is_contiguous()):
         raise ValueError("bsr_spmm kernel needs contiguous blocks, bcols and X")
     k = x.shape[1]
-    y = torch.empty((bsr.rows, k), dtype=x.dtype, device=x.device)
+    y = torch.empty((bsr.rows, k), dtype=torch.promote_types(blocks.dtype, x.dtype), device=x.device)
     if bsr.rows == 0 or k == 0:
         return y
     row_ptr, order = bsr.row_order
-    kind = variant(x.dtype, bs, k, x.data_ptr(), blocks.data_ptr())
+    kind = variant(blocks.dtype, bs, k, x.data_ptr(), blocks.data_ptr(), x.dtype)
     (gx, gy), _ = launch_config(bsr.n_block_rows, k, kind, bs)
     args = [
         blocks.data_ptr(),
@@ -137,13 +152,14 @@ def _launch(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, counter) -> torc
         k,
         bs,
     ]
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     if kind == "tc":
-        err = _entry(_TC_ENTRY)(*args, bsr.cap, gx, gy, torch.cuda.current_stream(x.device).cuda_stream)
+        err = _entry(_TC_ENTRY[x.dtype])(*args, bsr.cap, gx, gy, stream)
     else:
-        err = _entry(_ENTRY[x.dtype])(*args, gx, gy, torch.cuda.current_stream(x.device).cuda_stream)
+        err = _entry(_ENTRY[(blocks.dtype, x.dtype)])(*args, gx, gy, stream)
     if err != 0:
-        raise RuntimeError(f"bsr_spmm kernel ({kind}) launch failed: CUDA error {err}")
-    counter.launches += 1
+        raise RuntimeError(f"bsr_spmm kernel ({kind}, {form}) launch failed: CUDA error {err}")
+    count_launch(counter, form)
     if kind == "tc":
         counter.launches_tc += 1
     else:
@@ -176,7 +192,7 @@ class _BsrSpmm(torch.autograd.Function):
         ctx.save_for_backward(blocks, x)
         ctx.bsr = bsr
         if blocks.device.type == "cpu" and x.device.type == "cpu":
-            return bsr_spmm_plain(bsr, x)
+            return bsr_spmm_plain(bsr, x).to(torch.promote_types(blocks.dtype, x.dtype))
         return _launch(bsr, blocks, x, counter)
 
     @staticmethod
@@ -193,12 +209,12 @@ def _apply(bsr: BsrMat, x: torch.Tensor, counter) -> torch.Tensor:
 
 
 def bsr_spmm_kernel(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X through K3; X is dense, (cols, k).  Differentiable in
-    ``bsr.blocks`` and ``X``."""
+    """Y = A @ X through K3; X is dense, (cols, k); Y has the type
+    promote(blocks, X).  Differentiable in ``bsr.blocks`` and ``X``."""
     return _apply(bsr, x, bsr_spmm_kernel)
 
 
-bsr_spmm_kernel.launches = 0
+zero_counts(bsr_spmm_kernel)
 bsr_spmm_kernel.launches_tc = 0
 bsr_spmm_kernel.launches_tf32x3 = 0
 
@@ -249,6 +265,6 @@ def bsr_spmm_grouped_kernel(bsr: BsrMat, x: torch.Tensor, group: int = 8) -> tor
     return _apply(bsr, x, bsr_spmm_grouped_kernel)
 
 
-bsr_spmm_grouped_kernel.launches = 0
+zero_counts(bsr_spmm_grouped_kernel)
 bsr_spmm_grouped_kernel.launches_tc = 0
 bsr_spmm_grouped_kernel.launches_tf32x3 = 0

@@ -1,12 +1,14 @@
 """The operand types that the real products K1 (``dia_spmv``), K2
-(``dia_spmm``) and K5 (``ell_spmv``) take on the card, and the rule their
-plain versions follow for 16-bit operands.
+(``dia_spmm``), K3/K4 (``bsr_spmm``) and K5 (``ell_spmv``) take on the
+card, and the rule K1's, K2's and K5's plain versions follow for 16-bit
+operands (K3's sums are float32 in every form: ``bsr_spmm.py``).
 
 Every (data, x) pair of float16, bfloat16, float32 and float64 is a form.
-As in the Pallas kernels, the output type is ``promote(data, x)`` and the
-products and sums run in ``promote(out, float32)``, rounded once to the
-output; (float16, float16) alone rounds each product to float16 before
-its float32 sum, as the Pallas kernels' float16 products do.  Each form
+As in the Pallas kernels, the output type is ``promote(data, x)``; K1's,
+K2's and K5's products and sums run in ``promote(out, float32)``, rounded
+once to the output, and (float16, float16) alone rounds each product to
+float16 before its float32 sum, as the Pallas kernels' float16 products
+do.  Each form
 is one C entry point of the kernel's source, named by its suffix here
 (``<data>_<x>``, or ``<t>`` where both are ``t``); any other pair (a
 complex or an integer operand) raises ``TypeError`` on the card.  Each
