@@ -11,11 +11,21 @@ opcodes counted by ``cuobjdump``) and timed in one process, in two
 rounds, by the profiler's device time per launch over 30 calls, after a
 check against the plain version (K6: bit for bit).  A candidate that
 does not build is reported and left out; the committed source or the
-baseline failing to build stops the run.  K1, K2 and K5 run in the forms
-of float32 and of 16-bit storage (``ops/cuda/forms.py``: (f32, f32),
-(f64, f64) for K2 and K5, and (t, t), (t, f32) for t bf16 and f16) where
-their source holds them; a source without a form's entry point (an
-earlier tree, the inline candidate) skips that form.  K3's design
+baseline failing to build stops the run.  K1 runs in the forms of
+float32 and of 16-bit storage (``ops/cuda/forms.py``: (f32, f32), and
+(t, t), (t, f32) for t bf16 and f16); K2 in all sixteen forms at
+chip_smoke.py's 2048×1024 grid with 128 RHS and at the 1024² float64
+grid with 24, 48 and 256 (and 3, the scalar variant against the
+baseline's), each case's bytes bound, plain-version time and
+``torch.sparse.mm`` time printed first ("yardstick" lines): the tma
+variant as committed against an earlier tree's vector variant
+(``--baseline``), against its neighbours (tile size, consumer warps, ring
+depth) and two diagnostic cuts (no Y stores; the centre slab alone); K5
+in f32 and 16-bit storage, in all sixteen forms at random8, and its
+gather probe: the committed kernel with the same launch and indices
+summing x[idx[i, s]] without ``data``, at random8 with x in f16, f32 and
+f64 (the gathers' ceiling, unchecked).  A source without a form's entry
+point (an earlier tree, the inline candidate) skips that form.  K3's design
 variants run its bf16, f32 and f64 cases; its thirteen other forms run
 as committed and with every form in three TF32 passes (the pass rule's
 cost on the same bytes).  Each build prints
@@ -24,7 +34,10 @@ ptxas' registers and spills per kernel instantiation, every form's
 
 Run from the repository root on a machine with one H100:
 ``python3 benches/torch_kernel_variants.py [--kernels k1 k2 k3 k5 k6]
-[--baseline DIR] [--sass]``.
+[--baseline DIR] [--sass] [--variants WORD ...] [--only WORD ...]``
+(``--variants``: the variants whose names hold one of the words;
+``--only``: the cases whose labels end in one of them, e.g. ``f32
+f64_f16 k=24``).
 """
 
 from __future__ import annotations
@@ -33,6 +46,7 @@ import argparse
 import collections
 import ctypes
 import functools
+import json
 import re
 import subprocess
 import sys
@@ -139,8 +153,38 @@ TF32_NO_FLUSH = [
 ]
 
 
-def min_blocks(n):
-    return ("constexpr int kMinBlocks = 3;", f"constexpr int kMinBlocks = {n};")
+# K2's tma variant: pairs per consumer thread (the tile's size), consumer
+# warps, ring depth; and two cuts that are not K2's function (unchecked): no Y
+# stores, and the centre slab alone (the far diagonals' slabs skipped by
+# producer and consumers)
+def tma_pairs(n):
+    return ("constexpr int kPairs = sizeof(Acc) == 8 ? 2 : 4;", f"constexpr int kPairs = {n};")
+
+
+def tma_warps(n):
+    return ("constexpr int kTmaConsumerWarps = 16;", f"constexpr int kTmaConsumerWarps = {n};")
+
+
+def tma_ctas(n):
+    return ("constexpr int kTmaCtasPerSm = 1;", f"constexpr int kTmaCtasPerSm = {n};")
+
+
+def tma_stages(n):
+    return ("constexpr int kMaxStages = 16;", f"constexpr int kMaxStages = {n};")
+
+
+TMA_NO_STORES = ("          dst[t] = out;", "          if (row < 0) dst[t] = out;")
+TMA_CENTRE_ONLY = ("for (int sl = 0; sl < plan.n_slabs; ++sl) {",
+                   "for (int sl = 0; sl < plan.n_slabs; ++sl) {\n      if ((plan.packed[sl] >> 16) == 0) continue;")
+
+
+# K5's gather ceiling: the committed kernel with the same launch and the
+# same indices, summing x[idx[i, s]] without reading ``data`` (its output
+# is not K5's function and is not checked)
+K5_GATHERS_ONLY = (
+    """        acc += mul<TD, TX, Acc>((Acc)Cvt<TD>::in(__ldg(&data[base + j])),
+                                (Acc)Cvt<TX>::in(__ldg(&x[c])));""",
+    """        acc += (Acc)Cvt<TX>::in(__ldg(&x[c]));""")
 
 
 def per_lane(n):
@@ -333,10 +377,16 @@ extern "C" int sprs_ell_spmv_f64(const void* indices, const void* data, const vo
 # Params: K3 (kind: "tc", "tf32x3" or "cuda_core"; columns per CTA; the
 # check against the plain version: "gate" raises past the gate, "report"
 # prints the error, None skips it; the case sets it runs on: "base", the
-# bf16, f32 and f64 shapes, and "forms", the thirteen other forms); K2 (CTAs per SM, rows per run); K5 (layout: "baseline", the
-# earlier C interface without `lanes` and a thread per row, "row", a
-# thread per row, or "group", a group of lanes per row; CTAs per SM); K6
-# (rows per CTA, CTAs per SM).
+# bf16, f32 and f64 shapes, and "forms", the thirteen other forms); K2
+# (kind: "tma" or "baseline" (an earlier tree's vector variant, PR 4's
+# design); the tma tile's 16-byte vectors of X (None: the committed rule,
+# "half": half of it); CTAs per SM; "unchecked" for a diagnostic cut); K5
+# (layout: "baseline", the earlier C interface
+# without `lanes` and a thread per row, "row", a thread per row, or
+# "group", a group of lanes per row; CTAs per SM; the case sets it runs:
+# "base", the mesh step and random8 in f32 and 16-bit storage, "forms",
+# random8 in all sixteen forms, "probe", random8 with x in f16, f32 and
+# f64); K6 (rows per CTA, CTAs per SM).
 VARIANTS = {
     "k1 as committed (thread per row)": ("k1", "dia_spmv", [], ()),
     "k3 wgmma as committed (4 stages, 1 CTA/SM)": ("k3", "bsr_spmm", [], ("tc", 128, "gate", ("base", "forms"))),
@@ -364,14 +414,22 @@ VARIANTS = {
         "k3", "bsr_spmm", [tf32_threads(256), TF32_NO_CHECK, TF32_FINITE_ONLY] + TF32_RUNTIME_DEPTH,
         ("tf32x3", 128, "gate", ("base",))),
     "k3 3xTF32 no partial sums": ("k3", "bsr_spmm", TF32_NO_FLUSH, ("tf32x3", 128, "report", ("base",))),
-    "k2 as committed (3 CTAs/SM, 4-row runs)": ("k2", "dia_spmm", [], (3, 4)),
-    "k2 2 CTAs/SM": ("k2", "dia_spmm", [min_blocks(2)], (2, 4)),
-    "k2 4 CTAs/SM": ("k2", "dia_spmm", [min_blocks(4)], (4, 4)),
-    "k2 2-row runs": ("k2", "dia_spmm", [("constexpr int kRun = 4; ", "constexpr int kRun = 2; ")], (3, 2)),
-    "k5 baseline (thread per row)": ("k5", "baseline:ell_spmv", [], ("baseline", 8)),
-    "k5 as committed (lane group per row)": ("k5", "ell_spmv", [], ("group", k5.BLOCKS_PER_SM)),
-    "k5 lane group per row, L2 cache policies": ("k5", "ell_spmv", K5_CACHE_POLICIES, ("group", 8)),
-    "k5 (b) thread per row, width template": ("k5", "inline:ell_row", [], ("row", 8)),
+    "k2 tma as committed": ("k2", "dia_spmm", [], ("tma", None, 1)),
+    "k2 baseline (vector and scalar)": ("k2", "baseline:dia_spmm", [], ("baseline", 0, 3)),
+    "k2 scalar as committed": ("k2", "dia_spmm", [], ("scalar", 0, 3)),
+    "k2 baseline scalar": ("k2", "baseline:dia_spmm", [], ("baseline scalar", 0, 3)),
+    "k2 tma 16 KB tiles in every form": ("k2", "dia_spmm", [tma_pairs(2)], ("tma", 1024, 1)),
+    "k2 tma 32 KB tiles in every form": ("k2", "dia_spmm", [tma_pairs(4)], ("tma", 2048, 1)),
+    "k2 tma 8 consumer warps": ("k2", "dia_spmm", [tma_warps(8)], ("tma", "half", 1)),
+    "k2 tma 8 stages": ("k2", "dia_spmm", [tma_stages(8)], ("tma", None, 1)),
+    "k2 tma diagnostic: no Y stores": ("k2", "dia_spmm", [TMA_NO_STORES], ("tma", None, 1, "unchecked")),
+    "k2 tma diagnostic: centre slab only": ("k2", "dia_spmm", [TMA_CENTRE_ONLY], ("tma", None, 1, "unchecked")),
+    "k5 baseline (thread per row)": ("k5", "baseline:ell_spmv", [], ("baseline", 8, ("base",))),
+    "k5 as committed (lane group per row)": ("k5", "ell_spmv", [], ("group", k5.BLOCKS_PER_SM, ("base", "forms"))),
+    "k5 probe: gathers of x only, no data": (
+        "k5", "ell_spmv", [K5_GATHERS_ONLY], ("group", k5.BLOCKS_PER_SM, ("probe",))),
+    "k5 lane group per row, L2 cache policies": ("k5", "ell_spmv", K5_CACHE_POLICIES, ("group", 8, ("base",))),
+    "k5 (b) thread per row, width template": ("k5", "inline:ell_row", [], ("row", 8, ("base",))),
     "k6 baseline (4 per lane, a warp per row)": ("k6", "baseline:sort_rows", [], (8, 8)),
     "k6 as committed (8 per lane, 2 rows per warp)": (
         "k6", "sort_rows", [], (k6.BLOCK // 32 * k6.ROWS_PER_WARP, k6.BLOCKS_PER_SM)),
@@ -403,7 +461,7 @@ def build_variants(names, baseline, sass=False):
         _, src, reps, _ = VARIANTS[name]
         path = OUT / f"v{i}.cu"
         path.write_text(source_text(name, src, reps, baseline))
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(OUT / f"libv{i}.so"), str(path)]
+        cmd = build.nvcc_command(path, OUT / f"libv{i}.so")
         procs[name] = (i, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (i, proc) in procs.items():
@@ -415,39 +473,13 @@ def build_variants(names, baseline, sass=False):
             print(f"nvcc failed for {name}, left out:\n{log}", flush=True)
             continue
         print(f"built {name}", flush=True)
-        for fn, props in ptxas_report(log):
-            print(f"ptxas {name}: {fn}: {props}", flush=True)
+        for fn, regs, stores, loads in build.ptxas_report(log):
+            print(f"ptxas {name}: {fn}: {regs} registers, {stores} bytes spill stores, "
+                  f"{loads} bytes spill loads", flush=True)
         libs[name] = ctypes.CDLL(str(OUT / f"libv{i}.so"))
         if sass:
             print(f"sass {name}: {sass_opcodes(OUT / f'libv{i}.so')}", flush=True)
     return libs
-
-
-def ptxas_report(log):
-    """(kernel, "N registers, S bytes spill stores, L bytes spill loads")
-    for each kernel instantiation in nvcc's ``-Xptxas=-v`` output, the
-    names demangled by ``cu++filt`` where the toolkit has it."""
-    spills, regs, current = {}, {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line) or re.search(
-            r"Function properties for (\S+)", line)
-        if m:
-            current = m.group(1)
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m and current:
-            spills[current] = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and current:
-            regs[current] = int(m.group(1))
-    names = list(regs)
-    filt = Path(build._nvcc()).with_name("cu++filt")
-    shown = names
-    if names and filt.exists():
-        out = subprocess.run([str(filt)], input="\n".join(names), capture_output=True, text=True).stdout
-        shown = out.splitlines() if len(out.splitlines()) == len(names) else names
-    return [(show, f"{regs[n]} registers, {spills.get(n, (0, 0))[0]} bytes spill stores, "
-                   f"{spills.get(n, (0, 0))[1]} bytes spill loads") for n, show in zip(names, shown)]
 
 
 def sass_opcodes(lib):
@@ -523,17 +555,40 @@ def k1_call(lib, dia, x):
     return y
 
 
-def k2_call(lib, dia, x, blocks_per_sm, run):
+def k2_call(lib, dia, x, kind, tile_vectors, ctas_per_sm):
+    """One launch of a K2 kind: "tma" (tiles of at most ``tile_vectors``
+    16-byte vectors of X: None for the committed rule, "half" for half of
+    it; ``ctas_per_sm`` persistent CTAs an SM) or "baseline" (an earlier
+    tree's vector variant, PR 4's design, whose entry has no
+    ``tile_cols``: ``ctas_per_sm`` CTAs an SM of runs of 4 rows, 2 for
+    16-bit X), "scalar" or "baseline scalar" (the scalar variant of the
+    committed source or of an earlier tree)."""
     fn = entry(lib, "dia_spmm", dia.data, x)
-    fn.argtypes = [VP, VP, VP, LL, LL, LL, LL, VP, I, I, I, I, VP]
     k = x.shape[1]
     y = torch.empty((dia.rows, k), dtype=out_dtype(dia.data, x), device=x.device)
-    runs = max(k2.THREADS // (k * x.element_size() // k2.VECTOR_BYTES), 1)
+    per_vec = k2.VECTOR_BYTES // x.element_size()
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = min(-(-dia.rows // (runs * run)), n_sm * blocks_per_sm)
+    if kind == "tma":
+        if tile_vectors in (None, "half"):
+            vectors = k2.tile_vectors(k2.acc_itemsize(dia.dtype, x.dtype))
+            tile_vectors = vectors // 2 if tile_vectors == "half" else vectors
+        chunks = -(-k // k2.MAX_TILE_COLS)
+        tile_cols = -(-(-(-k // chunks)) // per_vec) * per_vec
+        tile_rows = min(k2.MAX_TILE_ROWS, tile_vectors * per_vec // tile_cols) // 8 * 8
+        grid = min(-(-dia.rows // tile_rows) * -(-k // tile_cols), n_sm * ctas_per_sm)
+        tail = [1, tile_rows, tile_cols]
+    elif kind == "baseline":
+        runs = max(k2.THREADS // (k // per_vec), 1)
+        grid = min(-(-dia.rows // (runs * (2 if per_vec > 4 else 4))), n_sm * ctas_per_sm)
+        tail = [1, runs]
+    else:  # the scalar variant: runs of 4 rows, one column a thread
+        runs = max(k2.THREADS // k, 1)
+        grid = min(-(-dia.rows // (runs * k2.RUN)), n_sm * ctas_per_sm)
+        tail = [0, runs] + ([1] if kind == "scalar" else [])
+    fn.argtypes = [VP, VP, VP, LL, LL, LL, LL, VP, I] + [I] * len(tail) + [I, VP]
     n = dia.n_diags
     err = fn(dia.data.data_ptr(), x.data_ptr(), y.data_ptr(), dia.rows, dia.cols, dia.rows_pad, k,
-             (ctypes.c_int * n)(*dia.offsets), n, 1, runs, grid, torch.cuda.current_stream().cuda_stream)
+             (ctypes.c_int * n)(*dia.offsets), n, *tail, grid, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"launch failed: {err}")
     return y
@@ -607,23 +662,66 @@ def k1_cases():
 
 
 def k2_cases():
-    lap2 = dia_tile(grid_laplacian(cs.SPMM_GRID, torch.float32, device="cuda").to_dia())
-    lap = dia_tile(grid_laplacian((cs.SOLVE_SIDE,) * 2, device="cuda").to_dia())
-    out = half_forms("2048x1024 grid k=128", lap2, cs.rhs_block(lap2.cols, 128, torch.float32, 30))
-    out += [(f"1024^2 grid f64 k={k}", lap, cs.rhs_block(lap.cols, k, torch.float64, k)) for k in (24, 48, 256)]
-    return [(label, d, x, k2.dia_spmm_plain(d, x)) for label, d, x in out]
+    """chip_smoke.py's K2 shape in all sixteen forms (the 2048×1024 grid
+    Laplacian stored in each data type, 128 RHS from one float64 draw
+    rounded to each X type) and the 1024² float64 grid at 24, 48 and 256
+    RHS (the tma variant) and 3 (the scalar one).  Prints each case's
+    yardsticks: the bytes bound, the plain version's time and
+    ``torch.sparse.mm``'s on the CSR tensor of the data's type (or why
+    torch refuses the types)."""
+    types = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    X = torch.randn((cs.SPMM_GRID[0] * cs.SPMM_GRID[1], 128), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    xs = {t: X.to(t) for t in types}
+    del X
+    ops = []
+    for d in types:
+        mat = grid_laplacian(cs.SPMM_GRID, d, device="cuda")
+        dia = dia_tile(mat.to_dia())
+        ops += [(f"2048x1024 grid k=128 {FORMS[(d, t)]}", mat, dia, xs[t]) for t in types]
+    mat = grid_laplacian((cs.SOLVE_SIDE,) * 2, device="cuda")
+    dia = dia_tile(mat.to_dia())
+    ops += [(f"1024^2 grid f64 k={k}", mat, dia, cs.rhs_block(dia.cols, k, torch.float64, k))
+            for k in (24, 48, 256, cs.EXPM_FEW_SOURCES)]
+    out = []
+    for label, mat, dia, x in ops:
+        ref = k2.dia_spmm_plain(dia, x)
+        k = x.shape[1]
+        nbytes = (dia.data.numel() * dia.data.element_size() + x.numel() * x.element_size()
+                  + dia.rows * k * cs.out_size(dia.data, x))
+        b_ms, b_by = cs.bound(nbytes, 2 * dia.n_diags * dia.rows * k, cs.peak_of(dia.dtype, x.dtype))
+        plain_ms = cs.time_ms(lambda: k2.dia_spmm_plain(dia, x), 3)
+        csr = cs.csr_twin(mat)
+        lib_ms, _, lib_error = cs.library_time(lambda: torch.sparse.mm(csr, x), ref, 20)
+        del csr
+        print(f"yardstick k2 {label}: " + json.dumps(
+            {"bound_ms": b_ms, "bound_by": b_by, "plain_ms": plain_ms, "library_ms": lib_ms,
+             "library_error": lib_error}), flush=True)
+        out.append((label, dia, x, ref))
+    return out
 
 
 def k5_cases():
-    """The mesh step as chip_smoke.py builds it (f64, width 7) and random8
-    (f32, width 8)."""
+    """(label, set, ell, x, plain output or None): "base", the mesh step
+    as chip_smoke.py builds it (f64, width 7) and random8 (f32, width 8)
+    in f32 and 16-bit storage; "forms", random8 in all sixteen forms;
+    "probe", random8 with x in f16, f32 and f64 (the gathers-only probe,
+    whose output is not checked)."""
     mesh_a = cs.mesh_step(*cs.permuted_mesh(cs.MESH_SIDE)[:2])[1]
     ell = ell_from_csmat(mesh_a)
     x = cs.rhs_block(mesh_a.cols, 1, torch.float64, 89)[:, 0].contiguous()
     _, r8, x8 = cs.random8_operand()
-    out = [(f"{cs.MESH_SIDE}^2 mesh step f64 width {ell.width}", ell, x)]
-    out += half_forms(f"random8 n={cs.RANDOM8_N} width {r8.width}", r8, x8)
-    return [(label, e, v, k5.ell_spmv_plain(e, v)) for label, e, v in out]
+    label8 = f"random8 n={cs.RANDOM8_N} width {r8.width}"
+    base = [(f"{cs.MESH_SIDE}^2 mesh step f64 width {ell.width}", ell, x)]
+    base += half_forms(label8, r8, x8)
+    out = [(label, "base", e, v, k5.ell_spmv_plain(e, v)) for label, e, v in base]
+    for (d, t), form in FORMS.items():
+        e = cs.form_op(r8, d)
+        out.append((f"{label8} {form}", "forms", e, x8.to(t), k5.ell_spmv_plain(e, x8.to(t))))
+    for t in (torch.float16, torch.float32, torch.float64):
+        out.append((f"{label8} gathers only, x {FORMS[(t, t)]}", "probe", r8, x8.to(t), None))
+    return out
 
 
 def k6_cases():
@@ -654,7 +752,7 @@ def checked(name, label, kernel, call, ref, out_dtype, strict=True):
         raise AssertionError(f"{name} {label}: rel {rel}")
 
 
-KEYS = {"k1": "dia_spmv_kernel", "k2": "dia_spmm_kernel", "k5": "ell_spmv", "k6": "sort_rows"}
+KEYS = {"k1": "dia_spmv_kernel", "k2": "dia_spmm", "k5": "ell_spmv", "k6": "sort_rows"}
 
 
 def main() -> int:
@@ -663,6 +761,8 @@ def main() -> int:
                     choices=["k1", "k2", "k3", "k5", "k6"])
     ap.add_argument("--baseline", help="a csrc directory of an earlier tree (the baseline variants)")
     ap.add_argument("--sass", action="store_true", help="count each variant's SASS opcodes")
+    ap.add_argument("--variants", nargs="+", help="run only the variants whose names contain one of these")
+    ap.add_argument("--only", nargs="+", help="run only the cases whose labels end in one of these words")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch.cuda.is_available() is false", file=sys.stderr)
@@ -670,7 +770,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     names = [n for n, v in VARIANTS.items() if v[0] in args.kernels
-             and (args.baseline or not v[1].startswith("baseline:"))]
+             and (args.baseline or not v[1].startswith("baseline:"))
+             and (not args.variants or any(part in n for part in args.variants))]
     libs = build_variants(names, args.baseline, args.sass)
     cases = {"k1": k1_cases, "k2": k2_cases, "k3": k3_cases, "k5": k5_cases, "k6": k6_cases}
     cases = {k: cases[k]() for k in args.kernels}
@@ -694,13 +795,22 @@ def main() -> int:
                     out = torch.promote_types(bsr.dtype, x.dtype)
                 elif kernel in ("k1", "k2", "k5"):
                     src = {"k1": "dia_spmv", "k2": "dia_spmm", "k5": "ell_spmv"}[kernel]
-                    if entry(libs[name], src, case[1].data, case[2]) is None:
+                    op, x = case[-3], case[-2]
+                    if kernel == "k5" and case[1] not in params[2]:
+                        continue
+                    if kernel == "k2" and ("scalar" in params[0]) != (
+                            k2.variant(x.shape[1], x.element_size(), x.data_ptr()) == "scalar"):
+                        continue  # each variant on the widths the rule gives it
+                    if entry(libs[name], src, op.data, x) is None:
                         continue  # a source without this type form
                     fn = {"k1": k1_call, "k2": k2_call, "k5": k5_call}[kernel]
-                    call = functools.partial(fn, libs[name], case[1], case[2], *params)
+                    call = functools.partial(fn, libs[name], op, x, *params[:2 if kernel == "k5" else 3])
                 else:
                     call = functools.partial(k6_call, libs[name], case[1], case[2], *params)
-                if kernel != "k3" or params[2] is not None:
+                if args.only and not any(label.endswith(" " + s) for s in args.only):
+                    continue
+                unchecked = (kernel == "k3" and params[2] is None) or (kernel == "k2" and len(params) > 3)
+                if not unchecked and ref is not None:
                     checked(name, label, kernel, call, ref, out,
                             strict=kernel != "k3" or params[2] == "gate")
                 ms = cs.device_ms(call, key, 30)

@@ -8,13 +8,15 @@ and prints no result):
    power limit;
 2. build: every CUDA source of the port, compiled from ``csrc/`` (one
    ``nvcc`` per source, all started together), and the port's native
-   host library (``csrc/sprs_host.cpp``, g++), with its seconds;
+   host library (``csrc/sprs_host.cpp``, g++), with its seconds; ptxas'
+   registers and spills of every K2 instantiation, none of the tma
+   variant's allowed to spill;
 3. gate: each kernel against its plain torch version on the card —
    K1 (banded SpMV) and K2 (banded SpMM) on grid Laplacians and a random
    band in float32 and float64, K2 also on the 1024² Dirichlet Laplacian
    and the band's transpose, at every RHS width the block main paths and
    correctness solves give it (4 to 256) and at 1, 48 and 130, each
-   width also on an X that starts off a 16-byte boundary (K2's vector
+   width also on an X that starts off a 16-byte boundary (K2's tma
    and scalar variants, each gate checking which one ran); K3 and K4
    (block-sparse SpMM) at block size 8 (odd shapes, an empty block row,
    padding blocks, unsorted blocks) and 128 in float32, bfloat16 and
@@ -60,12 +62,16 @@ and prints no result):
    dX in X's); within 1e-5 of max|Y| (2⁻⁷ for a bfloat16 Y, 2⁻¹⁰ for
    float16), each checking the variant the rule picks (wgmma for
    (f16, f16) on aligned X at bs 128), the form that launched and its
-   TF32 passes;
+   TF32 passes; and K2's tma variant in all sixteen forms on the shapes
+   that stress its slab plan and TMA boxes: rows not a multiple of its
+   tile rows, offsets at or past the row count (boxes wholly outside X),
+   unsorted offsets, k = 8, 24, 128 and 256, and a misaligned X, which
+   must take the scalar variant;
 4. timing, with CUDA events, beside each kernel's bound, its plain
    version and one library call (K2-K6 also with the profiler's device
    time per launch, ``device_ms``): K1 at the 4096×4096-grid SpMV
    and the 1024² float64 solve size; K2 at the 2048×1024 grid with 128
-   RHS (float32) and at 1024² float64 with 24, 48 and 256 RHS (vector
+   RHS (float32) and at 1024² float64 with 24, 48 and 256 RHS (tma
    variant) and 3 RHS (scalar variant); K3 at n = 4096, k = 512,
    bs = 128, block densities 0.125/0.25/0.5 (bfloat16, wgmma) and in
    float32 and float64 (3xTF32), and at n = 16384 (bfloat16, float32); K4
@@ -90,7 +96,7 @@ and prints no result):
    b. the block solvers through ``prepare_spmm`` and K2: heat diffusion
       from 256 point sources, ``expm_multiply`` on the 1024² grid
       Laplacian (float64), held against the same call over the plain
-      version (K2's vector variant), and the same from 3 sources (its
+      version (K2's tma variant), and the same from 3 sources (its
       scalar variant); LOBPCG at 1024² for a fixed 50 iterations (2·50+2
       launches), with a profiler window; the plain versions' call counts
       stay at 0;
@@ -177,7 +183,7 @@ and prints no result):
       iters+2 launches each, the plain version's calls 0, iterations and
       x bit-equal; s, ms per iteration, a profiled window each);
       ``expm_multiply`` from 256 float32 sources over the 1024² grid
-      Laplacian stored both ways (K2 (bf16, f32), vector variant), bit-
+      Laplacian stored both ways (K2 (bf16, f32), tma variant), bit-
       equal, one launch per SpMM; CG on phase 5d's mesh step rounded to
       bfloat16 through the ELL arm and K5 (bf16, f32) (converged, true
       residual in float64 within 1e-4·‖b‖, iters+2 launches, iterations
@@ -505,11 +511,27 @@ def phase_build():
         log(f"  {info.name}: {info.seconds:.3f} s -> {info.path.name}")
         for line in info.log.splitlines():
             log(f"    {line}")
+    k2_ptxas(infos["dia_spmm"].log)
     seconds = native.build()
     native.load()
     if not native.available():
         raise AssertionError("the native host library did not load")
     log(f"build: native host library {native.LIB_PATH.name} in {seconds:.3f} s of g++")
+
+
+def k2_ptxas(nvcc_log):
+    """One line per K2 instantiation: ptxas' registers and spills; a
+    spill in the tma variant fails the phase (its design holds only
+    accumulators in registers)."""
+    report = build.ptxas_report(nvcc_log)
+    if not report:
+        log("ptxas dia_spmm: no report (the library was built before this run)")
+        return
+    for fn, regs, stores, loads in report:
+        log(f"ptxas dia_spmm: {fn}: {regs} registers, {stores} bytes spill stores, {loads} bytes spill loads")
+    spilled = [fn for fn, _, stores, loads in report if "tma" in fn and stores + loads > 0]
+    if spilled or not any("tma" in fn for fn, *_ in report):
+        raise AssertionError(f"K2's tma instantiations spill or are missing: {spilled}")
 
 
 def check_rel(name, err, ref_max, limit):
@@ -584,7 +606,7 @@ GATE_ERRS = {}
 def gate_spmm(name, dia, x):
     """K2 against its plain version; the variant the wrapper's rule picks
     for this X must be the one that launched."""
-    kind = k2.variant(x.shape[1], x.element_size(), x.data_ptr())
+    kind = k2.variant_for(dia, x)
     before = getattr(dia_spmm_kernel, f"launches_{kind}")
     y = dia_spmm_kernel(dia, x)
     ref = dia_spmm_plain(dia, x)
@@ -671,7 +693,7 @@ def gate_grads():
         if not err <= 1e-12:
             raise AssertionError(f"gate grad {label}: {err}")
         errs[label] = err
-    GATE_ERRS["dia_spmm_vector"].append(errs["K2"])
+    GATE_ERRS["dia_spmm_tma"].append(errs["K2"])
 
     bsr = bsr_random(11, (300, 260), 8, 0.3, torch.float32, device=DEVICE)
     x = rhs_block(260, 20, torch.float32, 12)
@@ -995,7 +1017,7 @@ def timing_spmv(label, mat, dia, x, reps):
 
 def timing_spmm(label, mat, dia, x, reps):
     ms = time_ms(lambda: dia_spmm_kernel(dia, x), reps)
-    dev_ms = device_ms(lambda: dia_spmm_kernel(dia, x), "dia_spmm_kernel", reps)
+    dev_ms = device_ms(lambda: dia_spmm_kernel(dia, x), "dia_spmm", reps)
     plain_ms = time_ms(lambda: dia_spmm_plain(dia, x), max(reps // 5, 3))
     csr = csr_twin(mat)
     library_ms, lib_err, lib_error = library_time(lambda: torch.sparse.mm(csr, x),
@@ -1004,7 +1026,7 @@ def timing_spmm(label, mat, dia, x, reps):
     nbytes = (dia.data.numel() * dia.data.element_size() + x.numel() * x.element_size()
               + dia.rows * k * out_size(dia.data, x))
     flops = 2 * dia.n_diags * dia.rows * k
-    kind = k2.variant(k, x.element_size(), x.data_ptr())
+    kind = k2.variant_for(dia, x)
     return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak_of(dia.dtype, x.dtype),
                       kernel=f"dia_spmm_{kind}", device_ms=dev_ms, library="torch.sparse.mm (CSR)",
                       library_max_abs_err=lib_err, library_error=lib_error)
@@ -1075,7 +1097,7 @@ def phase_timing(lap_spmv, spmv_operand):
 
     lap2 = grid_laplacian(SPMM_GRID, torch.float32, device=DEVICE)
     dia2 = dia_tile(lap2.to_dia())
-    rows["dia_spmm_vector"] = timing_spmm(
+    rows["dia_spmm_tma"] = timing_spmm(
         f"{SPMM_GRID[0]}x{SPMM_GRID[1]} grid float32 k=128", lap2, dia2,
         rhs_block(dia2.cols, 128, torch.float32, 30), reps=20,
     )
@@ -1251,7 +1273,7 @@ def reset_counts():
                bsr_spmm_grouped_kernel):
         zero_counts(fn)
     sort_rows_kernel.launches = 0
-    dia_spmm_kernel.launches_vector = dia_spmm_kernel.launches_scalar = 0
+    dia_spmm_kernel.launches_tma = dia_spmm_kernel.launches_scalar = 0
     for fn in (bsr_spmm_kernel, bsr_spmm_grouped_kernel):
         fn.launches_tc = fn.launches_tf32x3 = 0
     for fn in (dia_spmv_plain, dia_spmm_plain, bsr_spmm_plain, ell_spmv_plain, sort_rows_plain):
@@ -1327,7 +1349,7 @@ def phase_main_block():
     wall_f = time.perf_counter() - t0
     few_launches = dia_spmm_kernel.launches - launches
     plain_calls = dia_spmm_plain.calls
-    variants = {"dia_spmm_vector": dia_spmm_kernel.launches_vector,
+    variants = {"dia_spmm_tma": dia_spmm_kernel.launches_tma,
                 "dia_spmm_scalar": dia_spmm_kernel.launches_scalar}
     log(
         f"expm_multiply {side}^2 grid float64, {EXPM_SOURCES} sources, t=-1: wall {wall_e!r} s "
@@ -1344,8 +1366,8 @@ def phase_main_block():
     )
     if plain_calls != 0:
         raise AssertionError(f"the plain dia_spmm ran {plain_calls} times on the main path")
-    if variants != {"dia_spmm_vector": launches, "dia_spmm_scalar": few_launches}:
-        raise AssertionError(f"K2 variants: {variants}, expected {launches} vector and "
+    if variants != {"dia_spmm_tma": launches, "dia_spmm_scalar": few_launches}:
+        raise AssertionError(f"K2 variants: {variants}, expected {launches} tma and "
                              f"{few_launches} scalar launches")
     if res.iterations != LOBPCG_FIXED_ITERS or lobpcg_launches != 2 * LOBPCG_FIXED_ITERS + 2:
         raise AssertionError(f"lobpcg: {res.iterations} iterations, {lobpcg_launches} K2 launches")
@@ -1437,7 +1459,7 @@ def phase_eigen_checks():
     pre, wall = timed(lambda: lobpcg(spd, x0, tol=1e-6, max_iter=EIG_MAX_ITER, precond=ic))
     err = float(np.abs(pre.eigenvalues.cpu().numpy() - np.array(closed)).max())
     launches = dia_spmm_kernel.launches
-    variants = {"dia_spmm_vector": dia_spmm_kernel.launches_vector,
+    variants = {"dia_spmm_tma": dia_spmm_kernel.launches_tma,
                 "dia_spmm_scalar": dia_spmm_kernel.launches_scalar}
     log(f"ic0-lobpcg {side}^2 m={LOBPCG_M} tol 1e-6: iterations {pre.iterations} (plain "
         f"{res.iterations}) converged {pre.converged} wall {wall!r} s (ic0 host factor {ic_s!r} s), "
@@ -1907,7 +1929,7 @@ def gate_spmv_form(name, dia, x):
 def gate_spmm_form(name, dia, x):
     """K2's form against its plain version; the variant the wrapper's
     rule picks for X (by X's element size) must be the one that ran."""
-    kind = k2.variant(x.shape[1], x.element_size(), x.data_ptr())
+    kind = k2.variant_for(dia, x)
     before_kind = getattr(dia_spmm_kernel, f"launches_{kind}")
     before = getattr(dia_spmm_kernel, f"launches_{FORMS[(dia.dtype, x.dtype)]}")
     y = dia_spmm_kernel(dia, x)
@@ -2015,7 +2037,7 @@ def phase_gate_bf16(lap_spmv, mesh_a, random8):
             gate_ell_form(f"K5 {label} bfloat16 x {xdt}", ell, x)
     grads = gate_grads_bf16()
     FORM_ERRS[("dia_spmv", "bf16_f32")].append(grads["K1"])
-    FORM_ERRS[("dia_spmm_vector", "bf16")].append(grads["K2"])
+    FORM_ERRS[("dia_spmm_tma", "bf16")].append(grads["K2"])
     FORM_ERRS[("ell_spmv", "bf16_f32")].append(grads["K5"])
 
 
@@ -2036,7 +2058,7 @@ def phase_timing_bf16(lap_spmv, random8):
     dia2 = dia_tile(lap2.to_dia())
     X = rhs_block(dia2.cols, 128, torch.float32, 30)
     for xdt in (BF16, torch.float32):
-        rows[("dia_spmm_vector", FORMS[(BF16, xdt)])] = timing_spmm(
+        rows[("dia_spmm_tma", FORMS[(BF16, xdt)])] = timing_spmm(
             f"{SPMM_GRID[0]}x{SPMM_GRID[1]} grid bfloat16 k=128, X {str(xdt)[6:]}", lap2, dia2, X.to(xdt), reps=20)
     del lap2, dia2, X
     mat = random8[0].astype(BF16)
@@ -2119,7 +2141,7 @@ def cg_stored_both(tag, make, b, tol, ref_dtype, dtype):
 def expm_stored_both(tag, make, B, ref_dtype, dtype):
     """``expm_multiply(A, B, t=-1)`` over ``make(t)`` stored in
     ``ref_dtype`` and in ``dtype`` through ``prepare_spmm`` and K2's
-    vector variant: bit-equal (the entries are exact in ``dtype``), one
+    tma variant: bit-equal (the entries are exact in ``dtype``), one
     launch per SpMM (counted by a callable that computes the CsMat path's
     substeps, 2A with t/2, term for term), the plain version's calls 0,
     column sums in (0, 1].  Returns (row, the new form's launches)."""
@@ -2134,7 +2156,7 @@ def expm_stored_both(tag, make, B, ref_dtype, dtype):
         sync()
         wall = time.perf_counter() - t0
         total, mine, plain = form_counts(dia_spmm_kernel, form, dia_spmm_plain)
-        vector = dia_spmm_kernel.launches_vector
+        tma = dia_spmm_kernel.launches_tma
         if stored == dtype:
             launches = mine
             fn, prepared = prepare_spmm(lap)
@@ -2147,10 +2169,10 @@ def expm_stored_both(tag, make, B, ref_dtype, dtype):
             same_ref = bits_equal(expm_multiply(op, B, t=-0.5), ys[label])
         row[f"expm_{label}"] = {"s": wall, "launches": total}
         log(f"{tag} expm_multiply {SOLVE_SIDE}^2 stored in {label}, {B.shape[1]} {str(B.dtype)[6:]} "
-            f"sources: wall {wall!r} s, K2 launches {total} ({form} {mine}, vector {vector}), plain calls "
+            f"sources: wall {wall!r} s, K2 launches {total} ({form} {mine}, tma {tma}), plain calls "
             f"{plain}")
-        if not (total == mine == vector > 0) or plain != 0:
-            raise AssertionError(f"{tag} expm {label}: launches {total}/{mine}/{vector}, plain {plain}")
+        if not (total == mine == tma > 0) or plain != 0:
+            raise AssertionError(f"{tag} expm {label}: launches {total}/{mine}/{tma}, plain {plain}")
         del lap
     new = ys[str(dtype)[6:]]
     col_sums = new.sum(0)
@@ -2210,13 +2232,13 @@ def mesh_cg_stored(tag, mesh, dtype, ref_dtype, b_dtype, tol, residual):
 def route_products(tag, pairs, lap_spmv, random8):
     """One product per (data, x) pair in ``pairs`` on each route at phase
     4's full shapes, through ``prepare_spmv`` / ``prepare_spmm``: the
-    4096² SpMV (K1), the 128-RHS SpMM on the 2048×1024 grid (K2's vector
+    4096² SpMV (K1), the 128-RHS SpMM on the 2048×1024 grid (K2's tma
     variant) and random8 (K5), each against its plain version.  Returns
     {(kernel line name, form): launches}."""
     launches = {}
     for kname, kernel, plain_fn, make, route in (
         ("dia_spmv", dia_spmv_kernel, dia_spmv_plain, lambda t: lap_spmv.astype(t), "spmv"),
-        ("dia_spmm_vector", dia_spmm_kernel, dia_spmm_plain,
+        ("dia_spmm_tma", dia_spmm_kernel, dia_spmm_plain,
          lambda t: grid_laplacian(SPMM_GRID, t, device=DEVICE), "spmm"),
         ("ell_spmv", ell_spmv_kernel, ell_spmv_plain, lambda t: random8[0].astype(t), "spmv"),
     ):
@@ -2259,7 +2281,7 @@ def phase_main_bf16(mesh, lap_spmv, random8):
     src = np.random.default_rng(50).choice(n, EXPM_SOURCES, replace=False)
     B = torch.zeros((n, EXPM_SOURCES), dtype=torch.float32, device=DEVICE)
     B[torch.from_numpy(src).to(DEVICE), torch.arange(EXPM_SOURCES, device=DEVICE)] = 1.0
-    expm_row, launches[("dia_spmm_vector", "bf16_f32")] = expm_stored_both(
+    expm_row, launches[("dia_spmm_tma", "bf16_f32")] = expm_stored_both(
         "5k", lambda t: grid_laplacian((SOLVE_SIDE,) * 2, t, device=DEVICE), B, torch.float32, BF16)
     row.update(expm_row)
     # c. CG on the mesh step rounded to bf16, through the ELL arm and K5
@@ -2288,7 +2310,7 @@ FORMS_PHASE_BUDGET_S = 90.0  # phase 5l's share of the script's time, recorded b
 def phase_gate_forms(random8):
     """Phase 3's gates of the twelve forms of NEW_FORMS, each against its
     plain version: K1 on the random band and the 1024² grid Laplacian; K2
-    on both at RHS widths 3 (scalar variant), 8, 24 and 128 (vector), and
+    on both at RHS widths 3 (scalar variant), 8, 24 and 128 (tma), and
     at 24 on an X off a 16-byte boundary (scalar); K5 on the small odd
     ELLs and random8.  Each gate checks its own form's counter."""
     t0 = time.perf_counter()
@@ -2314,6 +2336,47 @@ def phase_gate_forms(random8):
             x = torch.randn(ell.cols, generator=gen, device=DEVICE, dtype=torch.float64).to(x_dtype)
             gate_ell_form(f"K5 {label}", form_op(ell, data_dtype), x)
     log(f"gate forms: {len(NEW_FORMS)} forms in {time.perf_counter() - t0!r} s")
+
+
+# K2's tma variant against its plain version on the shapes that stress
+# its slab plan and TMA boxes: (label, rows, cols, offsets).  1000 rows
+# are not a multiple of the tile rows (16 at 128 RHS, 80 at 24); offsets
+# at or past the row count make boxes wholly outside X (-400, 2500) or
+# partly so; the third holds its offsets out of order (slabs merge only
+# diagonals consecutive in storage)
+K2_TMA_OPERANDS = (
+    ("band 1000x1100", 1000, 1100, (-70, -3, -1, 0, 2, 65)),
+    ("band 300x2000 |off| >= rows", 300, 2000, (-400, -300, -1, 0, 1, 300, 1500, 2500)),
+    ("band 777x777 unsorted", 777, 777, (2, -1, 0, 65, -70, 1, -3)),
+)
+K2_TMA_WIDTHS = (8, 24, 128, 256)
+
+
+def phase_gate_k2_tma():
+    """Phase 3's gates of K2's tma variant in all sixteen forms of FORMS
+    on K2_TMA_OPERANDS at K2_TMA_WIDTHS, and at 24 on an X off a 16-byte
+    boundary (the scalar variant); bit-equal to the plain version where Y
+    is 16-bit.  Returns the number of gates."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(139)
+    n = 0
+    for seed, (label, rows, cols, offsets) in enumerate(K2_TMA_OPERANDS):
+        band = band_dia(rows, cols, offsets, np.float64, 140 + seed)
+        block = torch.randn((cols, max(K2_TMA_WIDTHS)), generator=gen, device=DEVICE, dtype=torch.float64)
+        for (data_dtype, x_dtype), form in FORMS.items():
+            op = form_op(band, data_dtype)
+            for k in K2_TMA_WIDTHS:
+                x = block[:, :k].to(x_dtype).contiguous()
+                if k2.variant_for(op, x) != "tma":
+                    raise AssertionError(f"gate K2 {label} k={k} [{form}]: the rule does not pick tma")
+                gate_spmm_form(f"K2 tma {label} k={k}", op, x)
+            x = misaligned_copy(block[:, :24].to(x_dtype).contiguous())
+            if k2.variant_for(op, x) != "scalar":
+                raise AssertionError(f"gate K2 {label} misaligned [{form}]: the rule does not pick scalar")
+            gate_spmm_form(f"K2 tma {label} k=24 misaligned X", op, x)
+            n += len(K2_TMA_WIDTHS) + 1
+    log(f"gate K2 tma: {n} gates in {time.perf_counter() - t0!r} s")
+    return n
 
 
 def phase_timing_forms(lap_spmv, random8):
@@ -2343,7 +2406,7 @@ def phase_timing_forms(lap_spmv, random8):
         dia2 = dia_tile(lap2.to_dia())
         for d, xdt in NEW_FORMS:
             if d == data_dtype:
-                rows[("dia_spmm_vector", FORMS[(d, xdt)])] = timing_spmm(
+                rows[("dia_spmm_tma", FORMS[(d, xdt)])] = timing_spmm(
                     f"{SPMM_GRID[0]}x{SPMM_GRID[1]} grid k=128 {FORM_LABEL[FORMS[(d, xdt)]]}", lap2, dia2,
                     X.to(xdt), reps=20)
         del lap2, dia2
@@ -2381,7 +2444,7 @@ def phase_main_forms(mesh, lap_spmv, random8):
         cg_row, launches[("dia_spmv", form)] = cg_stored_both(tag, dirichlet, b, FORMS_CG_TOL[vec],
                                                               ref_dtype, dtype)
         part.update(cg_row)
-        expm_row, launches[("dia_spmm_vector", form)] = expm_stored_both(tag, dirichlet, B.to(vec),
+        expm_row, launches[("dia_spmm_tma", form)] = expm_stored_both(tag, dirichlet, B.to(vec),
                                                                          ref_dtype, dtype)
         part.update(expm_row)
         part["cg_mesh"], launches[("ell_spmv", form)] = mesh_cg_stored(
@@ -3888,7 +3951,7 @@ def phase_distributed(mesh, lap2):
 # name in the kernels line -> (source, TPU kernel it replaces)
 KERNELS = {
     "dia_spmv": ("sprs_tpu_torch/csrc/dia_spmv.cu", "sprs_tpu/ops/pallas/dia_spmv.py:232"),
-    "dia_spmm_vector": ("sprs_tpu_torch/csrc/dia_spmm.cu", "sprs_tpu/ops/pallas/dia_spmm.py:93"),
+    "dia_spmm_tma": ("sprs_tpu_torch/csrc/dia_spmm.cu", "sprs_tpu/ops/pallas/dia_spmm.py:93"),
     "dia_spmm_scalar": ("sprs_tpu_torch/csrc/dia_spmm.cu", "sprs_tpu/ops/pallas/dia_spmm.py:93"),
     "bsr_spmm_tc": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:69"),
     "bsr_spmm_tf32x3": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:69"),
@@ -3921,6 +3984,7 @@ def main() -> int:
     timing.update(phase_timing_unstructured(mesh_a, random8))
     phase_gate_bf16(lap_spmv, mesh_a, random8)
     phase_gate_forms(random8)
+    phase_gate_k2_tma()
     phase_gate_k3_forms()
     form_rows = phase_timing_bf16(lap_spmv, random8)
     form_rows.update(phase_timing_forms(lap_spmv, random8))

@@ -118,13 +118,14 @@
 //
 // Index math into blocks, X and Y is 64-bit in both.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -153,10 +154,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 template <>
 __device__ __forceinline__ __half from_f32<__half>(float v) {
   return __float2half_rn(v);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
 // ---------------------------------------------------------------------------
@@ -636,57 +633,6 @@ struct TcShape {
   static constexpr int kSmem = kTcStages * kStageBytes + 1024 + 256;
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// Waits for the completion of the barrier's phase of parity ``parity``.
-// A wait that never ends (a fault in the ring's bookkeeping) traps, so
-// the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  for (long long spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1ll << 28)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
-
 // wgmma shared-memory descriptor, 128-byte swizzle.  Offsets in bytes.
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
                                               uint32_t sbo) {
@@ -839,26 +785,6 @@ __global__ void __launch_bounds__(TcShape<BS>::kThreads)
     const long long col = c0 + 8 * (j / 4) + 2 * (lane % 4);
     if (row < rows && col < k) store2(y + row * k + col, acc[j], acc[j + 1]);
   }
-}
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
 }
 
 // A 2-D tensor map of 16-bit ``type`` over a row-major (outer, inner)

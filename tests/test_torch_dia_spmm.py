@@ -121,49 +121,53 @@ def test_backward_matches_torch_autograd_of_plain():
 
 
 @pytest.mark.parametrize(
-    "rows,k,itemsize,vector,grid,runs",
+    "rows,k,itemsize,acc,kind,config",
     [
-        pytest.param(1, 1, 8, False, 1, 256, id="1-1-1"),
-        pytest.param(100, 24, 8, True, 2, 21, id="100-24-10"),
-        pytest.param(1_048_576, 256, 8, True, 396, 2, id="1048576-256-1056"),
-        pytest.param(2_097_152, 1, 8, False, 396, 256, id="2097152-1-1056"),
-        # the f32 timing shape: 32 vectors a row, tiles of 8 runs = 32 rows
-        (2_097_152, 128, 4, True, 396, 8),
+        pytest.param(1, 1, 8, 8, "scalar", (1, 256, 256, 1), id="1-1-1"),
+        pytest.param(100, 24, 8, 8, "tma", (2, 544, 80, 24), id="100-24-10"),
+        pytest.param(1_048_576, 256, 8, 8, "tma", (132, 544, 16, 128), id="1048576-256-1056"),
+        pytest.param(2_097_152, 1, 8, 8, "scalar", (396, 256, 256, 1), id="2097152-1-1056"),
+        # the f32 timing shape: tiles of 64 rows by 128 columns (32 KB of
+        # X), one persistent CTA per SM
+        (2_097_152, 128, 4, 4, "tma", (132, 544, 64, 128)),
         # 130 f32 columns are not whole 16-byte vectors: scalar, one run
-        (150, 130, 4, False, 38, 1),
-        # wider than one CTA's threads: one run, a column loop
-        (64, 2048, 4, True, 16, 1),
+        (150, 130, 4, 4, "scalar", (38, 256, 1, 1)),
+        # wider than one tile: 16 chunks of 128 columns
+        (64, 2048, 4, 4, "tma", (16, 544, 64, 128)),
         # the few-sources expm width (f64, 3 columns)
-        (1_048_576, 3, 8, False, 396, 85),
-        # bf16 X: 8 columns a vector, runs of 2 rows; 4 tiles of 16 runs
-        (128, 128, 2, True, 4, 16),
+        (1_048_576, 3, 8, 8, "scalar", (396, 256, 85, 1)),
+        # bf16 X with f32 sums: 128 rows of 128 columns, one tile
+        (128, 128, 2, 4, "tma", (1, 544, 128, 128)),
     ],
 )
-def test_launch_config(rows, k, itemsize, vector, grid, runs):
-    """(grid, block, runs per tile): a tile is as many runs (4 rows, 2 for
-    bf16 vectors) as a CTA's threads cover across k; at most one wave of 3
-    CTAs per SM."""
-    assert launch_config(rows, k, 132, itemsize, vector) == (grid, k2.THREADS, runs)
+def test_launch_config(rows, k, itemsize, acc, kind, config):
+    """(grid, block, tile_rows, tile_cols).  tma: a tile of T rows by kc
+    columns (``tile_shape``: 32 KB of X with f32 sums, 16 KB with f64), at
+    most one persistent CTA per SM over the (tile, chunk) items.  scalar:
+    a tile is as many runs of 4 rows as a CTA's threads cover across k, at
+    most one wave of 3 CTAs per SM."""
+    assert launch_config(rows, k, 132, itemsize, kind, acc) == config
 
 
 @pytest.mark.parametrize(
     "k,itemsize,offset,kind",
     [
-        (128, 4, 0, "vector"),
-        (4, 4, 16, "vector"),
-        (2, 8, 0, "vector"),
-        (256, 8, 32, "vector"),
+        (128, 4, 0, "tma"),
+        (4, 4, 16, "tma"),
+        (2, 8, 0, "tma"),
+        (256, 8, 32, "tma"),
         (130, 4, 0, "scalar"),  # 520-byte rows
         (1, 8, 0, "scalar"),
         (3, 8, 0, "scalar"),
-        (12, 4, 0, "vector"),
+        (12, 4, 0, "tma"),
         (128, 4, 4, "scalar"),  # X one f32 past a 16-byte boundary
         (24, 8, 8, "scalar"),  # X one f64 past a 16-byte boundary
     ],
 )
 def test_variant_rule(k, itemsize, offset, kind):
-    """The vector variant needs rows of X of whole 16 bytes and X on a
-    16-byte boundary; everything else takes the scalar variant."""
+    """The tma variant needs rows of X of whole 16 bytes and X on a
+    16-byte boundary (TMA's row stride and base); everything else takes
+    the scalar variant."""
     assert k2.variant(k, itemsize, 4096 + offset) == kind
 
 
@@ -176,7 +180,7 @@ def test_variant_rule_on_a_misaligned_view(dtype):
     assert x.is_contiguous() and x.data_ptr() % 16 != 0
     assert k2.variant(8, x.element_size(), x.data_ptr()) == "scalar"
     aligned = torch.zeros((48, 8), dtype=dtype)
-    assert k2.variant(8, aligned.element_size(), aligned.data_ptr()) == "vector"
+    assert k2.variant(8, aligned.element_size(), aligned.data_ptr()) == "tma"
 
 
 @pytest.mark.parametrize("k", [1, 24, 255, 256, 300])
@@ -205,7 +209,7 @@ def test_prepare_spmm_takes_the_wrapper_at_every_width(k):
 
 def launch_counts():
     k = dia_spmm_kernel
-    return k.launches, k.launches_vector, k.launches_scalar
+    return k.launches, k.launches_tma, k.launches_scalar
 
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
@@ -251,7 +255,7 @@ def test_kernel_matches_plain_on_card(dtype):
         misaligned = buf[1:].view(aligned.shape)
         misaligned.copy_(aligned)
         for x in (aligned, misaligned):
-            kind = k2.variant(k, x.element_size(), x.data_ptr())
+            kind = k2.variant_for(dia, x)
             before = dia_spmm_kernel.launches, getattr(dia_spmm_kernel, f"launches_{kind}")
             y = dia_spmm_kernel(dia, x)
             ref = dia_spmm_plain(dia, x)

@@ -7,6 +7,8 @@ the same bitonic network with the same tie rule.  The CUDA kernel itself
 runs only on the card: the ``gpu``-marked test.
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -146,6 +148,33 @@ def test_launch_refusals():
     ):
         with pytest.raises(err):
             k6._check(bad_k, bad_v)
+
+
+@pytest.mark.parametrize(
+    "key_dtype,val_dtype,match",
+    [
+        (torch.int64, torch.float32, "int32 or float32 keys, got torch.int64"),
+        (torch.float64, torch.float32, "int32 or float32 keys, got torch.float64"),
+        (torch.int32, torch.int64, "4-byte vals, got torch.int64"),
+        (torch.float32, torch.float64, "4-byte vals, got torch.float64"),
+    ],
+)
+def test_card_path_refuses_64_bit_keys_and_values(key_dtype, val_dtype, match):
+    """``sort_rows_pallas`` states int32 or float32 keys (its docstring in
+    sprs_tpu/ops/pallas/sort.py), and Mosaic, which lowers it on the TPU,
+    has no 64-bit vector lanes: the 64-bit keys and 8-byte values that
+    interpret mode happens to accept are no forms of the kernel.  The
+    card path refuses them before any launch, naming what it takes."""
+    import inspect
+
+    from sprs_tpu.ops.pallas import sort as jax_sort
+
+    assert "``keys`` must be int32 or float32" in inspect.getdoc(jax_sort.sort_rows_pallas).replace("\n", " ")
+    keys, vals = case("int32", 8, 47)
+    k = torch.from_numpy(keys).to(key_dtype)
+    v = torch.from_numpy(vals).to(val_dtype)
+    with pytest.raises(TypeError, match=re.escape(match)):
+        k6._check(k, v)
 
 
 @pytest.mark.parametrize("rows,n_sm,grid", [(1, 132, 1), (16, 132, 1), (17, 132, 2), (43_750, 132, 528)])
