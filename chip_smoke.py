@@ -191,10 +191,14 @@ and prints no result):
       each route (the 4096² SpMV, the 128-RHS SpMM, random8) against its
       plain version; then the determinism check: ``ops/prod.py``'s CSR
       ``spmv`` and ``spmm``, ``batch_spmv``, ``dist_spmv`` with its
-      per-shard products and ``assemble``, and the level and flat
-      ``lsolve``, each run twice on one input, bits compared (a
-      difference fails the run: the index-summed products sum by an
-      accumulating ``index_put_``);
+      per-shard products and ``assemble``, the level and flat
+      ``lsolve``, ``CsMat.sum`` by rows and by columns and ``norm(1)`` /
+      ``norm(inf)`` on phase 5d's mesh pattern with normal values, K5's
+      backward dx on the mesh step, and K3's backward dX and
+      ``bsr_spmm_plain`` on the float32 K3 cell, each run twice on one
+      input, bits compared (a difference fails the run: the index-summed
+      products sum in one fixed order, an accumulating ``index_put_`` on
+      the card);
    l. float64 solvers over float32-stored and float32 solvers over
       float16-stored operators: CG at 1024² on the Dirichlet Laplacian
       (tol 5e-9 in f64, 1e-5 in f32) stored both ways, in turns, through
@@ -223,6 +227,19 @@ and prints no result):
       product per remaining form through ``@`` and K4 in every form;
       launches by form exact, the plain version's calls 0; the phase's
       seconds beside its 60 s budget;
+   n. the measurement programs (run last), each ``benches/torch_*.py``
+      called in this process through its ``main``: the SpMV roofline
+      bench at its default (K1 on the 4096² grid against the measured
+      copy rate and the stream twin, after its gate of K1, K2, K3 and
+      K5: the gate passed, K1 the best kernel, both shares in (0, 1.05],
+      the twin under the HBM peak), the block-sparse bench in
+      bfloat16 and float32 (K3), the LDLᵀ bench at ``--grid 256 --fill
+      nd --scan-grid 32 --skip-seq`` (every factor's backward error
+      gated), the SpGEMM bench's quick sweep with one scipy call per
+      point (C equal to scipy's pattern at every point) and the micro
+      bench; their K1, K2, K3 and K5 launches join
+      the kernels line, and the phase's seconds are printed beside its
+      150 s budget;
 6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
    step against a dense solve;
    LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
@@ -239,7 +256,9 @@ and prints no result):
    ``AUTO_DENSE_PRODUCTS_PER_MAC``), the direct_panel line (phase 5h's
    numbers), the io and distributed lines (phases 5i and 5j), the
    bf16_solvers and forms_solvers lines (phases 5k and 5l), the
-   bsr_forms line (phase 5m), the determinism line, the kernels line
+   bsr_forms line (phase 5m), the determinism line, one bench line per
+   record of phase 5n and the benches line (its seconds and launches),
+   the kernels line
    (each form other than float32 and float64 under its kernel's entry,
    in ``forms``: its time, device time, bound and share, plain and
    library times or the library's refusal, main-path launches and gate
@@ -2693,11 +2712,18 @@ def phase_determinism(mesh):
     """Sums by index on the card: each product run twice on one input,
     bits compared (ops/prod.py's CSR spmv and spmm, ops/batch.py's batched
     product, one parallel/dist.py product with its per-shard products and
-    assemble, trisolve's level and flat solves).  With ``index_add_``,
-    whose atomics add in no fixed order, the first four differed; they
-    now sum by an accumulating ``index_put_``, and any difference fails
-    the run.  Returns the determinism line."""
+    assemble, trisolve's level and flat solves; ``CsMat.sum`` by rows and
+    by columns and ``norm(1)`` / ``norm(inf)`` on the 1024² mesh step's
+    pattern with normal values, K5's backward dx on the mesh step, K3's
+    backward dX and the plain block product on the float32 K3 cell).  With ``index_add_``, whose atomics add in no
+    fixed order, the first four differed, and of the last seven all but
+    the two norms (whose maxima came out the same); they now sum through
+    ``formats/util.py::index_sum_`` (an accumulating ``index_put_`` on the
+    card), and any difference fails the run.  Returns the determinism
+    line."""
     from sprs_tpu_torch.linalg import lsolve
+    from sprs_tpu_torch.ops.cuda.bsr_spmm import bsr_vjp
+    from sprs_tpu_torch.ops.cuda.ell_spmv import ell_vjp
     from sprs_tpu_torch.parallel import Mesh, dist_spmv, shard_csr_rows
 
     a = mesh["a"]
@@ -2711,6 +2737,14 @@ def phase_determinism(mesh):
     dm = shard_csr_rows(a, DIST_SLOTS, balance="nnz", device=slots)
     low = dirichlet_laplacian((DIRECT_SIDE, DIRECT_SIDE), device=DEVICE).tril()
     bl = torch.from_numpy(rng.standard_normal(low.rows)).to(DEVICE)
+    ell = ell_from_csmat(a)
+    g = torch.from_numpy(rng.standard_normal(n)).to(DEVICE)
+    # the mesh step's pattern with normal values: its own entries are
+    # integers, whose sums are exact in any order
+    vals = torch.from_numpy(rng.standard_normal(a.cap)).to(DEVICE)
+    ar = dataclasses.replace(a, data=torch.where(a.live_mask(), vals, torch.zeros_like(vals)))
+    bsr = bsr_random(62, (BSR_N, BSR_N), BSR_BS, BSR_DENSITIES[0], torch.float32, device=DEVICE)
+    xk, gk = rhs_block(BSR_N, BSR_K, torch.float32, 63), rhs_block(BSR_N, BSR_K, torch.float32, 64)
     cases = {
         "ops/prod.py spmv (CSR)": lambda: spmv(a, x),
         "ops/prod.py spmm (CSR, 8 columns)": lambda: spmm(a, X),
@@ -2719,14 +2753,23 @@ def phase_determinism(mesh):
             lambda: dm.assemble(dist_spmv(dm, x, slots)),
         f"linalg/trisolve.py lsolve levels ({DIRECT_SIDE}^2)": lambda: lsolve(low, bl, method="levels"),
         f"linalg/trisolve.py lsolve flat ({DIRECT_SIDE}^2)": lambda: lsolve(low, bl, method="flat"),
+        "formats/csmat.py sum(axis=0) (mesh pattern, normal values)": lambda: ar.sum(0),
+        "formats/csmat.py sum(axis=1) (mesh pattern, normal values)": lambda: ar.sum(1),
+        "formats/csmat.py norm(1) (mesh pattern, normal values)": lambda: ar.norm(1),
+        "formats/csmat.py norm(inf) (mesh pattern, normal values)": lambda: ar.norm(np.inf),
+        "ops/cuda/ell_spmv.py ell_vjp dx (K5 backward, mesh step)": lambda: ell_vjp(ell, mesh["x"], g)[1],
+        f"ops/cuda/bsr_spmm.py bsr_vjp dX (K3 backward, n {BSR_N}, k {BSR_K}, float32)":
+            lambda: bsr_vjp(bsr, bsr.blocks, xk, gk)[1],
+        f"formats/bsr.py bsr_spmm_plain (n {BSR_N}, k {BSR_K}, float32)": lambda: bsr_spmm_plain(bsr, xk),
     }
     out = {}
     for label, fn in cases.items():
         first = fn()
         second = fn()
         sync()
-        same = torch.equal(first.view(torch.int64), second.view(torch.int64))
-        differ = int((first.view(torch.int64) != second.view(torch.int64)).sum())
+        bits = {8: torch.int64, 4: torch.int32}[first.element_size()]
+        same = torch.equal(first.view(bits), second.view(bits))
+        differ = int((first.view(bits) != second.view(bits)).sum())
         out[label] = {"bit_equal": same, "entries_differing": differ, "of": first.numel()}
         log(f"determinism {label}: two runs bit-equal {same} ({differ} of {first.numel()} entries differ)")
     if not all(v["bit_equal"] for v in out.values()):
@@ -3948,6 +3991,91 @@ def phase_distributed(mesh, lap2):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 5n: the measurement programs, benches/torch_*.py
+# ---------------------------------------------------------------------------
+
+BENCHES_PHASE_BUDGET_S = 150.0  # phase 5n's share of the script's time, recorded beside its seconds
+# (record name, bench file, arguments)
+BENCH_RUNS = (
+    ("spmv", "torch_spmv_bench.py", []),
+    ("bsr_bf16", "torch_bsr_bench.py", ["--dtype", "bfloat16"]),
+    ("bsr_f32", "torch_bsr_bench.py", ["--dtype", "float32"]),
+    # nd, the direct-solver path's ordering: with the bench's default rcm
+    # a 256² factor runs 519 sequential rounds (5.7 s on the H100) and a
+    # flat solve takes 9.6 s, 434 s for the whole bench
+    ("ldl", "torch_ldl_bench.py", ["--grid", "256", "--fill", "nd", "--scan-grid", "32", "--skip-seq"]),
+    # one call of scipy and of the native library per point: at 140.6M
+    # products they take 3.2 and 7.9 s a call on the H100's host
+    ("spgemm", "torch_spgemm_bench.py", ["--quick", "--scipy-reps", "1"]),
+    ("micro", "torch_micro_bench.py", []),
+)
+
+
+def load_bench(filename):
+    """The module of ``benches/<filename>``, loaded by path."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benches", filename)
+    spec = importlib.util.spec_from_file_location(filename[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_spmv_bench(rec):
+    """The spmv bench's record: its gate passed, K1 was the best kernel,
+    both shares lie in (0, 1.05] (a share above 1.05 of the stream twin
+    would mean the twin made more than one pass) and the twin is under
+    the HBM peak.  The twin reads W + 1 streams for each one it writes,
+    so it may outrun the copy, which reads one for each one it writes."""
+    d = rec["detail"]
+    ok = (d["kernel_gate"]["ok"] is True and d["kernel"] == "cuda_dia_tiled"
+          and 0 < rec["value"] <= 1.05 and 0 < d["frac_vs_stream_twin"] <= 1.05
+          and d["stream_twin_GBps"] * 1e9 <= HBM_BYTES_PER_S)
+    log(f"bench spmv: value {rec['value']!r}, kernel {d['kernel']}, frac_vs_stream_twin "
+        f"{d['frac_vs_stream_twin']!r}, twin {d['stream_twin_GBps']!r} GB/s against copy "
+        f"{d['copy_peak_GBps']!r} GB/s (ratio {d['stream_twin_GBps'] / d['copy_peak_GBps']!r}) and "
+        f"HBM {HBM_BYTES_PER_S / 1e9} GB/s, gate ok {d['kernel_gate']['ok']}: {ok}")
+    if not ok:
+        raise AssertionError("the spmv bench's record fails its checks")
+
+
+def phase_benches():
+    """Phase 5n: each ``benches/torch_*.py`` called in this process through
+    its ``main``, the launch counts set to 0 just before and read just
+    after.  Returns ({record name: record}, K1/K2/K3/K5 launches, row of
+    the phase's seconds)."""
+    records, seconds = {}, {}
+    sync()
+    reset_counts()
+    t_phase = time.perf_counter()
+    for name, filename, argv in BENCH_RUNS:
+        t0 = time.perf_counter()
+        records[name] = load_bench(filename).main(argv)
+        sync()
+        seconds[name] = time.perf_counter() - t0
+        log(f"5n: bench {name} {' '.join(argv)} in {seconds[name]!r} s")
+    launches = {
+        "dia_spmv": dia_spmv_kernel.launches,
+        "dia_spmm_tma": dia_spmm_kernel.launches_tma,
+        "dia_spmm_scalar": dia_spmm_kernel.launches_scalar,
+        "bsr_spmm_tc": bsr_spmm_kernel.launches_tc,
+        "bsr_spmm_tf32x3": bsr_spmm_kernel.launches_tf32x3,
+        "ell_spmv": ell_spmv_kernel.launches,
+    }
+    row = {"phase_s": time.perf_counter() - t_phase, "phase_budget_s": BENCHES_PHASE_BUDGET_S,
+           "bench_s": seconds, "launches": launches}
+    log(f"5n: {row['phase_s']!r} s (budget {BENCHES_PHASE_BUDGET_S} s), launches {launches}")
+    check_spmv_bench(records["spmv"])
+    for kname in ("dia_spmv", "bsr_spmm_tc", "bsr_spmm_tf32x3", "ell_spmv"):
+        if launches[kname] == 0:
+            raise AssertionError(f"the benches launched no {kname} kernel")
+    if launches["dia_spmm_tma"] + launches["dia_spmm_scalar"] == 0:
+        raise AssertionError("the benches launched no dia_spmm kernel")
+    return records, launches, row
+
+
 # name in the kernels line -> (source, TPU kernel it replaces)
 KERNELS = {
     "dia_spmv": ("sprs_tpu_torch/csrc/dia_spmv.cu", "sprs_tpu/ops/pallas/dia_spmv.py:232"),
@@ -4053,6 +4181,9 @@ def main() -> int:
     dist_row["phase_s"] = time.perf_counter() - t0
     del mesh, lap2
     io_row["card"] = dist_row["card"] = smi
+    bench_records, bench_launches, benches_row = phase_benches()
+    for kname, n in bench_launches.items():
+        launches[kname] += n
     errs["bsr_spmm_tf32x3"] = max(GATE_ERRS["bsr_spmm_tf32x3"])
     for kname, n in launches.items():
         if n == 0:
@@ -4102,6 +4233,9 @@ def main() -> int:
     print(json.dumps({"forms_solvers": forms_row}))
     print(json.dumps({"bsr_forms": bsr_forms_row}))
     print(json.dumps({"determinism": determinism, "card": smi}))
+    for bench, record in bench_records.items():
+        print(json.dumps({"bench": bench, "record": record, "card": smi}))
+    print(json.dumps({"benches": benches_row, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

@@ -30,7 +30,7 @@ import torch
 
 from ..errors import ShapeError
 from .csmat import CsMat
-from .util import DEFAULT_DEVICE, INDEX_DTYPE, round_up, torch_dtype
+from .util import DEFAULT_DEVICE, INDEX_DTYPE, index_sum_, round_up, torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -328,7 +328,7 @@ def bsr_from_dense_device(arr: torch.Tensor, block_size: int = 128, *, eps: floa
 
 
 def bsr_spmm_plain(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X, plain torch: batched block products and an index-add
+    """Y = A @ X, plain torch: batched block products and an indexed sum
     over block rows, in float32 for every operand type (the counterpart
     of the JAX package's ``bsr_spmm_xla``, whose ``preferred_element_type``
     is float32: an f64 product is f32-accurate there and here).  The
@@ -347,8 +347,7 @@ def bsr_spmm_plain(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
         bsr.blocks.float(),
         xb[bsr.bcols.to(torch.int64)].float(),
     )
-    out = prods.new_zeros((bsr.n_block_rows, bs, k))
-    out.index_add_(0, bsr.brows.to(torch.int64), prods)
+    out = index_sum_(prods.new_zeros((bsr.n_block_rows, bs, k)), bsr.brows.to(torch.int64), prods)
     out = out.reshape(bsr.n_block_rows * bs, k)[: bsr.rows]
     return out.to(x.dtype) if x.dtype == bsr.dtype else out
 

@@ -30,6 +30,7 @@ from .util import (
     check_index_capacity,
     compress_coo,
     host_array,
+    index_sum_,
     indptr_from_row_counts,
     positions,
     row_ids_from_indptr,
@@ -401,9 +402,10 @@ class CsMat:
         rows_like, cols_like, _ = self.coo_arrays()
         ids = rows_like if axis == 1 else cols_like
         n = self.rows if axis == 1 else self.cols
-        # padding's outer sentinel lands in the spare slot n
+        # padding's outer sentinel lands in the spare slot n; each slot
+        # summed in index order (util.index_sum_)
         out = torch.zeros(n + 1, dtype=self.dtype, device=self.device)
-        return out.index_add_(0, ids.to(torch.int64), self.data)[:n]
+        return index_sum_(out, ids.to(torch.int64), self.data)[:n]
 
     def mean(self, axis: Optional[int] = None) -> torch.Tensor:
         """Mean over the full dense extent (scipy semantics: zeros count)."""
@@ -504,7 +506,7 @@ class CsMat:
             rows_like, cols_like = (outer, inner) if self.is_csr else (inner, outer)
             ids, n = (cols_like, self.cols) if ord == 1 else (rows_like, self.rows)
             sums = torch.zeros(n, dtype=a.dtype, device=a.device)
-            return sums.index_add_(0, ids, a).max()
+            return index_sum_(sums, ids, a).max()
         raise ValueError(f"unsupported norm ord {ord!r}")
 
     def tril(self, k: int = 0) -> "CsMat":

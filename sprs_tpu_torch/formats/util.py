@@ -35,6 +35,21 @@ MAX_INDEX = 2**31 - 1
 DEFAULT_DEVICE = "cuda"
 
 
+def index_sum_(out: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """``out[index[i]] += values[i]`` along dim 0, each slot's values
+    added in index order on every device, so two runs give the same bits
+    (and the JAX package's scatter-add order): on a CUDA tensor an
+    accumulating ``index_put_``, for which torch sorts the slots stably and
+    adds each run of equal slots in one order (``index_add_`` adds with
+    atomics there, in no fixed order); elsewhere ``index_add_``, which
+    adds serially (the CPU's accumulating ``index_put_`` adds float32 on
+    several threads, in no fixed order, on large inputs).  Returns
+    ``out``."""
+    if out.is_cuda:
+        return out.index_put_((index,), values, accumulate=True)
+    return out.index_add_(0, index, values)
+
+
 def is_bf16(dtype) -> bool:
     """Whether ``dtype`` is bfloat16: torch's, or ml_dtypes' as JAX hands
     it out."""
@@ -243,12 +258,9 @@ def compress_coo(
     valid = positions(out_cap, device) < nnz
     r_out = key_out // n_inner_c
     indices = torch.where(valid, key_out - r_out * n_inner_c, 0).to(INDEX_DTYPE)
-    # An accumulating index_put_, not index_add_: on a CUDA tensor torch
-    # sorts the slots stably and adds each run of equal slots in one fixed
-    # order, without atomics, so the sums are the same bits on every run.
+    # each slot's duplicates summed in index order on every device
     values = tuple(
-        torch.zeros(out_cap + 1, dtype=v.dtype, device=device)
-        .index_put_((slot,), v, accumulate=True)[:out_cap]
+        index_sum_(torch.zeros(out_cap + 1, dtype=v.dtype, device=device), slot, v)[:out_cap]
         for v in vals
     )
     return CompressedCoo(

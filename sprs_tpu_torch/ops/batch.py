@@ -18,7 +18,7 @@ import torch
 
 from ..errors import ShapeError
 from ..formats.csmat import CsMat
-from ..formats.util import as_tensor, compress_coo
+from ..formats.util import as_tensor, compress_coo, index_sum_
 
 
 def _batched(arr: torch.Tensor, n: int) -> bool:
@@ -44,12 +44,13 @@ def _segment_sum(mat: CsMat, data: torch.Tensor, x: torch.Tensor, vec: bool) -> 
     else:
         contrib = torch.where(live[:, None], data[:, :, None] * x[:, src], 0)
     N = max(data.shape[0], x.shape[0])
-    y = torch.zeros((N, mat.rows) + contrib.shape[2:], dtype=contrib.dtype, device=contrib.device)
-    # an accumulating index_put_ sums each row in one fixed order on the
-    # card, where index_add_'s atomics do not (ops/prod.py)
-    member = torch.arange(N, device=dst.device)[:, None].expand(N, dst.shape[0])
-    return y.index_put_((member, dst.expand(N, -1)), contrib.expand((N,) + contrib.shape[1:]),
-                        accumulate=True)
+    rest = contrib.shape[2:]
+    y = torch.zeros((N * mat.rows,) + rest, dtype=contrib.dtype, device=contrib.device)
+    # member i's rows at i·rows + dst, each summed in index order
+    # (ops/prod.py)
+    slot = (torch.arange(N, device=dst.device)[:, None] * mat.rows + dst).reshape(-1)
+    y = index_sum_(y, slot, contrib.expand((N,) + contrib.shape[1:]).reshape((-1,) + rest))
+    return y.view((N, mat.rows) + rest)
 
 
 def batch_spmv(mat: CsMat, data, x) -> torch.Tensor:
@@ -154,7 +155,7 @@ def batch_spgemm(a: CsMat, b: CsMat, a_data, b_data, *, prod_cap: Optional[int] 
     vals = a_data[:, owner] * b_data[:, q]  # (N, products)
     N = vals.shape[0]
     data = torch.zeros((out_cap + 1, N), dtype=vals.dtype, device=a.device)
-    data.index_put_((slot,), vals.T, accumulate=True)
+    index_sum_(data, slot, vals.T)
     return BatchedCsMat(c.indptr, c.indices, data[:out_cap].T.contiguous(), (a.rows, b.cols),
                         "csr")
 

@@ -48,7 +48,7 @@ import torch
 
 from ...errors import ShapeError
 from ...formats.bsr import BsrMat, bsr_spmm_plain
-from ...formats.util import INDEX_DTYPE
+from ...formats.util import INDEX_DTYPE, index_sum_
 from . import build
 from .forms import FORMS, HALVES, count_launch, form_of, zero_counts
 
@@ -182,7 +182,7 @@ def bsr_vjp(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, g: torch.Tensor)
     xb = xb.reshape(nbc, bs, k)[bcols].float()
     dblocks = torch.einsum("nik,njk->nij", gb, xb).to(blocks.dtype)
     contrib = torch.einsum("nji,njk->nik", blocks.float(), gb)
-    dxb = contrib.new_zeros((nbc, bs, k)).index_add_(0, bcols, contrib)
+    dxb = index_sum_(contrib.new_zeros((nbc, bs, k)), bcols, contrib)
     return dblocks, dxb.reshape(nbc * bs, k)[: bsr.cols].to(x.dtype)
 
 

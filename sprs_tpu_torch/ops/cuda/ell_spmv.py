@@ -33,6 +33,7 @@ import torch
 
 from ...errors import ShapeError
 from ...formats.ell import EllMat, ell_spmv
+from ...formats.util import index_sum_
 from . import build
 from .forms import count_launch, form_of, widened, zero_counts
 
@@ -159,9 +160,8 @@ def ell_vjp(ell: EllMat, x: torch.Tensor, g: torch.Tensor):
     idx = ell.indices.to(torch.int64)
     ddata = (x.to(prod)[idx] * gp[:, None]).to(ell.dtype)
     contrib = (ell.data.to(prod) * gp[:, None]).to(acc)
-    dx = torch.zeros(x.shape, dtype=acc, device=x.device).index_add_(
-        0, idx.reshape(-1), contrib.reshape(-1)
-    )
+    dx = index_sum_(torch.zeros(x.shape, dtype=acc, device=x.device), idx.reshape(-1),
+                    contrib.reshape(-1))
     return ddata, dx.to(x.dtype)
 
 

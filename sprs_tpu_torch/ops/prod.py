@@ -6,14 +6,12 @@ Both storage orders reduce to two plain torch primitives:
 * CSR (gather form):   y[row_ids] += data * x[indices]
 * CSC (scatter form):  y[indices] += data * x[col_ids]
 
-each an accumulating ``index_put_``, not ``index_add_``: on a CUDA tensor
-``index_add_`` adds with atomics in no fixed order, and two runs of one
-product differed in their last bits on the card; ``index_put_`` sorts the
-ids stably and adds each run of equal ids in one order, as
-``util.compress_coo`` does.  Padding entries carry the row sentinel
-``n_outer`` and ``data == 0``; torch raises on an out-of-range id where
-JAX's ``segment_sum`` drops it, so padding is masked to row 0 with a zero
-contribution.
+each summed by ``util.index_sum_``, in index order on every device: on a
+CUDA tensor ``index_add_`` adds with atomics in no fixed order, and two
+runs of one product differed in their last bits on the card.  Padding
+entries carry the row sentinel ``n_outer`` and ``data == 0``; torch raises
+on an out-of-range id where JAX's ``segment_sum`` drops it, so padding is
+masked to row 0 with a zero contribution.
 """
 
 from __future__ import annotations
@@ -24,6 +22,7 @@ import torch
 
 from ..errors import ShapeError
 from ..formats.csmat import CsMat
+from ..formats.util import index_sum_
 
 # prepare_spmv / prepare_spmm routing, kept identical to the JAX
 # package so that both pick the same format for the same matrix.
@@ -53,7 +52,7 @@ def spmv(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
         raise ShapeError(f"spmv: A is {mat.shape}, x is {tuple(x.shape)}")
     dst, contrib = _contributions(mat, x)
     y = torch.zeros(mat.rows, dtype=contrib.dtype, device=contrib.device)
-    return y.index_put_((dst,), contrib, accumulate=True)
+    return index_sum_(y, dst, contrib)
 
 
 def spmm(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
@@ -64,7 +63,7 @@ def spmm(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros(
         (mat.rows, x.shape[1]), dtype=contrib.dtype, device=contrib.device
     )
-    return y.index_put_((dst,), contrib, accumulate=True)
+    return index_sum_(y, dst, contrib)
 
 
 def _route(mat: CsMat) -> str:

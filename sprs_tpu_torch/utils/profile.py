@@ -11,20 +11,49 @@
   once), the same integers as the JAX package's, and
   :func:`roofline_report` tying them together.
 * :func:`trace` — a ``torch.profiler`` context writing a Chrome trace.
+* :func:`bench_device` and :func:`card` — the device a bench runs on, and
+  the card's name and power limit that every bench record carries.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import tempfile
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from ..formats.util import DEFAULT_DEVICE
+
+
+def bench_device(name: str) -> torch.device:
+    """The device a bench was asked for.  A CUDA device with no card
+    present raises: a bench never falls back to the CPU on its own."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"no CUDA GPU: torch.cuda.is_available() is false, so the bench cannot run on "
+            f"{name!r}; pass --device cpu to run its plain path on the CPU"
+        )
+    return device
+
+
+def card() -> Optional[str]:
+    """``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` of
+    the first card, or None where there is no ``nvidia-smi``."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.strip().splitlines()
+    return lines[0] if lines else None
 
 
 def _first_tensor(y) -> torch.Tensor:
