@@ -12,8 +12,11 @@ rounds, by the profiler's device time per launch over 30 calls, after a
 check against the plain version (K6: bit for bit).  A candidate that
 does not build is reported and left out; the committed source or the
 baseline failing to build stops the run.  K1 runs in the forms of
-float32 and of 16-bit storage (``ops/cuda/forms.py``: (f32, f32), and
-(t, t), (t, f32) for t bf16 and f16); K2 in all sixteen forms at
+float32 and of 16-bit storage at the 4096² grid (``ops/cuda/forms.py``:
+(f32, f32), and (t, t), (t, f32) for t bf16 and f16) and in float64 at
+the 1024² and 64² grids, as committed (through its C plan) and an
+earlier tree's kernel (``--baseline``, through the per-form entries it
+had before the plan); K2 in all sixteen forms at
 chip_smoke.py's 2048×1024 grid with 128 RHS and at the 1024² float64
 grid with 24, 48 and 256 (and 3, the scalar variant against the
 baseline's), each case's bytes bound, plain-version time and
@@ -388,7 +391,8 @@ extern "C" int sprs_ell_spmv_f64(const void* indices, const void* data, const vo
 # random8 in all sixteen forms, "probe", random8 with x in f16, f32 and
 # f64); K6 (rows per CTA, CTAs per SM).
 VARIANTS = {
-    "k1 as committed (thread per row)": ("k1", "dia_spmv", [], ()),
+    "k1 as committed (thread per row, through its plan)": ("k1", "dia_spmv", [], ("plan",)),
+    "k1 baseline (an earlier tree's kernel)": ("k1", "baseline:dia_spmv", [], ("baseline",)),
     "k3 wgmma as committed (4 stages, 1 CTA/SM)": ("k3", "bsr_spmm", [], ("tc", 128, "gate", ("base", "forms"))),
     "k3 wgmma pipelined": ("k3", "bsr_spmm", [K3_PIPELINED], ("tc", 128, "gate", ("base",))),
     "k3 wgmma pipelined, 3 stages (2 CTAs/SM)": (
@@ -541,15 +545,42 @@ def out_dtype(data, x):
     return torch.promote_types(data.dtype, x.dtype)
 
 
-def k1_call(lib, dia, x):
-    fn = entry(lib, "dia_spmv", dia.data, x)
-    fn.argtypes = [VP, VP, VP, LL, LL, LL, VP, I, I, I, VP]
+# plans of the committed source's K1 entries, by (library, operand, x
+# type); kept for the process (the operands live as long)
+K1_PLANS = {}
+
+
+def k1_call(lib, dia, x, kind):
+    """One launch of K1: "plan" through a plan of the library's
+    ``sprs_dia_spmv_plan_<form>`` entry, or "baseline", an earlier tree's
+    per-form entry (grid and block from ``launch_config``, passed per
+    call)."""
     y = torch.empty(dia.rows, dtype=out_dtype(dia.data, x), device=x.device)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid, block = k1.launch_config(dia.rows, n_sm)
+    stream = torch.cuda.current_stream().cuda_stream
     n = dia.n_diags
-    err = fn(dia.data.data_ptr(), x.data_ptr(), y.data_ptr(), dia.rows, dia.cols, dia.rows_pad,
-             (ctypes.c_int * n)(*dia.offsets), n, grid, block, torch.cuda.current_stream().cuda_stream)
+    offsets = (ctypes.c_int * n)(*dia.offsets)
+    grid, block = k1.launch_config(dia.rows, n_sm)
+    if kind == "baseline":
+        fn = entry(lib, "dia_spmv", dia.data, x)
+        fn.argtypes = [VP, VP, VP, LL, LL, LL, VP, I, I, I, VP]
+        err = fn(dia.data.data_ptr(), x.data_ptr(), y.data_ptr(), dia.rows, dia.cols, dia.rows_pad,
+                 offsets, n, grid, block, stream)
+    else:
+        key = (lib._name, id(dia), x.dtype)
+        if key not in K1_PLANS:
+            fn = entry(lib, "dia_spmv_plan", dia.data, x)
+            fn.argtypes = [VP, LL, LL, LL, VP, I, I, ctypes.POINTER(I)]
+            fn.restype = VP
+            err = I(0)
+            handle = fn(dia.data.data_ptr(), dia.rows, dia.cols, dia.rows_pad, offsets, n, grid,
+                        ctypes.byref(err))
+            if not handle:
+                raise RuntimeError(f"K1 plan failed: {err.value}")
+            K1_PLANS[key] = handle
+        run = lib.sprs_dia_spmv_run
+        run.argtypes = [VP, VP, VP, VP]
+        err = run(K1_PLANS[key], x.data_ptr(), y.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"launch failed: {err}")
     return y
@@ -655,9 +686,15 @@ def half_forms(label, op, x):
 
 
 def k1_cases():
+    """The 4096² grid Laplacian in float32 and 16-bit storage, and the
+    1024² and 64² float64 grids (the main path's solve size and a small
+    one)."""
     lap = grid_laplacian((cs.SPMV_SIDE,) * 2, torch.float32, device="cuda")
     dia = dia_tile(lap.to_dia())
     out = half_forms(f"{cs.SPMV_SIDE}^2 grid", dia, cs.rhs_block(dia.cols, 1, torch.float32, 0)[:, 0])
+    for side in (cs.SOLVE_SIDE, 64):
+        op = dia_tile(grid_laplacian((side, side), torch.float64, device="cuda").to_dia())
+        out.append((f"{side}^2 grid f64", op, cs.rhs_block(op.cols, 1, torch.float64, side)[:, 0]))
     return [(label, d, x, k1.dia_spmv_plain(d, x)) for label, d, x in out]
 
 
@@ -752,7 +789,7 @@ def checked(name, label, kernel, call, ref, out_dtype, strict=True):
         raise AssertionError(f"{name} {label}: rel {rel}")
 
 
-KEYS = {"k1": "dia_spmv_kernel", "k2": "dia_spmm", "k5": "ell_spmv", "k6": "sort_rows"}
+KEYS = {"k1": "dia_spmv", "k2": "dia_spmm", "k5": "ell_spmv", "k6": "sort_rows"}
 
 
 def main() -> int:
@@ -801,7 +838,8 @@ def main() -> int:
                     if kernel == "k2" and ("scalar" in params[0]) != (
                             k2.variant(x.shape[1], x.element_size(), x.data_ptr()) == "scalar"):
                         continue  # each variant on the widths the rule gives it
-                    if entry(libs[name], src, op.data, x) is None:
+                    form_src = "dia_spmv_plan" if kernel == "k1" and params[0] != "baseline" else src
+                    if entry(libs[name], form_src, op.data, x) is None:
                         continue  # a source without this type form
                     fn = {"k1": k1_call, "k2": k2_call, "k5": k5_call}[kernel]
                     call = functools.partial(fn, libs[name], op, x, *params[:2 if kernel == "k5" else 3])

@@ -15,7 +15,10 @@ Device products are timed as ``y = step(y, b)`` chains whose steps depend
 on the previous product, between CUDA events
 (``utils/profile.py::chain_time_best``): 5 products, best of 2 rounds,
 and 8, best of 3 (the JAX bench's host-chained and fused timings); host
-products as the best of ``--scipy-reps`` calls.
+products as the best of ``--scipy-reps`` calls of scipy and of the
+native library (scipy's last product is the reference C is held to;
+``--scipy-reps 0`` calls scipy once and leaves the native library
+untimed).
 
 Run from the repository root on a machine with one GPU:
 ``python3 benches/torch_spgemm_bench.py [--quick] [--out results.json]``;
@@ -51,14 +54,15 @@ RTOL, ATOL = 1e-4, 1e-5
 CPU_PRODUCT_BUDGET = 2e7
 
 
-def _time_host(fn, reps: int = 5) -> float:
-    """Best seconds of ``reps`` host calls (scipy, the native library)."""
-    best = float("inf")
+def _time_host(fn, reps: int = 5):
+    """(best seconds of ``reps`` host calls (scipy, the native library),
+    the last call's result)."""
+    best, out = float("inf"), None
     for _ in range(reps):
         t0 = time.perf_counter()
-        fn()
+        out = fn()
         best = min(best, time.perf_counter() - t0)
-    return best
+    return best, out
 
 
 def _time_device(step, a0, b, iters: int, rounds: int) -> float:
@@ -138,23 +142,26 @@ def equals_scipy(c, ref) -> bool:
 
 
 def bench_one(shape_a, shape_b, density, seed=0, *, device="cuda", scipy_reps=5):
+    """One point of the sweep: scipy's product (timed, the best of
+    ``scipy_reps`` calls, at least one: it is the reference C must equal)
+    and the native Gustavson's (the best of ``scipy_reps`` calls; 0 leaves
+    it untimed), then the port's routes on the card."""
     device = torch.device(device)
     a, b = operands(shape_a, shape_b, density, seed, device)
     a_sp = a.to_scipy().tocsr()
     b_sp = b.to_scipy().tocsr()
 
-    t_scipy = _time_host(lambda: a_sp @ b_sp, scipy_reps)
+    t_scipy, c_ref = _time_host(lambda: a_sp @ b_sp, max(scipy_reps, 1))
 
     # second host baseline: the native Gustavson (Eigen-class, C++)
     t_native = None
-    if native.available():
-        t_native = _time_host(
+    if native.available() and scipy_reps > 0:
+        t_native, _ = _time_host(
             lambda: native.spgemm_host(a_sp.indptr, a_sp.indices, a_sp.data, b_sp.indptr,
                                        b_sp.indices, b_sp.data, b_sp.shape[1]),
             scipy_reps,
         )
 
-    c_ref = a_sp @ b_sp
     out_cap = max(int(c_ref.nnz), 1)
     m, k = shape_a
     n = shape_b[1]
@@ -240,7 +247,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--out", default=None)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     ap.add_argument("--scipy-reps", type=int, default=5,
-                    help="calls of scipy and the native library per point (the best is kept)")
+                    help="calls of scipy and the native library per point (the best is kept); "
+                         "0: scipy once (its product is the reference), the native library not timed")
     args = ap.parse_args(argv)
     device = bench_device(args.device)
 

@@ -66,11 +66,25 @@ and prints no result):
    that stress its slab plan and TMA boxes: rows not a multiple of its
    tile rows, offsets at or past the row count (boxes wholly outside X),
    unsorted offsets, k = 8, 24, 128 and 256, and a misaligned X, which
-   must take the scalar variant;
+   must take the scalar variant; and K1 through a prepared operand's
+   plan (the direct launch) in all sixteen forms on the 4096², 1024²
+   and 64² grid bands, a wide band (offsets ±rows/2), rows != cols, more
+   columns than rows, offsets at or past the row count, k = 1, k = 64
+   sorted and shuffled, an odd rows_pad and an x off a 16-byte boundary,
+   each bit-equal to the same kernel through the autograd Function on a
+   bare DiaMat (a plan built per call) and to the plain version where
+   both operands are 16-bit, else within FORM_GATE_LIMIT of it; and
+   inf/NaN coefficients where x is read outside [0, cols), slots the
+   kernel skips (the rows stay finite where the plain version's are
+   NaN);
 4. timing, with CUDA events, beside each kernel's bound, its plain
-   version and one library call (K2-K6 also with the profiler's device
-   time per launch, ``device_ms``): K1 at the 4096×4096-grid SpMV
-   and the 1024² float64 solve size; K2 at the 2048×1024 grid with 128
+   version and one library call (each also with the profiler's device
+   time per launch, ``device_ms``): K1 at the 4096×4096-grid SpMV in
+   float32 and float64, the 1024² float64 solve size and 64² float64,
+   each with ``host_ms`` = ms - device_ms and the same two times of the
+   per-call path (the autograd Function on a bare DiaMat, a plan built
+   per call, as every call went before the plan) taken in turns (direct,
+   per call, per call, direct); K2 at the 2048×1024 grid with 128
    RHS (float32) and at 1024² float64 with 24, 48 and 256 RHS (tma
    variant) and 3 RHS (scalar variant); K3 at n = 4096, k = 512,
    bs = 128, block densities 0.125/0.25/0.5 (bfloat16, wgmma) and in
@@ -198,7 +212,11 @@ and prints no result):
       ``bsr_spmm_plain`` on the float32 K3 cell, each run twice on one
       input, bits compared (a difference fails the run: the index-summed
       products sum in one fixed order, an accumulating ``index_put_`` on
-      the card);
+      the card); and each of ``index_sum_``'s cases of ``CsMat.sum(0)``
+      (64 entries a column, f32, f64), a CSR-routed ``spmv`` (about 100
+      entries a row; f64, (bf16, bf16), (f16, f16)) and ``compress_coo``
+      (40 duplicates a slot) on the card against the same call on the
+      CPU, bits compared and the differing entries recorded;
    l. float64 solvers over float32-stored and float32 solvers over
       float16-stored operators: CG at 1024² on the Dirichlet Laplacian
       (tol 5e-9 in f64, 1e-5 in f32) stored both ways, in turns, through
@@ -236,8 +254,8 @@ and prints no result):
       bfloat16 and float32 (K3), the LDLᵀ bench at ``--grid 256 --fill
       nd --scan-grid 32 --skip-seq`` (every factor's backward error
       gated), the SpGEMM bench's quick sweep with one scipy call per
-      point (C equal to scipy's pattern at every point) and the micro
-      bench; their K1, K2, K3 and K5 launches join
+      point (C equal to scipy's pattern at every point; the native
+      library not timed) and the micro bench; their K1, K2, K3 and K5 launches join
       the kernels line, and the phase's seconds are printed beside its
       150 s budget;
 6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
@@ -286,7 +304,7 @@ import torch
 from sprs_tpu_torch.formats.bsr import BsrMat, bsr_from_dense, bsr_random, bsr_spmm_plain
 from sprs_tpu_torch.formats.csmat import diags, eye, from_dense
 from sprs_tpu_torch.formats.csvec import csvec
-from sprs_tpu_torch.formats.dia import dia_to_csmat
+from sprs_tpu_torch.formats.dia import DiaMat, dia_to_csmat
 from sprs_tpu_torch.formats.ell import EllMat, ell_from_csmat
 from sprs_tpu_torch.formats.triplet import coo_to_csmat
 from sprs_tpu_torch.formats.util import compress_coo, round_up
@@ -1021,8 +1039,21 @@ def library_time(fn, ref, reps):
 
 
 def timing_spmv(label, mat, dia, x, reps):
-    ms = time_ms(lambda: dia_spmv_kernel(dia, x), reps)
-    dev_ms = device_ms(lambda: dia_spmv_kernel(dia, x), "dia_spmv_kernel", min(reps, 50))
+    """K1's row on a prepared operand: the direct launch through its plan
+    and the per-call path (the same kernel through the autograd Function
+    on a bare DiaMat, its plan built per call), each timed by CUDA events
+    over ``reps`` back-to-back calls in turns (direct, per call, per call,
+    direct: ms is the mean of its two turns, both in ``ms_turns``) and by
+    the profiler's device time per launch; ``host_ms`` = ms - device_ms,
+    what the call adds to its kernel.  Beside them the bytes bound, the
+    plain version and ``torch.mv`` on the CSR tensor of the data's type."""
+    bare = DiaMat(dia.data, dia.offsets, dia.shape)
+    run = lambda: dia_spmv_kernel(dia, x)  # noqa: E731
+    per_call = lambda: dia_spmv_kernel(bare, x)  # noqa: E731
+    turns = [time_ms(run, reps), time_ms(per_call, reps), time_ms(per_call, reps), time_ms(run, reps)]
+    ms, per_call_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    dev_ms = device_ms(run, "dia_spmv", min(reps, 50))
+    per_call_dev_ms = device_ms(per_call, "dia_spmv", min(reps, 50))
     plain_ms = time_ms(lambda: dia_spmv_plain(dia, x), max(reps // 5, 3))
     csr = csr_twin(mat)
     library_ms, lib_err, lib_error = library_time(lambda: torch.mv(csr, x), dia_spmv_plain(dia, x), reps)
@@ -1030,7 +1061,10 @@ def timing_spmv(label, mat, dia, x, reps):
               + dia.rows * out_size(dia.data, x))
     flops = 2 * dia.n_diags * dia.rows
     return timing_row(label, ms, plain_ms, library_ms, nbytes, flops, peak_of(dia.dtype, x.dtype),
-                      kernel="dia_spmv", device_ms=dev_ms, library="torch.mv (CSR)",
+                      kernel="dia_spmv", device_ms=dev_ms, host_ms=ms - dev_ms,
+                      ms_turns=[turns[0], turns[3]], per_call_ms=per_call_ms,
+                      per_call_ms_turns=[turns[1], turns[2]], per_call_device_ms=per_call_dev_ms,
+                      per_call_host_ms=per_call_ms - per_call_dev_ms, library="torch.mv (CSR)",
                       library_max_abs_err=lib_err, library_error=lib_error)
 
 
@@ -1110,9 +1144,19 @@ def phase_timing(lap_spmv, spmv_operand):
     rows = {}
     rows["dia_spmv"] = timing_spmv(f"{SPMV_SIDE}^2 grid float32", lap_spmv, *spmv_operand, reps=50)
     lap_solve = grid_laplacian((SOLVE_SIDE,) * 2, device=DEVICE)
-    timing_spmv(f"{SOLVE_SIDE}^2 grid float64", lap_solve, *laplacian_operand(lap_solve, 4), reps=200)
     lap_small = grid_laplacian((64, 64), device=DEVICE)
-    timing_spmv("64^2 grid float64", lap_small, *laplacian_operand(lap_small, 5), reps=2000)
+    # the main path's solve size and a small one, where the call's host
+    # time counts as much as its kernel
+    rows["dia_spmv"]["other_shapes"] = [
+        timing_spmv(f"{SOLVE_SIDE}^2 grid float64", lap_solve, *laplacian_operand(lap_solve, 4), reps=200),
+        timing_spmv("64^2 grid float64", lap_small, *laplacian_operand(lap_small, 5), reps=2000),
+    ]
+    # the sixteenth form at 4096² (phases 4's bf16 and forms rows hold the
+    # other fourteen, phase 4's float32 row above the first)
+    lap64 = lap_spmv.astype(torch.float64)
+    rows["dia_spmv"]["other_shapes"].append(
+        timing_spmv(f"{SPMV_SIDE}^2 grid float64", lap64, *laplacian_operand(lap64, 0), reps=50))
+    del lap64
 
     lap2 = grid_laplacian(SPMM_GRID, torch.float32, device=DEVICE)
     dia2 = dia_tile(lap2.to_dia())
@@ -2398,6 +2442,147 @@ def phase_gate_k2_tma():
     return n
 
 
+# K1 through a prepared operand's plan in all sixteen forms of FORMS:
+# (label, rows, cols, offsets, rows_pad).  The main path's three sizes with
+# the grid Laplacians' offsets; a wide band (offsets ±rows/2); rows != cols
+# with rows_pad > rows; more columns than rows; offsets at or past the row
+# count; k = 1; k = 64 in storage order and shuffled; and an odd rows_pad.
+K1_GATE_OPERANDS = (
+    (f"{SPMV_SIDE}^2 grid band", SPMV_SIDE**2, SPMV_SIDE**2, (-SPMV_SIDE, -1, 0, 1, SPMV_SIDE), None),
+    (f"{SOLVE_SIDE}^2 grid band", SOLVE_SIDE**2, SOLVE_SIDE**2, (-SOLVE_SIDE, -1, 0, 1, SOLVE_SIDE), None),
+    ("64^2 grid band", 64**2, 64**2, (-64, -1, 0, 1, 64), None),
+    ("wide band 3000x3000 +-rows/2", 3000, 3000, (-1500, -1, 0, 1, 1499), None),
+    ("band 5001x4803", 5001, 4803, BAND_OFFSETS, None),
+    ("band 3000x7000", 3000, 7000, (-5, 0, 4000, 6500), None),
+    ("band 300x2000 |off| >= rows", 300, 2000, (-400, -300, -1, 0, 1, 300, 1500, 2500), None),
+    ("k=1 2000x2000", 2000, 2000, (3,), None),
+    ("k=64 3000x3000 sorted", 3000, 3000, tuple(range(-32, 32)), None),
+    ("k=64 3000x3000 shuffled", 3000, 3000,
+     tuple(int(o) for o in np.random.default_rng(150).permutation(np.arange(-40, 24))), None),
+    ("band 37x29", 37, 29, (-3, -1, 0, 1, 3), None),
+    ("band 1001x1001 rows_pad 1001", 1001, 1001, (-7, -1, 0, 1, 7), 1001),
+)
+# the operands whose x is also gated off a 16-byte boundary
+K1_MISALIGNED = (f"{SOLVE_SIDE}^2 grid band", "band 5001x4803", "band 37x29")
+SIXTEEN_BIT = (F16, BF16)
+
+
+def band_on_card(rows, cols, offsets, seed, rows_pad=None):
+    """A float64 DIA operand of normal values drawn on the card, zero
+    where a diagonal leaves the matrix (a host draw at 4096² would take
+    most of the phase); rows padded to 8 unless ``rows_pad`` is given."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    rows_pad = round_up(rows, 8) if rows_pad is None else rows_pad
+    data = torch.randn((len(offsets), rows_pad), generator=gen, device=DEVICE, dtype=torch.float64)
+    i = torch.arange(rows_pad, device=DEVICE)
+    for d, off in enumerate(offsets):
+        data[d, (i >= rows) | (i + off < 0) | (i + off >= cols)] = 0.0
+    return DiaMat(data, tuple(offsets), (rows, cols))
+
+
+def k1_agrees(name, y, ref):
+    """K1's output against the plain version's: bit for bit where both
+    operands are 16-bit (their products are exact in f32, or rounded
+    before the add in (f16, f16), so a fused multiply-add rounds as the
+    plain version's separate add does), else within FORM_GATE_LIMIT of
+    max|y| (the kernel contracts each product and its sum).  Returns the
+    max abs error."""
+    err = float((y.double() - ref.double()).abs().max())
+    if bits_equal(y, ref):
+        return err
+    rel = err / max(float(ref.double().abs().max()), 1e-300)
+    if rel > FORM_GATE_LIMIT[y.dtype]:
+        raise AssertionError(f"gate {name}: max_abs_err {err!r} rel {rel!r} "
+                             f"(limit {FORM_GATE_LIMIT[y.dtype]})")
+    return err
+
+
+def gate_k1(name, op, x):
+    """K1 on a prepared operand (the direct launch) against the same kernel
+    through the autograd Function on a bare DiaMat, bit for bit, and
+    against its plain version on the card (:func:`k1_agrees`; bit for bit
+    where both operands are 16-bit), with one launch of the form counted
+    for each.  Files the error under FORM_ERRS for the forms other than
+    f32 and f64."""
+    form = FORMS[(op.dtype, x.dtype)]
+
+    def counts():
+        return dia_spmv_kernel.launches, getattr(dia_spmv_kernel, f"launches_{form}")
+
+    before = counts()
+    y = dia_spmv_kernel(op, x)
+    y_bare = dia_spmv_kernel(DiaMat(op.data, op.offsets, op.shape), x)
+    ref = dia_spmv_plain(op, x)
+    sync()
+    moved = tuple(a - b for a, b in zip(counts(), before))
+    if moved != (2, 2):
+        raise AssertionError(f"gate {name} [{form}]: launches moved by {moved} (all, form)")
+    out = torch.promote_types(op.dtype, x.dtype)
+    if y.dtype != out or y.shape != (op.rows,):
+        raise AssertionError(f"gate {name} [{form}]: bad output {tuple(y.shape)} {y.dtype}")
+    if not bits_equal(y, y_bare):
+        raise AssertionError(f"gate {name} [{form}]: the direct launch differs from the per-call path")
+    if op.dtype in SIXTEEN_BIT and x.dtype in SIXTEEN_BIT and not bits_equal(y, ref):
+        raise AssertionError(f"gate {name} [{form}]: not bit-equal to the plain version")
+    err = k1_agrees(f"{name} [{form}]", y, ref)
+    if form not in ("f32", "f64"):
+        FORM_ERRS.setdefault(("dia_spmv", form), []).append(err)
+    return err
+
+
+def gate_k1_nonfinite():
+    """inf and NaN coefficients at slots whose x index lies outside [0,
+    cols): the kernel skips those slots, so its rows 3 and 4790 stay
+    finite where the plain version's zero-padded x gives NaN; every other
+    row agrees with the plain version (:func:`k1_agrees`)."""
+    band = band_on_card(5001, 4803, BAND_OFFSETS, 151)
+    band.data[0, 3] = float("inf")  # offset -70: x[3 - 70] is outside
+    band.data[5, 4790] = float("nan")  # offset 65: x[4855] is outside
+    rest = torch.ones(band.rows, dtype=torch.bool, device=DEVICE)
+    rest[[3, 4790]] = False
+    for dt, xdt in ((torch.float32, torch.float32), (F16, F16), (torch.float64, BF16)):
+        op = dia_tile(DiaMat(band.data.to(dt), band.offsets, band.shape))
+        x = torch.randn(band.cols, generator=torch.Generator(device=DEVICE).manual_seed(152),
+                        device=DEVICE, dtype=torch.float64).to(xdt)
+        y, ref = dia_spmv_kernel(op, x), dia_spmv_plain(op, x)
+        sync()
+        form = FORMS[(dt, xdt)]
+        if not (bool(torch.isfinite(y[[3, 4790]]).all()) and bool(torch.isnan(ref[[3, 4790]]).all())):
+            raise AssertionError(f"gate K1 non-finite [{form}]: rows 3, 4790 kernel {y[[3, 4790]].tolist()}, "
+                                 f"plain {ref[[3, 4790]].tolist()}")
+        k1_agrees(f"K1 non-finite [{form}] other rows", y[rest], ref[rest])
+        log(f"gate K1 non-finite [{form}]: rows 3 and 4790 finite (plain NaN), the others agree")
+
+
+def phase_gate_k1():
+    """Phase 3's gates of K1 through the plan: every operand of
+    K1_GATE_OPERANDS in all sixteen forms (x drawn once in float64 on the
+    card and rounded to each x type), those of K1_MISALIGNED also on an x
+    off a 16-byte boundary, and the non-finite slots.  Returns the number
+    of gates."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=DEVICE).manual_seed(153)
+    n = 0
+    for seed, (label, rows, cols, offsets, rows_pad) in enumerate(K1_GATE_OPERANDS):
+        band = band_on_card(rows, cols, offsets, 160 + seed, rows_pad)
+        x64 = torch.randn(cols, generator=gen, device=DEVICE, dtype=torch.float64)
+        for data_dtype in (F16, BF16, torch.float32, torch.float64):
+            op = dia_tile(DiaMat(band.data.to(data_dtype), band.offsets, band.shape))
+            for x_dtype in (F16, BF16, torch.float32, torch.float64):
+                x = x64.to(x_dtype)
+                gate_k1(f"K1 {label}", op, x)
+                n += 1
+                if label in K1_MISALIGNED:
+                    gate_k1(f"K1 {label} misaligned x", op, misaligned_copy(x))
+                    n += 1
+            del op
+        del band, x64
+    gate_k1_nonfinite()
+    log(f"gate K1: {n} gates, each bit-equal to the per-call path and agreeing with the plain version, "
+        f"in {time.perf_counter() - t0!r} s")
+    return n
+
+
 def phase_timing_forms(lap_spmv, random8):
     """Phase 4's rows of the twelve forms of NEW_FORMS beside the float32
     and bfloat16 rows: K1 at the 4096² grid, K2 at the 2048×1024 grid with
@@ -2708,6 +2893,77 @@ def phase_main_bsr_forms(c_bsr):
     return launches, f32_launches, row
 
 
+# Queue 3's check of formats/util.py::index_sum_ on the card: each case
+# computed on the card and on the CPU from the same arrays, bits compared
+INDEX_SUM_N = 4096  # columns of the sum(0) cases, 64 entries each
+INDEX_SUM_CSR_N = 20_000  # rows of the CSR spmv cases, about 100 entries each
+
+
+def random_csr(rows, cols, lengths, seed, device):
+    """A CSR CsMat with ``lengths[r]`` distinct random columns in row r and
+    normal values, built on ``device`` from one host draw."""
+    rng = np.random.default_rng(seed)
+    indptr = np.concatenate([[0], np.cumsum(lengths)])
+    indices = np.concatenate([np.sort(rng.choice(cols, n, replace=False)) for n in lengths])
+    data = rng.standard_normal(indices.size)
+    return from_arrays("csmat", (rows, cols), (indptr.astype(np.int32), indices.astype(np.int32), data),
+                       device=device)
+
+
+def phase_index_sums_vs_cpu():
+    """Queue 3 item 2: does ``index_sum_`` add in the CPU's (and the JAX
+    package's) order on the card?  Each case runs on the card and on the
+    CPU from the same arrays; the line records the entries whose bits
+    differ (a difference is a finding, not a failure: the two-run
+    determinism check stands apart): ``CsMat.sum(0)`` with 64 entries per
+    column (f32, f64), the CSR-routed ``spmv`` with about 100 entries per
+    row (f64, and in (bf16, bf16) and (f16, f16)), and ``compress_coo`` with
+    40 duplicates per slot (f32)."""
+    rng = np.random.default_rng(170)
+    cases = {}
+    t0 = time.perf_counter()
+    n = INDEX_SUM_N
+    col_major = [random_csr(n, n, [64] * n, 171, dev).T.to_csr() for dev in ("cpu", DEVICE)]
+    for dt in (torch.float32, torch.float64):
+        cases[f"CsMat.sum(0) 64 entries per column {str(dt)[6:]}"] = [
+            lambda m=m, dt=dt: m.astype(dt).sum(0) for m in col_major]
+    # about 100 entries a row; every hundredth row of 250 makes the ELL
+    # padding 1.5, so prepare_spmv routes the operand to CSR
+    lengths = rng.integers(50, 151, INDEX_SUM_CSR_N)
+    lengths[::100] = 250
+    csr = [random_csr(INDEX_SUM_CSR_N, INDEX_SUM_CSR_N, lengths, 172, dev) for dev in ("cpu", DEVICE)]
+    if prepare_spmv(csr[1])[0] is not spmv:
+        raise AssertionError("index sums: the spmv case does not route to CSR")
+    x = rng.standard_normal(INDEX_SUM_CSR_N)
+    for dt in (torch.float64, BF16, F16):
+        cases[f"spmv CSR about 100 entries per row ({str(dt)[6:]}, {str(dt)[6:]})"] = [
+            lambda m=m, dev=dev, dt=dt: spmv(m.astype(dt), torch.from_numpy(x).to(dev, dt))
+            for m, dev in zip(csr, ("cpu", DEVICE))]
+    slots = 50_000
+    rows_ = np.repeat(np.arange(slots) // 250, 40)
+    cols_ = np.repeat(np.arange(slots) % 250, 40)
+    perm = rng.permutation(rows_.size)
+    vals = rng.standard_normal(rows_.size).astype(np.float32)
+    coo = [tuple(torch.from_numpy(a[perm]).to(dev) for a in (rows_.astype(np.int32), cols_.astype(np.int32),
+                                                               vals)) for dev in ("cpu", DEVICE)]
+    cases["compress_coo 40 duplicates per slot float32"] = [
+        lambda r=r, c=c, v=v: compress_coo(r, c, (v,), r.numel(), slots // 250, 250, slots).values[0]
+        for r, c, v in coo]
+    out = {}
+    for label, (on_cpu, on_card) in cases.items():
+        a, b = on_cpu(), on_card()
+        sync()
+        b = b.cpu()
+        bits = {8: torch.int64, 4: torch.int32, 2: torch.int16}[a.element_size()]
+        differ = int((a.view(bits) != b.view(bits)).sum())
+        rel = float((a.double() - b.double()).abs().max() / a.double().abs().max())
+        out[label] = {"bit_equal": differ == 0, "entries_differing": differ, "of": a.numel(),
+                      "max_rel_diff": rel}
+        log(f"index sums card vs CPU {label}: {differ} of {a.numel()} entries differ (max rel {rel!r})")
+    log(f"index sums card vs CPU: {len(out)} cases in {time.perf_counter() - t0!r} s")
+    return out
+
+
 def phase_determinism(mesh):
     """Sums by index on the card: each product run twice on one input,
     bits compared (ops/prod.py's CSR spmv and spmm, ops/batch.py's batched
@@ -2774,6 +3030,7 @@ def phase_determinism(mesh):
         log(f"determinism {label}: two runs bit-equal {same} ({differ} of {first.numel()} entries differ)")
     if not all(v["bit_equal"] for v in out.values()):
         raise AssertionError("determinism: a product differs between two runs")
+    out["card_vs_cpu"] = phase_index_sums_vs_cpu()
     return out
 
 
@@ -4005,9 +4262,10 @@ BENCH_RUNS = (
     # a 256² factor runs 519 sequential rounds (5.7 s on the H100) and a
     # flat solve takes 9.6 s, 434 s for the whole bench
     ("ldl", "torch_ldl_bench.py", ["--grid", "256", "--fill", "nd", "--scan-grid", "32", "--skip-seq"]),
-    # one call of scipy and of the native library per point: at 140.6M
-    # products they take 3.2 and 7.9 s a call on the H100's host
-    ("spgemm", "torch_spgemm_bench.py", ["--quick", "--scipy-reps", "1"]),
+    # one call of scipy per point (its product is also the reference) and
+    # none of the native library: at 140.6M products they take 3.2-3.5 and
+    # 7.9-10.0 s a call on the H100's host, and phase 5n ran 162.5-167.8 s
+    ("spgemm", "torch_spgemm_bench.py", ["--quick", "--scipy-reps", "0"]),
     ("micro", "torch_micro_bench.py", []),
 )
 
@@ -4113,6 +4371,7 @@ def main() -> int:
     phase_gate_bf16(lap_spmv, mesh_a, random8)
     phase_gate_forms(random8)
     phase_gate_k2_tma()
+    phase_gate_k1()
     phase_gate_k3_forms()
     form_rows = phase_timing_bf16(lap_spmv, random8)
     form_rows.update(phase_timing_forms(lap_spmv, random8))
@@ -4211,16 +4470,20 @@ def main() -> int:
         })
         if "other_shapes" in row:
             kernels[-1]["other_shapes"] = [
-                {key: other[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms")}
+                {key: other[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                                             "host_ms", "per_call_ms", "per_call_device_ms") if key in other}
                 for other in row["other_shapes"]
             ]
+        for key in ("host_ms", "per_call_ms", "per_call_device_ms", "per_call_host_ms"):
+            if key in row:
+                kernels[-1][key] = row[key]
         forms = [
             {"form": FORM_LABEL[form], "launches": form_launches[(kname, form)],
              "max_abs_err": max(FORM_ERRS[(kname, form)]),
              **{key: frow[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                            "roofline_share", "library_ms", "library_error")},
-             **{key: frow[key] for key in ("variant", "passes", "torch_bsr_ms", "torch_bsr_error")
-                if key in frow}}
+             **{key: frow[key] for key in ("variant", "passes", "torch_bsr_ms", "torch_bsr_error",
+                                           "per_call_ms", "per_call_device_ms") if key in frow}}
             for (k, form), frow in form_rows.items() if k == kname
         ]
         if forms:

@@ -35,16 +35,31 @@
 // is 64-bit: d * rows_pad overflows int32 for large k * n.  A 16-bit form
 // loads 2 bytes per thread per diagonal; a pair per thread (__half2,
 // __nv_bfloat162) is the next step if that leaves it far from its bound.
+// A slot whose x index lies outside [0, cols) is skipped, so an inf or
+// NaN coefficient there leaves the row finite, where the plain version's
+// zero-padded x gives NaN.
+//
+// A TMA design (persistent CTAs, the diagonals and x staged through a
+// ring in shared memory, out-of-range x zero-filled by the copy) was
+// built and measured against this kernel and lost to it at 4096^2 f32 and
+// 1024^2 f64 (PERF.md); this kernel stays.
+//
+// The host side is a plan (make_plan), built once per operand and x type:
+// the coefficients' address, the shape, the offsets and the grid.  A
+// launch then passes only the plan, x, y and the stream, so what a call
+// costs on the host is one ctypes call with five arguments.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <new>
 #include <type_traits>
 
 namespace {
 
 constexpr int kMaxDiags = 64;
+constexpr int kBlock = 256;
 
 struct DiaOffsets {
   int k;
@@ -101,48 +116,89 @@ __global__ void dia_spmv_kernel(const TD* __restrict__ data,
   }
 }
 
-template <typename TD, typename TX, typename TY, typename Acc>
-int launch(const void* data, const void* x, void* y, long long rows,
-           long long cols, long long rows_pad, const int* offsets, int k,
-           int grid, int block, void* stream) {
-  if (k < 1 || k > kMaxDiags) return (int)cudaErrorInvalidValue;
+struct Plan;
+typedef int (*RunFn)(const Plan*, const void*, void*, void*);
+
+struct Plan {
+  const void* data;
+  long long rows, cols, rows_pad;
+  int grid;
   DiaOffsets offs;
-  offs.k = k;
-  for (int d = 0; d < k; ++d) offs.off[d] = offsets[d];
-  dia_spmv_kernel<TD, TX, TY, Acc><<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const TD*)data, (const TX*)x, (TY*)y, rows, cols, rows_pad, offs);
+  RunFn run;
+};
+
+template <typename TD, typename TX, typename TY, typename Acc>
+int run_plan(const Plan* pl, const void* x, void* y, void* stream) {
+  dia_spmv_kernel<TD, TX, TY, Acc><<<pl->grid, kBlock, 0, (cudaStream_t)stream>>>(
+      (const TD*)pl->data, (const TX*)x, (TY*)y, pl->rows, pl->cols, pl->rows_pad, pl->offs);
   return (int)cudaGetLastError();
+}
+
+// The plan of the operand (data, offsets, rows x cols, rows_pad) launched
+// on ``grid`` blocks (ops/cuda/dia_spmv.py::launch_config); nullptr on
+// failure, the reason in *err.
+template <typename TD, typename TX, typename TY, typename Acc>
+Plan* make_plan(const void* data, long long rows, long long cols, long long rows_pad,
+                const int* offsets, int k, int grid, int* err) {
+  *err = (int)cudaErrorInvalidValue;
+  if (k < 1 || k > kMaxDiags || rows < 1 || rows_pad < rows || grid < 1) return nullptr;
+  Plan* pl = new (std::nothrow) Plan();
+  if (pl == nullptr) {
+    *err = (int)cudaErrorMemoryAllocation;
+    return nullptr;
+  }
+  pl->data = data;
+  pl->rows = rows;
+  pl->cols = cols;
+  pl->rows_pad = rows_pad;
+  pl->grid = grid;
+  pl->offs.k = k;
+  for (int d = 0; d < k; ++d) pl->offs.off[d] = offsets[d];
+  pl->run = &run_plan<TD, TX, TY, Acc>;
+  *err = 0;
+  return pl;
 }
 
 }  // namespace
 
-// Plain C interface, bound with ctypes: one entry per form (data, x),
-// named sprs_dia_spmv_<data>_<x>, or sprs_dia_spmv_<t> where both are t
-// (ops/cuda/forms.py::FORMS).  ``offsets`` is a host array of k ints.
-// Returns cudaGetLastError() after the launch (0 on success).
-#define SPRS_DIA_SPMV_ENTRY(NAME, TD, TX, TY, ACC)                              \
-  extern "C" int NAME(const void* data, const void* x, void* y, long long rows, \
-                      long long cols, long long rows_pad, const int* offsets,   \
-                      int k, int grid, int block, void* stream) {               \
-    return launch<TD, TX, TY, ACC>(data, x, y, rows, cols, rows_pad, offsets,   \
-                                   k, grid, block, stream);                     \
+// Plain C interface, bound with ctypes.
+//
+// sprs_dia_spmv_plan_<form>: one entry per form (data, x), named by its
+// suffix (ops/cuda/forms.py::FORMS): the plan of an operand (``offsets``,
+// a host array of k ints, is copied), nullptr on failure with the CUDA
+// error in *err.
+// sprs_dia_spmv_run: one launch through a plan on ``stream``; returns
+// cudaGetLastError() after the launch (0 on success).
+// sprs_dia_spmv_plan_free: releases a plan.
+extern "C" int sprs_dia_spmv_run(const void* plan, const void* x, void* y, void* stream) {
+  const Plan* pl = static_cast<const Plan*>(plan);
+  return pl->run(pl, x, y, stream);
+}
+
+extern "C" void sprs_dia_spmv_plan_free(void* plan) { delete static_cast<Plan*>(plan); }
+
+#define SPRS_DIA_SPMV_PLAN(SUFFIX, TD, TX, TY, ACC)                                            \
+  extern "C" void* sprs_dia_spmv_plan_##SUFFIX(const void* data, long long rows,               \
+                                               long long cols, long long rows_pad,             \
+                                               const int* offsets, int k, int grid, int* err) { \
+    return make_plan<TD, TX, TY, ACC>(data, rows, cols, rows_pad, offsets, k, grid, err);      \
   }
 
 #define F16 __half
 #define BF16 __nv_bfloat16
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f16, F16, F16, F16, float)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f16_bf16, F16, BF16, float, float)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f16_f32, F16, float, float, float)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f16_f64, F16, double, double, double)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_bf16_f16, BF16, F16, float, float)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_bf16, BF16, BF16, BF16, float)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_bf16_f32, BF16, float, float, float)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_bf16_f64, BF16, double, double, double)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f32_f16, float, F16, float, float)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f32_bf16, float, BF16, float, float)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f32, float, float, float, float)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f32_f64, float, double, double, double)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f64_f16, double, F16, double, double)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f64_bf16, double, BF16, double, double)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f64_f32, double, float, double, double)
-SPRS_DIA_SPMV_ENTRY(sprs_dia_spmv_f64, double, double, double, double)
+SPRS_DIA_SPMV_PLAN(f16, F16, F16, F16, float)
+SPRS_DIA_SPMV_PLAN(f16_bf16, F16, BF16, float, float)
+SPRS_DIA_SPMV_PLAN(f16_f32, F16, float, float, float)
+SPRS_DIA_SPMV_PLAN(f16_f64, F16, double, double, double)
+SPRS_DIA_SPMV_PLAN(bf16_f16, BF16, F16, float, float)
+SPRS_DIA_SPMV_PLAN(bf16, BF16, BF16, BF16, float)
+SPRS_DIA_SPMV_PLAN(bf16_f32, BF16, float, float, float)
+SPRS_DIA_SPMV_PLAN(bf16_f64, BF16, double, double, double)
+SPRS_DIA_SPMV_PLAN(f32_f16, float, F16, float, float)
+SPRS_DIA_SPMV_PLAN(f32_bf16, float, BF16, float, float)
+SPRS_DIA_SPMV_PLAN(f32, float, float, float, float)
+SPRS_DIA_SPMV_PLAN(f32_f64, float, double, double, double)
+SPRS_DIA_SPMV_PLAN(f64_f16, double, F16, double, double)
+SPRS_DIA_SPMV_PLAN(f64_bf16, double, BF16, double, double)
+SPRS_DIA_SPMV_PLAN(f64_f32, double, float, double, double)
+SPRS_DIA_SPMV_PLAN(f64, double, double, double, double)

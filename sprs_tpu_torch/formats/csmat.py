@@ -403,7 +403,7 @@ class CsMat:
         ids = rows_like if axis == 1 else cols_like
         n = self.rows if axis == 1 else self.cols
         # padding's outer sentinel lands in the spare slot n; each slot
-        # summed in index order (util.index_sum_)
+        # summed in one fixed order (util.index_sum_)
         out = torch.zeros(n + 1, dtype=self.dtype, device=self.device)
         return index_sum_(out, ids.to(torch.int64), self.data)[:n]
 

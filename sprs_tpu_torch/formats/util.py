@@ -37,14 +37,17 @@ DEFAULT_DEVICE = "cuda"
 
 def index_sum_(out: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """``out[index[i]] += values[i]`` along dim 0, each slot's values
-    added in index order on every device, so two runs give the same bits
-    (and the JAX package's scatter-add order): on a CUDA tensor an
-    accumulating ``index_put_``, for which torch sorts the slots stably and
-    adds each run of equal slots in one order (``index_add_`` adds with
-    atomics there, in no fixed order); elsewhere ``index_add_``, which
-    adds serially (the CPU's accumulating ``index_put_`` adds float32 on
-    several threads, in no fixed order, on large inputs).  Returns
-    ``out``."""
+    added in one fixed order, so two runs give the same bits.  On the CPU
+    that order is index order (``index_add_``, which adds serially; the
+    CPU's accumulating ``index_put_`` adds float32 on several threads, in
+    no fixed order, on large inputs), the JAX package's scatter-add order.
+    On a CUDA tensor it is an accumulating ``index_put_``, for which torch
+    sorts the slots stably and adds each run of equal slots in an order of
+    its own (``index_add_`` adds with atomics there, in no fixed order):
+    repeatable, but not the CPU's order, so a slot of several values may
+    differ from the CPU's sum in its last bits (on an H100 with 64 values
+    a slot, 81 % of the slots did, within 2.6e-7 of the sum in float32,
+    5.9e-16 in float64).  Returns ``out``."""
     if out.is_cuda:
         return out.index_put_((index,), values, accumulate=True)
     return out.index_add_(0, index, values)
@@ -258,7 +261,7 @@ def compress_coo(
     valid = positions(out_cap, device) < nnz
     r_out = key_out // n_inner_c
     indices = torch.where(valid, key_out - r_out * n_inner_c, 0).to(INDEX_DTYPE)
-    # each slot's duplicates summed in index order on every device
+    # each slot's duplicates summed in one fixed order (index_sum_)
     values = tuple(
         index_sum_(torch.zeros(out_cap + 1, dtype=v.dtype, device=device), slot, v)[:out_cap]
         for v in vals

@@ -79,8 +79,11 @@ def bicgstab(
     x = torch.zeros_like(b) if x0 is None else as_vector(x0, b)
     norm = torch.linalg.vector_norm
 
-    tiny = b.new_tensor(1e-300)  # 0 in float32, as in the JAX solver
-    threshold = tol * torch.maximum(norm(b), tiny)
+    b_norm = norm(b)
+    # the floor in the norm's real type: 0 in float32 (and complex64), as
+    # in the JAX solver; torch.maximum takes no complex operand
+    tiny = b_norm.new_tensor(1e-300)
+    threshold = tol * torch.maximum(b_norm, tiny)
 
     r = b - a_op(x)
     rhat, p = r, r
@@ -98,11 +101,10 @@ def bicgstab(
         shat = m_op(sres)
         t = a_op(shat)
         tt = _dot(t, t)
-        omega = torch.where(
-            tt > restart_eps,
-            _dot(t, sres) / torch.where(tt > restart_eps, tt, 1.0),
-            0.0,
-        )
+        # tt is real-valued; its ``real`` view orders it in complex solves
+        # too (JAX compares complex values by their real part first)
+        big = tt.real > restart_eps
+        omega = torch.where(big, _dot(t, sres) / torch.where(big, tt, 1.0), 0.0)
         x_new = x + alpha * phat + omega * shat
         r_new = sres - omega * t
 

@@ -48,7 +48,10 @@ def cg(
     x = torch.zeros_like(b) if x0 is None else as_vector(x0, b)
     norm = torch.linalg.vector_norm
 
-    threshold = tol * torch.maximum(norm(b), b.new_tensor(1e-300))
+    b_norm = norm(b)
+    # the floor in the norm's real type: 0 in float32 (and complex64), as
+    # in the JAX solver; torch.maximum takes no complex operand
+    threshold = tol * torch.maximum(b_norm, b_norm.new_tensor(1e-300))
 
     r = b - a_op(x)
     z = m_op(r)

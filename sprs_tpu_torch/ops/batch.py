@@ -46,7 +46,7 @@ def _segment_sum(mat: CsMat, data: torch.Tensor, x: torch.Tensor, vec: bool) -> 
     N = max(data.shape[0], x.shape[0])
     rest = contrib.shape[2:]
     y = torch.zeros((N * mat.rows,) + rest, dtype=contrib.dtype, device=contrib.device)
-    # member i's rows at i·rows + dst, each summed in index order
+    # member i's rows at i·rows + dst, each summed in one fixed order (index_sum_)
     # (ops/prod.py)
     slot = (torch.arange(N, device=dst.device)[:, None] * mat.rows + dst).reshape(-1)
     y = index_sum_(y, slot, contrib.expand((N,) + contrib.shape[1:]).reshape((-1,) + rest))

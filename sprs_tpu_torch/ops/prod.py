@@ -6,9 +6,11 @@ Both storage orders reduce to two plain torch primitives:
 * CSR (gather form):   y[row_ids] += data * x[indices]
 * CSC (scatter form):  y[indices] += data * x[col_ids]
 
-each summed by ``util.index_sum_``, in index order on every device: on a
-CUDA tensor ``index_add_`` adds with atomics in no fixed order, and two
-runs of one product differed in their last bits on the card.  Padding
+each summed by ``util.index_sum_`` in one fixed order on each device:
+index order on the CPU (the JAX package's), an order of torch's own that
+repeats from run to run on the card (``index_add_`` adds with atomics in
+no fixed order there, and two runs of one product differed in their last
+bits).  Padding
 entries carry the row sentinel ``n_outer`` and ``data == 0``; torch raises
 on an out-of-range id where JAX's ``segment_sum`` drops it, so padding is
 masked to row 0 with a zero contribution.

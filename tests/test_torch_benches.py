@@ -309,3 +309,18 @@ def test_spgemm_empty_product_equals_scipy():
     ta, tb = pb._csr_tensor(a), pb._csr_tensor(b)
     assert torch.sparse.mm(ta, tb)._nnz() == 0
     assert pb._time_library(lambda: torch.sparse.mm(ta, tb), a.data) > 0
+
+
+@pytest.mark.parametrize("scipy_reps", [0, 1])
+def test_spgemm_scipy_reps_zero_times_scipy_once_and_not_the_native_library(scipy_reps, monkeypatch):
+    """``--scipy-reps 0`` (phase 5n's setting) still calls scipy once, for
+    the reference C is held to, and leaves the native Gustavson untimed;
+    1 times both."""
+    pb = port("spgemm")
+    calls = []
+    monkeypatch.setattr(pb.native, "available", lambda: True)
+    monkeypatch.setattr(pb.native, "spgemm_host", lambda *a: calls.append(a))
+    row = pb.bench_one((150, 250), (250, 150), 1e-2, device="cpu", scipy_reps=scipy_reps)
+    assert row["equal"] is True and row["scipy_s"] > 0
+    assert len(calls) == scipy_reps
+    assert (row["native_gustavson_s"] is None) == (scipy_reps == 0)

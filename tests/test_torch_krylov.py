@@ -112,3 +112,77 @@ def test_bicgstab_sparse_matches_jax():
     want = j_bicgstab_sparse(a, st.csvec(64, [27], [1.0]), cap=80, tol=1e-6)
     assert got.x.cap == 80
     assert_same_solve(got, want)
+
+
+# Complex CG and BiCGSTAB: tests/test_precond.py::TestComplexKrylov's
+# fixtures, complex128 at tol 1e-10.  x against the JAX solvers' within
+# rtol 1e-8 (CG) and 1e-7 (BiCGSTAB), the reference tests' own limits
+# against np.linalg.solve; iteration counts equal.
+def complex_fixture(kind):
+    rng = np.random.default_rng({"hermitian": 7, "general": 8}[kind])
+    a = rng.standard_normal((20, 20)) + 1j * rng.standard_normal((20, 20))
+    m = a @ a.conj().T + 20 * np.eye(20) if kind == "hermitian" else a + 20 * np.eye(20)
+    b = rng.standard_normal(20) + 1j * rng.standard_normal(20)
+    return m, b
+
+
+@pytest.mark.parametrize("solver, kind, rtol", [
+    ("cg", "hermitian", 1e-8),
+    ("bicgstab", "general", 1e-7),
+])
+def test_complex_krylov_matches_jax_and_dense_solve(solver, kind, rtol):
+    from sprs_tpu import linalg as jl
+    from sprs_tpu_torch import linalg as tl
+
+    m, b = complex_fixture(kind)
+    want = getattr(jl, solver)(st.from_dense(m), b, tol=TOL)
+    got = getattr(tl, solver)(ts.from_dense(m, device="cpu"), b, tol=TOL)
+    assert got.converged and bool(want.converged)
+    assert got.x.dtype == torch.complex128
+    assert got.iterations == int(want.iterations)
+    np.testing.assert_allclose(got.x.numpy(), np.asarray(want.x), rtol=rtol)
+    np.testing.assert_allclose(got.x.numpy(), np.linalg.solve(m, b), rtol=rtol)
+
+
+@pytest.mark.parametrize("solver", ["cg", "bicgstab"])
+@pytest.mark.parametrize("route", ["direct", "solve"])
+def test_real_laplacian_stored_complex(solver, route):
+    """The 6² Dirichlet Laplacian stored as complex128 with a complex b,
+    through the solver and through ``solve(method=...)``: x against the
+    JAX solver's and the dense solve."""
+    from sprs_tpu import linalg as jl
+    from sprs_tpu_torch import linalg as tl
+
+    lap = st.utils.dirichlet_laplacian((6, 6)).to_dense()
+    m = np.asarray(lap).astype(np.complex128)
+    rng = np.random.default_rng(9)
+    b = rng.standard_normal(36) + 1j * rng.standard_normal(36)
+    tm = ts.from_dense(m, device="cpu")
+    if route == "direct":
+        got = getattr(tl, solver)(tm, b, tol=TOL)
+        want = getattr(jl, solver)(st.from_dense(m), b, tol=TOL)
+        assert got.converged and got.iterations == int(want.iterations)
+        x = got.x
+        np.testing.assert_allclose(x.numpy(), np.asarray(want.x), rtol=1e-8)
+    else:
+        x = tl.solve(tm, torch.from_numpy(b), method=solver, tol=TOL)
+    assert x.dtype == torch.complex128
+    np.testing.assert_allclose(x.numpy(), np.linalg.solve(m, b), rtol=1e-8)
+
+
+@pytest.mark.parametrize("solver", ["cg", "bicgstab"])
+@pytest.mark.parametrize("dtype, tol", [(np.float64, 1e-10), (np.float32, 1e-5)])
+def test_real_solves_keep_their_iteration_counts(solver, dtype, tol):
+    """The floor's new type leaves real solves as they were: the 8²
+    Dirichlet Laplacian in float64 and float32, iteration counts equal to
+    the JAX solvers'."""
+    from sprs_tpu import linalg as jl
+    from sprs_tpu_torch import linalg as tl
+
+    m = np.asarray(st.utils.dirichlet_laplacian((8, 8)).to_dense()).astype(dtype)
+    b = np.random.default_rng(10).standard_normal(64).astype(dtype)
+    got = getattr(tl, solver)(ts.from_dense(m, device="cpu"), b, tol=tol)
+    want = getattr(jl, solver)(st.from_dense(m), b, tol=tol)
+    assert got.converged and bool(want.converged)
+    assert got.x.dtype == torch.from_numpy(m).dtype
+    assert got.iterations == int(want.iterations)
