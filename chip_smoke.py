@@ -258,6 +258,20 @@ and prints no result):
       library not timed) and the micro bench; their K1, K2, K3 and K5 launches join
       the kernels line, and the phase's seconds are printed beside its
       150 s budget;
+   o. the last three measurement programs (after 5n), each called in
+      this process through its ``main`` at its full size: the primitives
+      bench (N = 5.6M; then each primitive once on the card against its
+      definition computed by numpy on a CPU copy: sorted rows and array,
+      the gather, the int32 scatter-add over two chained steps, the
+      wrapped int32 cumsum, and the two float32 scatter-adds,
+      ``index_add_`` and ``index_sum_``, within 1e-6 of the counts and
+      of each other), the weak-scaling bench of ``dist_spmv`` at 1, 2, 4
+      and 8 slots on the card (each schedule's product within 1e-6 of
+      max|y| of ``spmv``) and ``torch_ldl_big.py`` at 512² nd (the panel
+      solve's backward error under its 2e-3 bar, the round-batched solve
+      within 1e-3 of max|y| of the sequential one, the f64 host
+      cross-check); their paths launch none of the port's kernels; the
+      phase's seconds are printed beside its budget;
 6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
    step against a dense solve;
    LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
@@ -276,7 +290,8 @@ and prints no result):
    bf16_solvers and forms_solvers lines (phases 5k and 5l), the
    bsr_forms line (phase 5m), the determinism line, one bench line per
    record of phase 5n and the benches line (its seconds and launches),
-   the kernels line
+   one bench line per record of phase 5o and the last_benches line (its
+   seconds, launches and the primitives' errors), the kernels line
    (each form other than float32 and float64 under its kernel's entry,
    in ``forms``: its time, device time, bound and share, plain and
    library times or the library's refusal, main-path launches and gate
@@ -378,6 +393,7 @@ from sprs_tpu_torch.ops.spgemm import (
     dense_bytes_budget,
 )
 from sprs_tpu_torch.utils import dirichlet_laplacian, grid_laplacian, rand_csr, tri_mesh_graph_laplacian
+from sprs_tpu_torch.utils.profile import device_launches, torch_ops
 
 DEVICE = "cuda"
 # H100 SXM data sheet: HBM3 rate; CUDA-core peaks (K1, K2) and the
@@ -3608,44 +3624,6 @@ def factor_gap(num, host, rtol):
     return l_err, float(((num.d.to(torch.float64) - dh).abs() / dh.abs()).max()), float(diff.max()) / scale
 
 
-def torch_ops(fn) -> int:
-    """The torch operations one call of ``fn`` issues, views excluded
-    (each launches at least one kernel on the card), counted by a
-    dispatch mode: cheap where the profiler takes about a millisecond
-    per launch to trace."""
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class Count(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            Count.n += not func.is_view
-            return func(*args, **(kwargs or {}))
-
-    with Count():
-        fn()
-    return Count.n
-
-
-def device_launches(fn):
-    """(device ops launched by one call of ``fn``, device busy ms, traced
-    wall ms, top ops) from torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync()
-        wall = (time.perf_counter() - t0) * 1e3
-    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    ops.sort(key=lambda e: -e.self_device_time_total)
-    busy = sum(e.self_device_time_total for e in ops) / 1e3
-    top = [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in ops[:8]]
-    return sum(e.count for e in ops), busy, wall, top
-
-
 def panel_solves(label, num, a, b, refs, gated, block=None):
     """``solve(method="super")`` by both branches of the round-batched
     solve's gate, forced through the port's CUDA constant: first solve s,
@@ -4299,6 +4277,19 @@ def check_spmv_bench(rec):
         raise AssertionError("the spmv bench's record fails its checks")
 
 
+def counted_launches() -> dict:
+    """K1, K2, K3 and K5 launches since the counts were last set to 0, by
+    the kernels line's names."""
+    return {
+        "dia_spmv": dia_spmv_kernel.launches,
+        "dia_spmm_tma": dia_spmm_kernel.launches_tma,
+        "dia_spmm_scalar": dia_spmm_kernel.launches_scalar,
+        "bsr_spmm_tc": bsr_spmm_kernel.launches_tc,
+        "bsr_spmm_tf32x3": bsr_spmm_kernel.launches_tf32x3,
+        "ell_spmv": ell_spmv_kernel.launches,
+    }
+
+
 def phase_benches():
     """Phase 5n: each ``benches/torch_*.py`` called in this process through
     its ``main``, the launch counts set to 0 just before and read just
@@ -4314,14 +4305,7 @@ def phase_benches():
         sync()
         seconds[name] = time.perf_counter() - t0
         log(f"5n: bench {name} {' '.join(argv)} in {seconds[name]!r} s")
-    launches = {
-        "dia_spmv": dia_spmv_kernel.launches,
-        "dia_spmm_tma": dia_spmm_kernel.launches_tma,
-        "dia_spmm_scalar": dia_spmm_kernel.launches_scalar,
-        "bsr_spmm_tc": bsr_spmm_kernel.launches_tc,
-        "bsr_spmm_tf32x3": bsr_spmm_kernel.launches_tf32x3,
-        "ell_spmv": ell_spmv_kernel.launches,
-    }
+    launches = counted_launches()
     row = {"phase_s": time.perf_counter() - t_phase, "phase_budget_s": BENCHES_PHASE_BUDGET_S,
            "bench_s": seconds, "launches": launches}
     log(f"5n: {row['phase_s']!r} s (budget {BENCHES_PHASE_BUDGET_S} s), launches {launches}")
@@ -4331,6 +4315,157 @@ def phase_benches():
             raise AssertionError(f"the benches launched no {kname} kernel")
     if launches["dia_spmm_tma"] + launches["dia_spmm_scalar"] == 0:
         raise AssertionError("the benches launched no dia_spmm kernel")
+    return records, launches, row
+
+
+# ---------------------------------------------------------------------------
+# phase 5o: the last three measurement programs
+# ---------------------------------------------------------------------------
+
+# phase 5o's share of the script's time, recorded beside its seconds and
+# never a gate: 87.9 and 120.3 s on two H100 machines (torch_ldl_big.py
+# 85.8 and 118.8 s of it, its f64 host factor 31.6 and 36.9 s), runs that
+# logged budgets of 180 and 120 s before this value was set; torch_ldl_big.py's
+# --profile (the profiler over one 512² factor's 127,735 launches) is left
+# to the standalone run, which took 163.3-192.9 s with it
+LAST_BENCHES_PHASE_BUDGET_S = 150.0
+# (record name, bench file, arguments), each at its full size
+LAST_BENCH_RUNS = (
+    ("prim", "torch_prim_bench.py", []),
+    ("scaling", "torch_scaling_bench.py", []),
+    ("ldl_big", "torch_ldl_big.py", ["--grid", "512", "--fill", "nd"]),
+)
+SCALING_GATE = 1e-6  # each schedule's product against spmv of the whole Laplacian, of max|y|
+LDL_BIG_SOLVE_GATE = 1e-3  # the round-batched panel solve against the sequential one, of max|y|
+# ldl_big's gates beside the bench's own 2e-3 backward-error bar, each
+# 7-70x over the 512² nd readings of seven runs on an H100 (residual_rel
+# 2.39e-7, flat against panel 4.6-5.3e-6, fwd_err_rel 1.33e-4 against
+# splu, d and l within 1.5e-6 of the f64 host factor)
+LDL_BIG_RESIDUAL_GATE = 1e-5
+LDL_BIG_FLAT_GATE = 1e-4
+LDL_BIG_FWD_GATE = 1e-3
+LDL_BIG_FACTOR_GATE = 1e-4
+
+
+def _wrap_int32(a):
+    """int64 values wrapped to int32, as an int32 sum wraps."""
+    return ((a + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+
+
+def check_prim_bench(mod):
+    """Each primitive of ``torch_prim_bench.py`` once on its full-size
+    inputs on the card, held against its definition computed by numpy on
+    a CPU copy: rows and the whole array sorted, the gather exact, the
+    int32 scatter-add's counts (two chained steps, the second dropping
+    indices past N) and the wrapped int32 cumsum; the two float32
+    scatter-adds against the counts and each other, within 1e-6 of the
+    largest."""
+    n = mod.N
+    k2, _, k1, idx = mod.inputs(n, DEVICE)
+    prims = mod.primitives(n, idx, k2, k1)
+    k2h, k1h, ih = k2.cpu().numpy(), k1.cpu().numpy(), idx.cpu().numpy()
+
+    def run(name, x=None):
+        f, x0 = prims[name]
+        return f(x0 if x is None else x)
+
+    counts = np.bincount(ih, minlength=n)
+    step1 = counts.astype(np.int32) + ih
+    kept = step1[step1 < n]
+    step2 = np.bincount(kept, minlength=n).astype(np.int32) + step1
+    want = {
+        "sort_batched_dim1": (run("sort_batched_dim1"), np.sort(k2h, axis=1)),
+        "sort_1d_global": (run("sort_1d_global"), np.sort(k1h)),
+        "gather": (run("gather"), ih[ih]),
+        "scatter_add": (run("scatter_add"), step1),
+        "scatter_add two steps": (run("scatter_add", run("scatter_add")), step2),
+        "cumsum": (run("cumsum"), np.mod(_wrap_int32(np.cumsum(ih, dtype=np.int64)), n).astype(np.int32)),
+    }
+    wraps = bool(np.cumsum(ih, dtype=np.int64).max() > np.iinfo(np.int32).max)
+    for name, (got, ref) in want.items():
+        got = got.cpu().numpy()
+        if got.dtype != np.int32 or not np.array_equal(got, ref):
+            raise AssertionError(f"prim bench: {name} differs from its definition "
+                                 f"({int((got != ref).sum())} of {ref.size} entries)")
+    add = run("scatter_add_f32_index_add").cpu().numpy()
+    put = run("scatter_add_f32_index_sum").cpu().numpy()
+    scale = float(counts.max())
+    errs = {"index_add_vs_counts": float(np.abs(add - counts).max()) / scale,
+            "index_sum_vs_counts": float(np.abs(put - counts).max()) / scale,
+            "index_sum_vs_index_add": float(np.abs(put - add).max()) / scale}
+    log(f"5o: prim bench primitives equal their definitions on the card (cumsum wraps: {wraps}), "
+        f"float scatter-adds {json.dumps(errs)}")
+    if not wraps or max(errs.values()) > 1e-6:
+        raise AssertionError(f"prim bench: float scatter-adds {errs}, cumsum wraps {wraps}")
+    return errs
+
+
+def check_scaling_bench(rec):
+    """Every slot count's halo and gather products against ``spmv`` of
+    the whole Laplacian, within SCALING_GATE of max|y|."""
+    diffs = {r["n_slots"]: (r["halo_rel_diff"], r["gather_rel_diff"]) for r in rec["rows"]}
+    log(f"5o: scaling bench (halo, gather) products against spmv by slots: {diffs}")
+    if not diffs or max(max(d) for d in diffs.values()) > SCALING_GATE:
+        raise AssertionError(f"scaling bench: products off spmv by {diffs}")
+
+
+def check_ldl_big(rec):
+    """Every stage of the ldl_big record ran (no ``<stage>_error``, the
+    flat solve and the f64 host cross-check among them), the panel
+    solve's backward error under the bench's own bar (2e-3) and under
+    LDL_BIG_RESIDUAL_GATE, the round-batched solve within
+    LDL_BIG_SOLVE_GATE of max|y| of the sequential one, the flat solve
+    within LDL_BIG_FLAT_GATE of the panel solve, the forward error
+    against scipy's splu under LDL_BIG_FWD_GATE, and the card's d and l
+    within LDL_BIG_FACTOR_GATE of the f64 host factor's."""
+    errors = {k: v for k, v in rec.items() if k.endswith("_error")}
+    want = ("residual_rel", "solve_batched_max_diff", "flat_vs_panel_rel", "fwd_err_rel", "d_rel_err",
+            "l_rel_err")
+    missing = [k for k in want if rec.get(k) is None]
+    ok = (not errors and not missing
+          and rec["residual_ok"] is True and rec["residual_rel"] <= LDL_BIG_RESIDUAL_GATE
+          and rec["solve_batched_max_diff"] <= LDL_BIG_SOLVE_GATE * rec["solve_y_inf"]
+          and rec["flat_vs_panel_rel"] <= LDL_BIG_FLAT_GATE
+          and rec["fwd_err_rel"] <= LDL_BIG_FWD_GATE
+          and rec["factor_ok"] is True
+          and max(rec["d_rel_err"], rec["l_rel_err"]) <= LDL_BIG_FACTOR_GATE)
+    log(f"5o: ldl_big {rec['grid']}^2 {rec['fill']}: residual_rel {rec.get('residual_rel')!r}, "
+        f"solve_batched_max_diff {rec.get('solve_batched_max_diff')!r} of max|y| {rec.get('solve_y_inf')!r}, "
+        f"flat_vs_panel_rel {rec.get('flat_vs_panel_rel')!r}, fwd_err_rel {rec.get('fwd_err_rel')!r}, "
+        f"d/l rel err {rec.get('d_rel_err')!r} / {rec.get('l_rel_err')!r}, factor_ok {rec.get('factor_ok')}, "
+        f"errors {errors}, missing {missing}: {ok}")
+    if not ok:
+        raise AssertionError(f"the ldl_big record fails its checks (errors {errors}, missing {missing})")
+
+
+def phase_last_benches():
+    """Phase 5o: ``torch_prim_bench.py``, ``torch_scaling_bench.py`` and
+    ``torch_ldl_big.py`` called in this process through their ``main``,
+    the launch counts set to 0 just before and read just after (their
+    paths run no kernel of the port: XLA-style primitives, the per-shard
+    CSR products, the panel numerics in torch ops), then each record
+    gated.  Returns ({record name: record}, launches, row of the phase's
+    seconds)."""
+    records, seconds, mods = {}, {}, {}
+    sync()
+    reset_counts()
+    t_phase = time.perf_counter()
+    for name, filename, argv in LAST_BENCH_RUNS:
+        t0 = time.perf_counter()
+        mods[name] = load_bench(filename)
+        records[name] = mods[name].main(argv)
+        sync()
+        seconds[name] = time.perf_counter() - t0
+        log(f"5o: bench {name} {' '.join(argv)} in {seconds[name]!r} s")
+    launches = counted_launches()
+    row = {"phase_s": time.perf_counter() - t_phase, "phase_budget_s": LAST_BENCHES_PHASE_BUDGET_S,
+           "bench_s": seconds, "launches": launches}
+    log(f"5o: {row['phase_s']!r} s (budget {LAST_BENCHES_PHASE_BUDGET_S} s), launches {launches}")
+    t0 = time.perf_counter()
+    row["prim_check"] = check_prim_bench(mods["prim"])
+    check_scaling_bench(records["scaling"])
+    check_ldl_big(records["ldl_big"])
+    row["check_s"] = time.perf_counter() - t0
     return records, launches, row
 
 
@@ -4443,6 +4578,9 @@ def main() -> int:
     bench_records, bench_launches, benches_row = phase_benches()
     for kname, n in bench_launches.items():
         launches[kname] += n
+    last_records, last_launches, last_row = phase_last_benches()
+    for kname, n in last_launches.items():
+        launches[kname] += n
     errs["bsr_spmm_tf32x3"] = max(GATE_ERRS["bsr_spmm_tf32x3"])
     for kname, n in launches.items():
         if n == 0:
@@ -4499,6 +4637,9 @@ def main() -> int:
     for bench, record in bench_records.items():
         print(json.dumps({"bench": bench, "record": record, "card": smi}))
     print(json.dumps({"benches": benches_row, "card": smi}))
+    for bench, record in last_records.items():
+        print(json.dumps({"bench": bench, "record": record, "card": smi}))
+    print(json.dumps({"last_benches": last_row, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

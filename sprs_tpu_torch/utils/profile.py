@@ -13,6 +13,9 @@
 * :func:`trace` — a ``torch.profiler`` context writing a Chrome trace.
 * :func:`bench_device` and :func:`card` — the device a bench runs on, and
   the card's name and power limit that every bench record carries.
+* :func:`torch_ops` and :func:`device_launches` — the torch ops one call
+  issues (a dispatch mode) and the device launches, busy and traced time
+  of one call on a card (``torch.profiler``).
 """
 
 from __future__ import annotations
@@ -141,6 +144,45 @@ def fori_chain_time(step2: Callable, operand, x0, inner: int = 32, rounds: int =
             y = step2(operand, y)
         best = min(best, clock.stop(y) / inner)
     return best
+
+
+def torch_ops(fn) -> int:
+    """The torch operations one call of ``fn`` issues, views excluded
+    (each launches at least one kernel on the card), counted by a
+    dispatch mode: cheap where the profiler takes about a millisecond
+    per launch to trace."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += not func.is_view
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.n
+
+
+def device_launches(fn):
+    """(device ops launched by one call of ``fn``, device busy ms, traced
+    wall ms, top ops as [name, count, ms]) from torch.profiler; a card
+    only."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ops = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    ops.sort(key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in ops) / 1e3
+    top = [[e.key[:70], e.count, e.self_device_time_total / 1e3] for e in ops[:8]]
+    return sum(e.count for e in ops), busy, wall, top
 
 
 def measure_peak_bandwidth(nbytes: int = 1 << 29, iters: int = 30, *,

@@ -22,6 +22,11 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_BENCHES = ("spmv", "bsr", "ldl", "spgemm", "micro")
+# every bench file of the port: these five, and the three that
+# tests/test_torch_benches_last.py holds against the JAX programs
+BENCH_FILES = {**{name: f"torch_{name}_bench.py" for name in PORT_BENCHES},
+               "prim": "torch_prim_bench.py", "scaling": "torch_scaling_bench.py",
+               "ldl_big": "torch_ldl_big.py"}
 
 
 def _load(path: pathlib.Path, name: str):
@@ -257,9 +262,9 @@ def test_micro_record_has_the_jax_keys():
 def test_benches_import_neither_jax_nor_the_jax_package():
     code = (
         "import importlib.util, sys\n"
-        f"for name in {PORT_BENCHES!r}:\n"
-        f"    path = {str(ROOT / 'benches')!r} + f'/torch_{{name}}_bench.py'\n"
-        "    spec = importlib.util.spec_from_file_location('b_' + name, path)\n"
+        f"for name in {sorted(BENCH_FILES.values())!r}:\n"
+        f"    path = {str(ROOT / 'benches')!r} + '/' + name\n"
+        "    spec = importlib.util.spec_from_file_location('b_' + name[:-3], path)\n"
         "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'sprs_tpu' or m.startswith('sprs_tpu.')]\n"
@@ -271,14 +276,14 @@ def test_benches_import_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("name", PORT_BENCHES)
+@pytest.mark.parametrize("name", list(BENCH_FILES))
 def test_bench_without_a_card_exits_naming_the_gpu(name):
     """With no card and no ``--device``, each bench stops before any work
     with an error naming the missing GPU; it never falls back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present")
     env = {k: v for k, v in os.environ.items() if k != "CUDA_VISIBLE_DEVICES"}
-    proc = subprocess.run([sys.executable, str(ROOT / "benches" / f"torch_{name}_bench.py")],
+    proc = subprocess.run([sys.executable, str(ROOT / "benches" / BENCH_FILES[name])],
                           capture_output=True, text=True, timeout=120, env=env)
     assert proc.returncode != 0
     assert "no CUDA GPU" in proc.stderr and proc.stdout == ""
