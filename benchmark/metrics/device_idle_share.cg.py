@@ -1,0 +1,8 @@
+"""The device's idle share of the traced window in the CG-set cells, in %:
+100 · (1 - union of the device ops' intervals / the window)."""
+
+from harness.trace import idle_percent
+
+
+def read(ctx):
+    return idle_percent(ctx.trace)
