@@ -21,6 +21,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from .._span import span
 from ..errors import ShapeError, StructureError
 from .csmat import CSC, CSR, CsMat
 from .util import (
@@ -50,21 +51,23 @@ def coo_to_csmat(
 
     ``rows``/``cols``/``data`` may be capacity-padded; ``nnz`` is the live
     count (default: their full length) and ``cap`` the result's capacity
-    (default: that length, at least 1).
+    (default: that length, at least 1).  Runs in a ``sprs.coo_to_csmat``
+    profiler span.
     """
-    check_index_capacity(rows=shape[0], cols=shape[1], cap=cap)
-    rows = as_tensor(rows, dtype=INDEX_DTYPE, device=device)
-    cols = as_tensor(cols, dtype=INDEX_DTYPE, device=device)
-    data = as_tensor(data, device=device)
-    n = rows.shape[0]
-    if nnz is None:
-        nnz = n
-    if cap is None:
-        cap = max(n, 1)
-    outer, inner = (rows, cols) if storage == CSR else (cols, rows)
-    n_outer, n_inner = (shape[0], shape[1]) if storage == CSR else (shape[1], shape[0])
-    res = compress_coo(outer, inner, (data,), nnz, n_outer, n_inner, cap)
-    return CsMat(res.indptr, res.indices, res.values[0], tuple(int(s) for s in shape), storage)
+    with span("sprs.coo_to_csmat"):
+        check_index_capacity(rows=shape[0], cols=shape[1], cap=cap)
+        rows = as_tensor(rows, dtype=INDEX_DTYPE, device=device)
+        cols = as_tensor(cols, dtype=INDEX_DTYPE, device=device)
+        data = as_tensor(data, device=device)
+        n = rows.shape[0]
+        if nnz is None:
+            nnz = n
+        if cap is None:
+            cap = max(n, 1)
+        outer, inner = (rows, cols) if storage == CSR else (cols, rows)
+        n_outer, n_inner = (shape[0], shape[1]) if storage == CSR else (shape[1], shape[0])
+        res = compress_coo(outer, inner, (data,), nnz, n_outer, n_inner, cap)
+        return CsMat(res.indptr, res.indices, res.values[0], tuple(int(s) for s in shape), storage)
 
 
 class _Triplets:

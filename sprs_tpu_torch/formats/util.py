@@ -23,6 +23,7 @@ from typing import NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from .._span import span
 from ..errors import StructureError
 
 INDEX_DTYPE = torch.int32
@@ -47,10 +48,12 @@ def index_sum_(out: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> 
     repeatable, but not the CPU's order, so a slot of several values may
     differ from the CPU's sum in its last bits (on an H100 with 64 values
     a slot, 81 % of the slots did, within 2.6e-7 of the sum in float32,
-    5.9e-16 in float64).  Returns ``out``."""
-    if out.is_cuda:
-        return out.index_put_((index,), values, accumulate=True)
-    return out.index_add_(0, index, values)
+    5.9e-16 in float64).  Runs in a ``sprs.index_sum`` profiler span.
+    Returns ``out``."""
+    with span("sprs.index_sum"):
+        if out.is_cuda:
+            return out.index_put_((index,), values, accumulate=True)
+        return out.index_add_(0, index, values)
 
 
 def is_bf16(dtype) -> bool:

@@ -4,7 +4,8 @@ counterpart of ``sprs_tpu/linalg/cg.py``.
 The same recurrences and masked guards as the JAX solver's
 ``lax.while_loop``, run as a Python loop with one host synchronisation
 per iteration to read ``done``.  One matvec per iteration, plus the
-initial and the final residual: iterations + 2 in all.
+initial and the final residual: iterations + 2 in all.  Each host read
+of a device value runs in a ``sprs.cg.sync`` profiler span.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
+from .._span import span
 from ..errors import ShapeError
 from ..formats.csmat import CsMat
 from ._dispatch import as_matvec, as_vector
@@ -26,6 +28,13 @@ class CgResult:
     converged: bool
     iterations: int
     residual_norm: float
+
+
+def _host(cast, value):
+    """``cast(value)`` for a device value: the host waits for the device
+    here."""
+    with span("sprs.cg.sync"):
+        return cast(value)
 
 
 def cg(
@@ -59,7 +68,7 @@ def cg(
     rz = _dot(r, z)
     it = 0
     done = norm(r) <= threshold
-    while it < max_iter and not bool(done):
+    while it < max_iter and not _host(bool, done):
         ap = a_op(p)
         pap = _dot(p, ap)
         safe = pap.abs() > 1e-300
@@ -76,9 +85,10 @@ def cg(
         done = norm(r) <= threshold
         it += 1
 
+    converged = _host(bool, done)
     return CgResult(
         x=x,
-        converged=bool(done),
+        converged=converged,
         iterations=it,
-        residual_norm=float(norm(b - a_op(x))),
+        residual_norm=_host(float, norm(b - a_op(x))),
     )

@@ -39,6 +39,7 @@ from typing import Tuple
 
 import torch
 
+from ..._span import span
 from ...errors import ShapeError
 from ...formats.dia import DiaMat, _padded_x, dia_spmv
 from . import build
@@ -183,27 +184,29 @@ class K1Plan:
         return plan
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A @ x, launched on the current stream."""
-        if x.shape != self.x_shape:
-            raise ShapeError(f"dia_spmv: A is {(self.rows, self.cols)}, x is {tuple(x.shape)}")
-        if x.get_device() != self.index:
-            raise ValueError(
-                f"dia_spmv kernel needs data and x on one CUDA device, got {self.device} and {x.device}"
-            )
-        if not x.is_contiguous():
-            raise ValueError("dia_spmv kernel needs contiguous data and x")
-        if self.rows == 0:
-            form_of("dia_spmv", self.data, x)
-            return torch.empty(0, dtype=torch.promote_types(self.data.dtype, x.dtype), device=self.device)
-        plan = self.forms.get(x.dtype) or self.form_plan(x.dtype)
-        y = x.new_empty(self.rows, dtype=plan.out)
-        err = plan.run(plan.handle, x.data_ptr(), y.data_ptr(), self.stream(self.index))
-        if err != 0:
-            raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error {err}")
-        wrapper = dia_spmv_kernel
-        wrapper.launches += 1
-        setattr(wrapper, plan.form_count, getattr(wrapper, plan.form_count) + 1)
-        return y
+        """y = A @ x, launched on the current stream, in a ``sprs.k1``
+        profiler span."""
+        with span("sprs.k1"):
+            if x.shape != self.x_shape:
+                raise ShapeError(f"dia_spmv: A is {(self.rows, self.cols)}, x is {tuple(x.shape)}")
+            if x.get_device() != self.index:
+                raise ValueError(
+                    f"dia_spmv kernel needs data and x on one CUDA device, got {self.device} and {x.device}"
+                )
+            if not x.is_contiguous():
+                raise ValueError("dia_spmv kernel needs contiguous data and x")
+            if self.rows == 0:
+                form_of("dia_spmv", self.data, x)
+                return torch.empty(0, dtype=torch.promote_types(self.data.dtype, x.dtype), device=self.device)
+            plan = self.forms.get(x.dtype) or self.form_plan(x.dtype)
+            y = x.new_empty(self.rows, dtype=plan.out)
+            err = plan.run(plan.handle, x.data_ptr(), y.data_ptr(), self.stream(self.index))
+            if err != 0:
+                raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error {err}")
+            wrapper = dia_spmv_kernel
+            wrapper.launches += 1
+            setattr(wrapper, plan.form_count, getattr(wrapper, plan.form_count) + 1)
+            return y
 
 
 def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:

@@ -31,6 +31,7 @@ from typing import Tuple
 
 import torch
 
+from ..._span import span
 from ...errors import ShapeError
 from ...formats.ell import EllMat, ell_spmv
 from ...formats.util import index_sum_
@@ -187,11 +188,13 @@ def ell_spmv_kernel(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
 
     Tensors on the CPU take :func:`ell_spmv_plain`; tensors on a CUDA
     device launch the kernel, which raises on what it cannot take.
-    Differentiable in ``ell.data`` and ``x``.
+    Differentiable in ``ell.data`` and ``x``.  Runs in a ``sprs.k5``
+    profiler span.
     """
-    if x.shape != (ell.cols,):
-        raise ShapeError(f"ell_spmv: A is {ell.shape}, x is {tuple(x.shape)}")
-    return _EllSpmv.apply(ell.indices, ell.data, x, tuple(ell.shape))
+    with span("sprs.k5"):
+        if x.shape != (ell.cols,):
+            raise ShapeError(f"ell_spmv: A is {ell.shape}, x is {tuple(x.shape)}")
+        return _EllSpmv.apply(ell.indices, ell.data, x, tuple(ell.shape))
 
 
 zero_counts(ell_spmv_kernel)

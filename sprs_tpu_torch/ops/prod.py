@@ -22,6 +22,7 @@ from typing import Callable, Tuple
 
 import torch
 
+from .._span import span
 from ..errors import ShapeError
 from ..formats.csmat import CsMat
 from ..formats.util import index_sum_
@@ -97,19 +98,22 @@ def prepare_spmv(mat: CsMat) -> Tuple[Callable, object]:
       JAX package's VMEM limit on x has no counterpart; its own ELL arm
       runs the plain XLA product, since the TPU could not compile K5),
     * otherwise → CSR index-add.
+
+    Runs in a ``sprs.prepare_spmv`` profiler span.
     """
-    route = _route(mat)
-    if route == "dia":
-        from ..formats.dia import dia_from_csmat
-        from .cuda.dia_spmv import dia_tile
+    with span("sprs.prepare_spmv"):
+        route = _route(mat)
+        if route == "dia":
+            from ..formats.dia import dia_from_csmat
+            from .cuda.dia_spmv import dia_tile
 
-        return (lambda m, x: m.spmv(x)), dia_tile(dia_from_csmat(mat))
-    if route == "ell":
-        from ..formats.ell import ell_from_csmat
-        from .cuda.ell_spmv import ell_spmv_kernel
+            return (lambda m, x: m.spmv(x)), dia_tile(dia_from_csmat(mat))
+        if route == "ell":
+            from ..formats.ell import ell_from_csmat
+            from .cuda.ell_spmv import ell_spmv_kernel
 
-        return ell_spmv_kernel, ell_from_csmat(mat)
-    return spmv, mat
+            return ell_spmv_kernel, ell_from_csmat(mat)
+        return spmv, mat
 
 
 def prepare_spmm(mat: CsMat) -> Tuple[Callable, object]:

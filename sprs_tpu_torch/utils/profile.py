@@ -11,6 +11,24 @@
   once), the same integers as the JAX package's, and
   :func:`roofline_report` tying them together.
 * :func:`trace` — a ``torch.profiler`` context writing a Chrome trace.
+  Beside the device timeline it holds the library's own spans
+  (:func:`span`), which mark where its host time goes:
+
+  - ``sprs.cg.sync``: each host read of a device value in
+    ``linalg.cg`` (the loop's convergence test, then ``converged`` and
+    the final residual norm);
+  - ``sprs.k1``: K1's direct launch through a prepared DIA operand's
+    plan (checks, the output's allocation, the launch);
+  - ``sprs.k5``: a product through K5 (the shape check and the
+    autograd ``Function`` with its launch);
+  - ``sprs.index_sum``: :func:`~sprs_tpu_torch.formats.util.index_sum_`,
+    the CSR products' and the assembly's ordered scatter-add (on a card
+    the accumulating ``index_put_``: its sort and its sums);
+  - ``sprs.coo_to_csmat``: the whole assembly of a CsMat from triplets;
+  - ``sprs.prepare_spmv``: the routing rule, the chosen format's
+    conversion and K1's plan.
+
+  A span costs one check while no profiler records.
 * :func:`bench_device` and :func:`card` — the device a bench runs on, and
   the card's name and power limit that every bench record carries.
 * :func:`torch_ops` and :func:`device_launches` — the torch ops one call
@@ -30,6 +48,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from .._span import span  # noqa: F401  (the documented entry)
 from ..formats.util import DEFAULT_DEVICE
 
 
