@@ -76,7 +76,12 @@ and prints no result):
    both operands are 16-bit, else within FORM_GATE_LIMIT of it; and
    inf/NaN coefficients where x is read outside [0, cols), slots the
    kernel skips (the rows stay finite where the plain version's are
-   NaN);
+   NaN); and K7 (the merge-path CSR SpMV) in all sixteen forms on a
+   power-law operand (a hub row over 40 tiles, empty rows leading,
+   trailing and in a run, padding slots) and on GAP's kron graph at
+   scale 23 in (f32, f32) and (bf16, f32), each row within its rounding
+   bound of the plain version over float64 copies (``k7_limit``), one
+   launch of its form counted per call, two runs bit-equal;
 4. timing, with CUDA events, beside each kernel's bound, its plain
    version and one library call (each also with the profiler's device
    time per launch, ``device_ms``): K1 at the 4096×4096-grid SpMV in
@@ -102,7 +107,10 @@ and prints no result):
    forms at n = 4096, k = 512, bs = 128, density 0.125, each bound by
    bytes or by operations at 989 TFLOP/s (wgmma) or 495/p for p TF32
    passes, beside dense ``torch.matmul`` in promote(blocks, X) and
-   torch's BSR ``@`` (or its refusal);
+   torch's BSR ``@`` (or its refusal); K7 at the kron23 PageRank
+   operator (8,388,608 rows, 258.7M entries, float32; its two kernels'
+   device time), beside its bytes bound, the plain version and
+   ``torch.mv`` on the CSR tensor;
 5. main paths, each with the launch counts set to 0 just before and read
    just after:
    a. BiCGSTAB and CG at 1024² float64 through ``prepare_spmv`` and K1
@@ -204,7 +212,7 @@ and prints no result):
       within 10 % of the float32-stored CG); one (bf16, bf16) product on
       each route (the 4096² SpMV, the 128-RHS SpMM, random8) against its
       plain version; then the determinism check: ``ops/prod.py``'s CSR
-      ``spmv`` and ``spmm``, ``batch_spmv``, ``dist_spmv`` with its
+      ``spmv`` (K7) and ``spmm``, ``batch_spmv``, ``dist_spmv`` with its
       per-shard products and ``assemble``, the level and flat
       ``lsolve``, ``CsMat.sum`` by rows and by columns and ``norm(1)`` /
       ``norm(inf)`` on phase 5d's mesh pattern with normal values, K5's
@@ -212,9 +220,10 @@ and prints no result):
       ``bsr_spmm_plain`` on the float32 K3 cell, each run twice on one
       input, bits compared (a difference fails the run: the index-summed
       products sum in one fixed order, an accumulating ``index_put_`` on
-      the card); and each of ``index_sum_``'s cases of ``CsMat.sum(0)``
-      (64 entries a column, f32, f64), a CSR-routed ``spmv`` (about 100
-      entries a row; f64, (bf16, bf16), (f16, f16)) and ``compress_coo``
+      the card, and K7 in its own); and each of ``index_sum_``'s cases of
+      ``CsMat.sum(0)`` (64 entries a column, f32, f64), a CSR-routed
+      ``spmv`` (about 100 entries a row, through K7 on the card; f64,
+      (bf16, bf16), (f16, f16)) and ``compress_coo``
       (40 duplicates a slot) on the card against the same call on the
       CPU, bits compared and the differing entries recorded;
    l. float64 solvers over float32-stored and float32 solvers over
@@ -272,6 +281,13 @@ and prints no result):
       within 1e-3 of max|y| of the sequential one, the f64 host
       cross-check); their paths launch none of the port's kernels; the
       phase's seconds are printed beside its budget;
+   p. K7's main path (after 5o): GAP's kron graph at scale 23 through
+      ``prepare_spmv``'s CSR arm (the matrix itself, ``spmv``), 20
+      personalized PageRank steps from 1,024 teleport vertices as the
+      kron23 PageRank cell runs them (one K7 (f32, f32) launch a step,
+      the plain version's calls 0; the K7 count of the kernels line),
+      the scores within the cell's 1e-4 of a float64 ``index_add_``
+      reference;
 6. correctness solves: BiCGSTAB and CG at 32² and CG on the 16² mesh
    step against a dense solve;
    LOBPCG at 128² Dirichlet (8 eigenpairs against the closed form,
@@ -291,7 +307,8 @@ and prints no result):
    bsr_forms line (phase 5m), the determinism line, one bench line per
    record of phase 5n and the benches line (its seconds and launches),
    one bench line per record of phase 5o and the last_benches line (its
-   seconds, launches and the primitives' errors), the kernels line
+   seconds, launches and the primitives' errors), the pagerank line
+   (phase 5p: launches, ms a step, the scores' error), the kernels line
    (each form other than float32 and float64 under its kernel's entry,
    in ``forms``: its time, device time, bound and share, plain and
    library times or the library's refusal, main-path launches and gate
@@ -322,7 +339,7 @@ from sprs_tpu_torch.formats.csvec import csvec
 from sprs_tpu_torch.formats.dia import DiaMat, dia_to_csmat
 from sprs_tpu_torch.formats.ell import EllMat, ell_from_csmat
 from sprs_tpu_torch.formats.triplet import coo_to_csmat
-from sprs_tpu_torch.formats.util import compress_coo, round_up
+from sprs_tpu_torch.formats.util import compress_coo, round_up, row_ids_from_indptr
 from sprs_tpu_torch.interop import from_arrays
 from sprs_tpu_torch import native
 from sprs_tpu_torch.linalg import (
@@ -368,6 +385,7 @@ from sprs_tpu_torch.ops import (
 from sprs_tpu_torch.ops.cuda import build
 from sprs_tpu_torch.ops.cuda import bsr_spmm as k3
 from sprs_tpu_torch.ops.cuda import dia_spmm as k2
+from sprs_tpu_torch.ops.cuda.csr_spmv import TILE, csr_spmv_kernel, csr_spmv_plain
 from sprs_tpu_torch.ops.cuda.bsr_spmm import (
     bsr_group,
     bsr_spmm_grouped_kernel,
@@ -1349,13 +1367,14 @@ def phase_profile_bicgstab(lap, rhs):
 
 def reset_counts():
     for fn in (dia_spmv_kernel, dia_spmm_kernel, ell_spmv_kernel, bsr_spmm_kernel,
-               bsr_spmm_grouped_kernel):
+               bsr_spmm_grouped_kernel, csr_spmv_kernel):
         zero_counts(fn)
     sort_rows_kernel.launches = 0
     dia_spmm_kernel.launches_tma = dia_spmm_kernel.launches_scalar = 0
     for fn in (bsr_spmm_kernel, bsr_spmm_grouped_kernel):
         fn.launches_tc = fn.launches_tf32x3 = 0
-    for fn in (dia_spmv_plain, dia_spmm_plain, bsr_spmm_plain, ell_spmv_plain, sort_rows_plain):
+    for fn in (dia_spmv_plain, dia_spmm_plain, bsr_spmm_plain, ell_spmv_plain, sort_rows_plain,
+               csr_spmv_plain):
         fn.calls = 0
 
 
@@ -2599,6 +2618,152 @@ def phase_gate_k1():
     return n
 
 
+# K7, the merge-path CSR product: the power-law gate's rows take Zipf
+# lengths (at most 2,000), one hub row spans 40 tiles, and runs of rows
+# are empty; the kron gate and timing take GAP's kron graph at scale 23
+# (8,388,608 rows, 258,669,824 stored entries once its duplicates are
+# summed), the kron23 PageRank cell's operator shape
+K7_GATE_ROWS = 200_000
+K7_GATE_COLS = 1 << 20
+K7_HUB = 40 * TILE + 17
+K7_KRON_SCALE = 23
+K7_REPS = 20
+# phase 5p: the kron23 PageRank cell's traffic (benchmark/traffic/ppr20.json)
+PAGERANK_STEPS = 20
+PAGERANK_DAMPING = 0.85
+PAGERANK_SOURCES = 1024
+# the cell's limit on max|x - x_ref| / max|x_ref| (benchmark/harness)
+PAGERANK_LIMIT = 1e-4
+# unit roundoffs, and half float16's subnormal spacing (below 2^-14 a
+# rounding to float16 errs by up to 2^-25, absolute)
+UNIT = {F16: 2.0**-11, BF16: 2.0**-8, torch.float32: 2.0**-24, torch.float64: 2.0**-53}
+F16_SUBNORMAL = 2.0**-25
+
+
+def k7_limit(mat, x, ref):
+    """Each row's bound on |K7 - exact| (tests/test_torch_csr_spmv.py
+    states it): (length + 1) roundings of promote(out, float32) over the
+    row's sum of |terms|, the float16 product of (f16, f16), and one
+    rounding to a 16-bit output."""
+    out = torch.promote_types(mat.data.dtype, x.dtype)
+    acc = torch.promote_types(out, torch.float32)
+    mag = csr_spmv_plain(mat.with_data(mat.data.abs().double()), x.abs().double())
+    lengths = (mat.indptr[1:] - mat.indptr[:-1]).double()
+    bound = (lengths + 1) * UNIT[acc] * mag
+    if mat.data.dtype == x.dtype == F16:
+        bound = bound + UNIT[F16] * mag + lengths * F16_SUBNORMAL
+    bound = 1.01 * bound
+    if out.itemsize < 4:
+        bound = bound + UNIT[out] * (ref.abs() + bound) + F16_SUBNORMAL * (out == F16)
+    return bound
+
+
+def gate_k7(name, mat, x):
+    """K7 against the plain version over float64 copies, each row within
+    ``k7_limit``; the launch and its form counted once.  Returns the
+    largest error relative to max|ref|."""
+    form = FORMS[(mat.data.dtype, x.dtype)]
+    before, before_form = csr_spmv_kernel.launches, getattr(csr_spmv_kernel, f"launches_{form}")
+    y = csr_spmv_kernel(mat, x)
+    sync()
+    if (csr_spmv_kernel.launches, getattr(csr_spmv_kernel, f"launches_{form}")) != (before + 1, before_form + 1):
+        raise AssertionError(f"gate {name}: K7 did not count one launch of its {form} form")
+    ref = csr_spmv_plain(mat.astype(torch.float64), x.double())
+    err = (y.double() - ref).abs()
+    excess = float((err - k7_limit(mat, x, ref)).max())
+    rel = float(err.max() / ref.abs().max())
+    log(f"gate {name}: max rel err {rel!r}, largest excess over the row bound {excess!r} (at most 0)")
+    if not excess <= 0:
+        raise AssertionError(f"gate {name}: a row exceeds its bound by {excess}")
+    FORM_ERRS.setdefault(("csr_spmv", form), []).append(rel)
+    return rel
+
+
+def power_law_csr(seed):
+    """K7's odd gate operand on the card: Zipf row lengths, a hub row over
+    40 tiles, empty rows leading, trailing and in a run, random sorted
+    columns (repeats kept) and 1,000 padding slots."""
+    rng = np.random.default_rng(seed)
+    n = np.minimum(rng.zipf(1.8, K7_GATE_ROWS) - 1, 2000)
+    n[:5] = n[-5:] = 0
+    n[K7_GATE_ROWS // 2: K7_GATE_ROWS // 2 + 500] = 0
+    n[K7_GATE_ROWS // 3] = K7_HUB
+    indptr = np.concatenate([[0], np.cumsum(n)]).astype(np.int32)
+    cols = rng.integers(0, K7_GATE_COLS, int(indptr[-1]))
+    cols = cols[np.lexsort((cols, np.repeat(np.arange(K7_GATE_ROWS), n)))]  # sorted in each row
+    pad = 1000
+    indices = np.concatenate([cols, np.zeros(pad, np.int64)]).astype(np.int32)
+    data = np.concatenate([rng.standard_normal(int(indptr[-1])), np.zeros(pad)])
+    mat = from_arrays("csmat", (K7_GATE_ROWS, K7_GATE_COLS), (indptr, indices, data), device=DEVICE)
+    return mat, torch.from_numpy(rng.standard_normal(K7_GATE_COLS)).to(DEVICE)
+
+
+def kron_csr(scale, seed):
+    """GAP's kron graph (Graph500 generator, A 0.57, B 0.19, C 0.19, edge
+    factor 16), symmetrized without self-loops, assembled on the card by
+    ``coo_to_csmat`` (duplicates summed) with float32 values 1/deg of
+    the column: the PageRank operator's shape and pattern."""
+    n, m = 1 << scale, 16 << scale
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    src = torch.zeros(m, dtype=torch.int64, device=DEVICE)
+    dst = torch.zeros(m, dtype=torch.int64, device=DEVICE)
+    for _ in range(scale):
+        u = torch.rand(m, generator=gen, device=DEVICE)
+        right = u >= 0.76
+        src = src * 2 + right.to(torch.int64)
+        dst = dst * 2 + torch.where(right, u >= 0.95, u >= 0.57).to(torch.int64)
+    del u, right
+    perm = torch.randperm(n, generator=gen, device=DEVICE)
+    src, dst = perm[src], perm[dst]
+    keep = src != dst
+    rows = torch.cat([src[keep], dst[keep]]).to(torch.int32)
+    cols = torch.cat([dst[keep], src[keep]]).to(torch.int32)
+    del src, dst, keep, perm
+    deg = torch.bincount(rows.to(torch.int64), minlength=n)
+    vals = (1.0 / deg[cols.to(torch.int64)].to(torch.float64)).to(torch.float32)
+    mat = coo_to_csmat(rows, cols, vals, (n, n), device=DEVICE)
+    del rows, cols, vals, deg
+    return mat
+
+
+def phase_k7():
+    """Phase 3's gates of K7 and its phase 4 row: every form on the
+    power-law operand (x drawn once in float64 and rounded to each x
+    type), then the kron23 operator in (f32, f32) and (bf16, f32), two
+    runs bit-equal; the kron23 product timed by CUDA events and the
+    profiler beside its bytes bound, the plain version and ``torch.mv``
+    on the CSR tensor (the yardstick: the port never calls it).  Returns
+    (max error, timing row)."""
+    t0 = time.perf_counter()
+    mat, x64 = power_law_csr(190)
+    errs = [gate_k7(f"K7 power law {FORM_LABEL[form]}", mat.astype(d), x64.to(xd))
+            for (d, xd), form in FORMS.items()]
+    del mat, x64
+    big = kron_csr(K7_KRON_SCALE, 191)
+    x = torch.rand(big.cols, generator=torch.Generator(device=DEVICE).manual_seed(192), device=DEVICE)
+    errs.append(gate_k7("K7 kron23 (float32, float32)", big, x))
+    errs.append(gate_k7("K7 kron23 (bfloat16, float32)", big.astype(BF16), x))
+    first, second = csr_spmv_kernel(big, x), csr_spmv_kernel(big, x)
+    sync()
+    if not torch.equal(first.view(torch.int32), second.view(torch.int32)):
+        raise AssertionError("K7: two runs of the kron23 product differ")
+    ms = time_ms(lambda: csr_spmv_kernel(big, x), K7_REPS)
+    dev_ms = (device_ms(lambda: csr_spmv_kernel(big, x), "csr_spmv_tiles", K7_REPS)
+              + device_ms(lambda: csr_spmv_kernel(big, x), "csr_spmv_carries", K7_REPS))
+    plain_ms = time_ms(lambda: csr_spmv_plain(big, x), 3)
+    library_ms, lib_err, lib_error = library_time(lambda: torch.mv(csr_twin(big), x), first, K7_REPS)
+    nnz = big.nnz
+    # values and column indices once, the row pointers, x and y once
+    nbytes = nnz * (4 + 4) + (big.rows + 1) * 4 + big.cols * 4 + big.rows * 4
+    row = timing_row(f"kron23 PageRank operator float32 (rows {big.rows}, nnz {nnz})", ms, plain_ms,
+                     library_ms, nbytes, 2 * nnz, PEAK_FLOPS[torch.float32], kernel="csr_spmv",
+                     device_ms=dev_ms, library="torch.mv (CSR)", library_max_abs_err=lib_err,
+                     library_error=lib_error, gather_l2_sector_bytes=nnz * 32)
+    del big, x, first, second
+    log(f"K7: {len(errs)} gates and the kron23 row in {time.perf_counter() - t0!r} s")
+    return max(errs), row
+
+
 def phase_timing_forms(lap_spmv, random8):
     """Phase 4's rows of the twelve forms of NEW_FORMS beside the float32
     and bfloat16 rows: K1 at the 4096² grid, K2 at the 2048×1024 grid with
@@ -2933,8 +3098,9 @@ def phase_index_sums_vs_cpu():
     differ (a difference is a finding, not a failure: the two-run
     determinism check stands apart): ``CsMat.sum(0)`` with 64 entries per
     column (f32, f64), the CSR-routed ``spmv`` with about 100 entries per
-    row (f64, and in (bf16, bf16) and (f16, f16)), and ``compress_coo`` with
-    40 duplicates per slot (f32)."""
+    row (f64, and in (bf16, bf16) and (f16, f16); on the card K7, which
+    sums in its own order and, for 16-bit operands, in float32), and
+    ``compress_coo`` with 40 duplicates per slot (f32)."""
     rng = np.random.default_rng(170)
     cases = {}
     t0 = time.perf_counter()
@@ -2982,7 +3148,7 @@ def phase_index_sums_vs_cpu():
 
 def phase_determinism(mesh):
     """Sums by index on the card: each product run twice on one input,
-    bits compared (ops/prod.py's CSR spmv and spmm, ops/batch.py's batched
+    bits compared (ops/prod.py's CSR spmv, which runs K7, and spmm, ops/batch.py's batched
     product, one parallel/dist.py product with its per-shard products and
     assemble, trisolve's level and flat solves; ``CsMat.sum`` by rows and
     by columns and ``norm(1)`` / ``norm(inf)`` on the 1024² mesh step's
@@ -4469,6 +4635,63 @@ def phase_last_benches():
     return records, launches, row
 
 
+def phase_main_pagerank():
+    """Phase 5p: K7's main path, the kron23 PageRank cell's: GAP's kron
+    graph at scale 23 assembled on the card, ``prepare_spmv``'s CSR arm
+    (``(spmv, mat)``), then 20 personalized PageRank steps from 1,024
+    teleport vertices through its ``fn``, the step's L1 change read back
+    each step as the cell's loop does, the launch counts set to 0 just
+    before and read just after: one K7 (f32, f32) launch a step, no call
+    of the plain version.  The scores against the same steps in float64
+    by a gather and ``index_add_`` (the benchmark's reference), within the
+    cell's limit.  Returns (K7 launches, row)."""
+    t0 = time.perf_counter()
+    big = kron_csr(K7_KRON_SCALE, 193)
+    n = big.rows
+    fn, prepared = prepare_spmv(big)
+    if fn is not spmv or prepared is not big:
+        raise AssertionError("5p: prepare_spmv did not keep the kron23 CsMat on its CSR arm")
+    gen = torch.Generator(device=DEVICE).manual_seed(194)
+    sources = torch.randint(0, n, (PAGERANK_SOURCES,), generator=gen, device=DEVICE)
+    v = torch.zeros(n, dtype=torch.float32, device=DEVICE).index_add_(
+        0, sources, torch.full((PAGERANK_SOURCES,), 1.0 / PAGERANK_SOURCES, device=DEVICE))
+    d = PAGERANK_DAMPING
+    sync()
+    reset_counts()
+    t_loop = time.perf_counter()
+    x = v.clone()
+    for _ in range(PAGERANK_STEPS):
+        x_new = (1.0 - d) * v + d * fn(prepared, x)
+        err = float((x_new - x).abs().sum())
+        x = x_new
+    sync()
+    ms_per_step = (time.perf_counter() - t_loop) * 1e3 / PAGERANK_STEPS
+    launches, form_launches = csr_spmv_kernel.launches, csr_spmv_kernel.launches_f32
+    plain_calls = csr_spmv_plain.calls
+    if (launches, form_launches, plain_calls) != (PAGERANK_STEPS, PAGERANK_STEPS, 0):
+        raise AssertionError(f"5p: {launches} K7 launches ({form_launches} f32) and {plain_calls} "
+                             f"plain calls in {PAGERANK_STEPS} steps, expected one K7 a step")
+    rows = row_ids_from_indptr(big.indptr, big.cap).to(torch.int64)
+    live = rows < n
+    rows, cols = rows[live], big.indices.to(torch.int64)[live]
+    vals = big.data.to(torch.float64)[live]
+    del big, prepared, live
+    v64 = v.double()
+    xr = v64.clone()
+    for _ in range(PAGERANK_STEPS):
+        xr = (1.0 - d) * v64 + d * torch.zeros(n, dtype=torch.float64, device=DEVICE).index_add_(
+            0, rows, vals * xr[cols])
+    score_err = float((x.double() - xr).abs().max() / xr.abs().max())
+    del rows, cols, vals, xr
+    row = {"steps": PAGERANK_STEPS, "k7_launches": launches, "plain_calls": plain_calls,
+           "ms_per_step": ms_per_step, "last_l1_change": err, "score_err": score_err,
+           "limit": PAGERANK_LIMIT, "phase_s": time.perf_counter() - t0}
+    log(f"5p: kron23 PageRank through prepare_spmv's CSR arm: {json.dumps(row)}")
+    if not score_err <= PAGERANK_LIMIT:
+        raise AssertionError(f"5p: PageRank scores {score_err} from the float64 reference")
+    return launches, row
+
+
 # name in the kernels line -> (source, TPU kernel it replaces)
 KERNELS = {
     "dia_spmv": ("sprs_tpu_torch/csrc/dia_spmv.cu", "sprs_tpu/ops/pallas/dia_spmv.py:232"),
@@ -4479,6 +4702,8 @@ KERNELS = {
     "bsr_spmm_grouped": ("sprs_tpu_torch/csrc/bsr_spmm.cu", "sprs_tpu/ops/pallas/bsr_spmm.py:258"),
     "ell_spmv": ("sprs_tpu_torch/csrc/ell_spmv.cu", "sprs_tpu/ops/pallas/spmv.py:72"),
     "sort_rows": ("sprs_tpu_torch/csrc/sort_rows.cu", "sprs_tpu/ops/pallas/sort.py:97"),
+    "csr_spmv": ("sprs_tpu_torch/csrc/csr_spmv.cu",
+                 "none: the JAX package's CSR product is XLA's segment_sum (sprs_tpu/ops/prod.py)"),
 }
 
 
@@ -4507,6 +4732,7 @@ def main() -> int:
     phase_gate_forms(random8)
     phase_gate_k2_tma()
     phase_gate_k1()
+    errs["csr_spmv"], timing["csr_spmv"] = phase_k7()
     phase_gate_k3_forms()
     form_rows = phase_timing_bf16(lap_spmv, random8)
     form_rows.update(phase_timing_forms(lap_spmv, random8))
@@ -4581,6 +4807,8 @@ def main() -> int:
     last_records, last_launches, last_row = phase_last_benches()
     for kname, n in last_launches.items():
         launches[kname] += n
+    launches["csr_spmv"], pagerank_row = phase_main_pagerank()
+    pagerank_row["card"] = smi
     errs["bsr_spmm_tf32x3"] = max(GATE_ERRS["bsr_spmm_tf32x3"])
     for kname, n in launches.items():
         if n == 0:
@@ -4640,6 +4868,7 @@ def main() -> int:
     for bench, record in last_records.items():
         print(json.dumps({"bench": bench, "record": record, "card": smi}))
     print(json.dumps({"last_benches": last_row, "card": smi}))
+    print(json.dumps({"pagerank": pagerank_row}))
     print(json.dumps({"kernels": kernels}))
     print(
         json.dumps(

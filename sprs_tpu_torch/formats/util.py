@@ -11,6 +11,10 @@ Unlike JAX's scatters, torch's ``index_add_`` raises on an out-of-range
 index and advanced indexing wraps a negative one, so every consumer of
 :func:`row_ids_from_indptr` masks the padding sentinel explicitly.
 
+:func:`csr_spmv_plain` is the plain product of a compressed matrix (the
+gather or scatter form of :func:`contributions`, summed by
+:func:`index_sum_`), which ``ops/prod.py`` and kernel K7's wrapper share.
+
 :func:`compress_coo` is the shared sort-and-compress primitive: triplet
 assembly, ``csmat_from_unsorted`` and the sparse binary ops all run
 through it, as in the JAX package.
@@ -48,12 +52,48 @@ def index_sum_(out: torch.Tensor, index: torch.Tensor, values: torch.Tensor) -> 
     repeatable, but not the CPU's order, so a slot of several values may
     differ from the CPU's sum in its last bits (on an H100 with 64 values
     a slot, 81 % of the slots did, within 2.6e-7 of the sum in float32,
-    5.9e-16 in float64).  Runs in a ``sprs.index_sum`` profiler span.
-    Returns ``out``."""
+    5.9e-16 in float64).  The card's CSR products no longer come here:
+    they run kernel K7 (``ops/cuda/csr_spmv.py``), which sums each row in
+    an order of its own, the same from run to run; the CSC products, the
+    SpMMs, the assembly and the backwards still do.  Runs in a
+    ``sprs.index_sum`` profiler span.  Returns ``out``."""
     with span("sprs.index_sum"):
         if out.is_cuda:
             return out.index_put_((index,), values, accumulate=True)
         return out.index_add_(0, index, values)
+
+
+def contributions(mat, x: torch.Tensor):
+    """(dst ids, contributions) of every stored slot of the compressed
+    matrix ``mat`` times a vector or a (cols, k) matrix ``x``, padding
+    masked to row 0 with a zero contribution: the gather form
+    ``data * x[indices]`` to the rows for CSR, the scatter form
+    ``data * x[col ids]`` to ``indices`` for CSC."""
+    outer = mat.outer_ids()
+    live = outer < mat.outer_dims
+    outer = torch.where(live, outer, torch.zeros_like(outer)).to(torch.int64)
+    inner = mat.indices.to(torch.int64)
+    src, dst = (inner, outer) if mat.is_csr else (outer, inner)
+    xs = x[src] if x.ndim == 1 else x[src, :]
+    data = mat.data if x.ndim == 1 else mat.data[:, None]
+    live = live if x.ndim == 1 else live[:, None]
+    contrib = data * xs
+    return dst, torch.where(live, contrib, torch.zeros_like(contrib))
+
+
+def csr_spmv_plain(mat, x: torch.Tensor) -> torch.Tensor:
+    """The plain torch product y = A @ x of a CSR or CSC matrix:
+    :func:`contributions` summed by :func:`index_sum_`.  Differentiable by
+    torch's autograd.  The CPU's product, and on the card the reference
+    of kernel K7 and the product of what K7 does not take; its ``calls``
+    attribute counts calls."""
+    csr_spmv_plain.calls += 1
+    dst, contrib = contributions(mat, x)
+    y = torch.zeros(mat.rows, dtype=contrib.dtype, device=contrib.device)
+    return index_sum_(y, dst, contrib)
+
+
+csr_spmv_plain.calls = 0
 
 
 def is_bf16(dtype) -> bool:

@@ -8,6 +8,7 @@ from .bsr_spmm import (
     bsr_spmm_kernel,
     bsr_spmv_kernel,
 )
+from .csr_spmv import csr_spmv_kernel, csr_spmv_plain
 from .dia_spmm import dia_spmm_kernel, dia_spmm_plain
 from .dia_spmv import DiaTiledMat, dia_spmv_kernel, dia_spmv_plain, dia_tile
 from .ell_spmv import ell_spmv_kernel, ell_spmv_plain

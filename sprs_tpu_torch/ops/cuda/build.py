@@ -36,7 +36,7 @@ NVCC_FLAGS = (
     "-Xptxas=-v",
 )
 
-SOURCES = ("dia_spmv", "dia_spmm", "bsr_spmm", "ell_spmv", "sort_rows")
+SOURCES = ("dia_spmv", "dia_spmm", "bsr_spmm", "ell_spmv", "sort_rows", "csr_spmv")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,7 +1,13 @@
 """Sparse×dense products: SpMV and SpMM, and the structure dispatch that
 picks a format per matrix.  The counterpart of ``sprs_tpu/ops/prod.py``.
 
-Both storage orders reduce to two plain torch primitives:
+A CSR product on a CUDA device, in a (data, x) form of
+``ops/cuda/forms.py::FORMS`` with int32 indices, runs kernel K7
+(``ops/cuda/csr_spmv.py``: a merge-path CSR SpMV written for the card,
+which sums each row in its own fixed order and gives the same bits from
+run to run).  Every other product, on the card too, reduces to two
+plain torch primitives (``formats/util.py::contributions`` and
+``csr_spmv_plain``):
 
 * CSR (gather form):   y[row_ids] += data * x[indices]
 * CSC (scatter form):  y[indices] += data * x[col_ids]
@@ -25,7 +31,8 @@ import torch
 from .._span import span
 from ..errors import ShapeError
 from ..formats.csmat import CsMat
-from ..formats.util import index_sum_
+from ..formats.util import contributions, csr_spmv_plain, index_sum_
+from .cuda.csr_spmv import csr_spmv_kernel, takes
 
 # prepare_spmv / prepare_spmm routing, kept identical to the JAX
 # package so that both pick the same format for the same matrix.
@@ -35,34 +42,31 @@ DIA_MIN_FILL = 0.25
 ELL_MAX_OVERHEAD = 1.2
 
 
-def _contributions(mat: CsMat, x: torch.Tensor):
-    """(dst ids, contributions) of every stored slot, padding masked."""
-    outer = mat.outer_ids()
-    live = outer < mat.outer_dims
-    outer = torch.where(live, outer, torch.zeros_like(outer)).to(torch.int64)
-    inner = mat.indices.to(torch.int64)
-    src, dst = (inner, outer) if mat.is_csr else (outer, inner)
-    xs = x[src] if x.ndim == 1 else x[src, :]
-    data = mat.data if x.ndim == 1 else mat.data[:, None]
-    live = live if x.ndim == 1 else live[:, None]
-    contrib = data * xs
-    return dst, torch.where(live, contrib, torch.zeros_like(contrib))
-
-
 def spmv(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x for a dense vector x."""
+    """y = A @ x for a dense vector x.
+
+    A fixed dispatch by storage, device and type: a CSR matrix on a CUDA
+    device in a (data, x) form of ``FORMS`` with int32 indices runs K7,
+    its operands made contiguous first; every other product runs the
+    plain gather or scatter product (``formats/util.py::
+    csr_spmv_plain``): CPU tensors, CSC storage, and on the card the
+    types K7 lacks (complex or integer values, int64 indices)."""
     if x.shape != (mat.cols,):
         raise ShapeError(f"spmv: A is {mat.shape}, x is {tuple(x.shape)}")
-    dst, contrib = _contributions(mat, x)
-    y = torch.zeros(mat.rows, dtype=contrib.dtype, device=contrib.device)
-    return index_sum_(y, dst, contrib)
+    if not takes(mat, x):
+        return csr_spmv_plain(mat, x)
+    if not (mat.indptr.is_contiguous() and mat.indices.is_contiguous()
+            and mat.data.is_contiguous()):
+        mat = CsMat(mat.indptr.contiguous(), mat.indices.contiguous(), mat.data.contiguous(),
+                    mat.shape, mat.storage)
+    return csr_spmv_kernel(mat, x.contiguous())
 
 
 def spmm(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X for a dense matrix X of shape (cols, k)."""
     if x.ndim != 2 or x.shape[0] != mat.cols:
         raise ShapeError(f"spmm: A is {mat.shape}, X is {tuple(x.shape)}")
-    dst, contrib = _contributions(mat, x)
+    dst, contrib = contributions(mat, x)
     y = torch.zeros(
         (mat.rows, x.shape[1]), dtype=contrib.dtype, device=contrib.device
     )
@@ -97,7 +101,8 @@ def prepare_spmv(mat: CsMat) -> Tuple[Callable, object]:
     * modest ELL padding overhead → ELL through kernel K5 (every x: the
       JAX package's VMEM limit on x has no counterpart; its own ELL arm
       runs the plain XLA product, since the TPU could not compile K5),
-    * otherwise → CSR index-add.
+    * otherwise → the CSR matrix itself, whose product :func:`spmv` runs
+      through K7 on the card.
 
     Runs in a ``sprs.prepare_spmv`` profiler span.
     """

@@ -21,9 +21,13 @@
     plan (checks, the output's allocation, the launch);
   - ``sprs.k5``: a product through K5 (the shape check and the
     autograd ``Function`` with its launch);
+  - ``sprs.k7``: a CSR product through K7 (the checks, the output's and
+    the tiles' scratch allocations, the launch of its two kernels, or the
+    plain product on the CPU);
   - ``sprs.index_sum``: :func:`~sprs_tpu_torch.formats.util.index_sum_`,
-    the CSR products' and the assembly's ordered scatter-add (on a card
-    the accumulating ``index_put_``: its sort and its sums);
+    the ordered scatter-add of the plain and CSC products, the SpMMs and
+    the assembly (on a card the accumulating ``index_put_``: its sort
+    and its sums);
   - ``sprs.coo_to_csmat``: the whole assembly of a CsMat from triplets;
   - ``sprs.prepare_spmv``: the routing rule, the chosen format's
     conversion and K1's plan.

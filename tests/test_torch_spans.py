@@ -28,7 +28,7 @@ from sprs_tpu_torch.ops.cuda.ell_spmv import ell_spmv_kernel
 from sprs_tpu_torch.utils import profile
 
 PACKAGE = Path(__file__).resolve().parents[1] / "sprs_tpu_torch"
-SPANS = {"sprs.cg.sync", "sprs.k1", "sprs.k5", "sprs.index_sum", "sprs.coo_to_csmat",
+SPANS = {"sprs.cg.sync", "sprs.k1", "sprs.k5", "sprs.k7", "sprs.index_sum", "sprs.coo_to_csmat",
          "sprs.prepare_spmv"}
 # the spans the benchmark puts around its own calls into the library
 BENCHMARK_SPANS = {"bench.window", "cg", "spmv", "pagerank", "build", "compress", "route"}
@@ -181,7 +181,7 @@ def test_no_range_is_built_without_a_profiler(monkeypatch, name):
 def test_span_names():
     """Every span the package opens is named by a literal with the
     ``sprs.`` prefix, none is a benchmark span's name, and they are the
-    six that ``utils/profile.py`` documents."""
+    seven that ``utils/profile.py`` documents."""
     names = set()
     for path in PACKAGE.rglob("*.py"):
         for node in ast.walk(ast.parse(path.read_text())):
@@ -212,3 +212,23 @@ def test_kernel_spans_once_per_product_on_card(tmp_path):
         assert names[span] == 4 and kernel.launches - before == 4
         for y in ys:
             torch.testing.assert_close(y, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.gpu
+def test_csr_product_span_on_card(tmp_path):
+    """On a card, a CSR product records one ``sprs.k7`` (K7's launch) and
+    no ``sprs.index_sum``: the sorting scatter-add is off its path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from sprs_tpu_torch.ops.cuda.csr_spmv import csr_spmv_kernel
+
+    mat = csmat(hub(), device="cuda")
+    fn, prepared = prod.prepare_spmv(mat)
+    assert fn is prod.spmv and prepared is mat
+    x = x_for(mat)
+    before = csr_spmv_kernel.launches
+    y, names = recorded(lambda: fn(prepared, x), tmp_path)
+    assert names["sprs.k7"] == 1 and names["sprs.index_sum"] == 0
+    assert csr_spmv_kernel.launches - before == 1
+    want = (mat.to_dense() @ x).cpu()
+    torch.testing.assert_close(y.cpu(), want, rtol=1e-12, atol=1e-12)
