@@ -14,7 +14,8 @@ The JAX solver is one ``lax.while_loop``; here it is a Python loop over
 the same masked ``torch.where`` updates, with one host synchronisation
 per iteration to read ``done``.  Each iteration makes three matvecs
 (A·p̂, A·ŝ and the true residual), and the solve two more (the initial
-and the final residual): 3·iterations + 2 in all.
+and the final residual): 3·iterations + 2 in all.  Each host read of a
+device value runs in a ``sprs.bicgstab.sync`` profiler span.
 
 :func:`bicgstab_sparse` keeps the iterates as ``CsVec``; its matvec is
 SpGEMM against the vector's column view.
@@ -27,6 +28,7 @@ from typing import Callable, Union
 
 import torch
 
+from .._span import host, span
 from ..errors import CapacityError, ShapeError
 from ..formats.csmat import CsMat
 from ..formats.csvec import CsVec, empty_csvec
@@ -91,7 +93,7 @@ def bicgstab(
     rho = _dot(r, r)
     it = 0
     done = norm(r) <= threshold
-    while it < max_iter and not bool(done):
+    while it < max_iter and not host(span("sprs.bicgstab.sync"), bool, done):
         phat = m_op(p)
         v = a_op(phat)
         rhat_v = _dot(rhat, v)
@@ -137,11 +139,12 @@ def bicgstab(
         x = x_new
         it += 1
 
+    converged = host(span("sprs.bicgstab.sync"), bool, done)
     return BiCgStabResult(
         x=x,
-        converged=bool(done),
+        converged=converged,
         iterations=it,
-        residual_norm=float(norm(b - a_op(x))),
+        residual_norm=host(span("sprs.bicgstab.sync"), float, norm(b - a_op(x))),
     )
 
 

@@ -15,7 +15,7 @@ from typing import Callable, Optional, Union
 
 import torch
 
-from .._span import span
+from .._span import host, span
 from ..errors import ShapeError
 from ..formats.csmat import CsMat
 from ._dispatch import as_matvec, as_vector
@@ -28,13 +28,6 @@ class CgResult:
     converged: bool
     iterations: int
     residual_norm: float
-
-
-def _host(cast, value):
-    """``cast(value)`` for a device value: the host waits for the device
-    here."""
-    with span("sprs.cg.sync"):
-        return cast(value)
 
 
 def cg(
@@ -68,7 +61,7 @@ def cg(
     rz = _dot(r, z)
     it = 0
     done = norm(r) <= threshold
-    while it < max_iter and not _host(bool, done):
+    while it < max_iter and not host(span("sprs.cg.sync"), bool, done):
         ap = a_op(p)
         pap = _dot(p, ap)
         safe = pap.abs() > 1e-300
@@ -85,10 +78,10 @@ def cg(
         done = norm(r) <= threshold
         it += 1
 
-    converged = _host(bool, done)
+    converged = host(span("sprs.cg.sync"), bool, done)
     return CgResult(
         x=x,
         converged=converged,
         iterations=it,
-        residual_norm=_host(float, norm(b - a_op(x))),
+        residual_norm=host(span("sprs.cg.sync"), float, norm(b - a_op(x))),
     )

@@ -17,6 +17,7 @@
   - ``sprs.cg.sync``: each host read of a device value in
     ``linalg.cg`` (the loop's convergence test, then ``converged`` and
     the final residual norm);
+  - ``sprs.bicgstab.sync``: the same in ``linalg.bicgstab``;
   - ``sprs.k1``: K1's direct launch through a prepared DIA operand's
     plan (checks, the output's allocation, the launch);
   - ``sprs.k5``: a product through K5 (the shape check and the

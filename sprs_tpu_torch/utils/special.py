@@ -9,9 +9,11 @@
 * :func:`tri_mesh_graph_laplacian` — the graph Laplacian of a triangle
   mesh (degree on the diagonal, −1 for each undirected edge).
 
-The grid operators assemble sorted CSR in numpy, then move it to
-``device``; the mesh Laplacian goes through :class:`TriMat` and is
-compressed on ``device``.
+:func:`grid_laplacian` builds on ``device`` itself: its pattern, row by
+row in ascending column order, is already sorted, so no host array of
+the grid's size is made.  :func:`dirichlet_laplacian` assembles sorted
+CSR in numpy, then moves it to ``device``; the mesh Laplacian goes
+through :class:`TriMat` and is compressed on ``device``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,13 @@ import torch
 from ..errors import StructureError
 from ..formats.csmat import CsMat, csmat
 from ..formats.triplet import TriMat
-from ..formats.util import DEFAULT_DEVICE, as_tensor
+from ..formats.util import (
+    DEFAULT_DEVICE,
+    INDEX_DTYPE,
+    as_tensor,
+    check_index_capacity,
+    torch_dtype,
+)
 
 
 def _assemble(n, rows, cols, vals, dtype, device) -> CsMat:
@@ -46,18 +54,39 @@ def _assemble(n, rows, cols, vals, dtype, device) -> CsMat:
 def grid_laplacian(
     shape: tuple, dtype=torch.float64, *, device=DEFAULT_DEVICE
 ) -> CsMat:
-    """5-point Laplacian on an nx×ny grid with identity boundary rows."""
-    nx, ny = shape
-    ii, jj = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
-    interior = ((ii > 0) & (ii < nx - 1) & (jj > 0) & (jj < ny - 1)).ravel()
-    row = (ii * ny + jj).ravel()
-    rows, cols, vals = [row], [row], [np.where(interior, 4.0, 1.0)]
-    r_int = row[interior]
-    for off in (-ny, -1, 1, ny):
-        rows.append(r_int)
-        cols.append(r_int + off)
-        vals.append(np.full(r_int.size, -1.0))
-    return _assemble(nx * ny, rows, cols, vals, dtype, device)
+    """5-point Laplacian on an nx×ny grid with identity boundary rows.
+
+    Row ``i·ny + j`` is grid point (i, j).  An interior row holds
+    [-1, -1, 4, -1, -1] at columns row − ny, row − 1, row, row + 1,
+    row + ny, ascending; a border row holds 1 on the diagonal.  Built on
+    ``device``: ``indptr`` is a cumulative sum of the rows' counts, and
+    the entries are taken from an (n, 5) table of each row's candidates
+    by a mask, in row-major order, so they come out sorted.
+    """
+    nx, ny = (int(s) for s in shape)
+    n = nx * ny
+    check_index_capacity(rows=n)
+    dt = torch_dtype(dtype)
+    row = torch.arange(n, dtype=torch.int64, device=device)
+    ii, jj = row // max(ny, 1), row % max(ny, 1)
+    interior = (ii > 0) & (ii < nx - 1) & (jj > 0) & (jj < ny - 1)
+    keep = interior[:, None].repeat(1, 5)
+    keep[:, 2] = True
+    steps = torch.tensor([-ny, -1, 0, 1, ny], dtype=torch.int64, device=device)
+    vals = torch.full((n, 5), -1, dtype=dt, device=device)
+    vals[:, 2] = 1
+    vals[:, 2].masked_fill_(interior, 4)
+    take = keep.view(-1).nonzero().squeeze(1)
+    indptr = torch.zeros(n + 1, dtype=INDEX_DTYPE, device=device)
+    indptr[1:] = torch.cumsum(keep.sum(1), 0)
+    return csmat(
+        (n, n),
+        indptr,
+        (row[:, None] + steps).view(-1)[take].to(INDEX_DTYPE),
+        vals.view(-1)[take],
+        validate=False,
+        device=device,
+    )
 
 
 def dirichlet_laplacian(
