@@ -81,7 +81,13 @@ and prints no result):
    trailing and in a run, padding slots) and on GAP's kron graph at
    scale 23 in (f32, f32) and (bf16, f32), each row within its rounding
    bound of the plain version over float64 copies (``k7_limit``), one
-   launch of its form counted per call, two runs bit-equal;
+   launch of its form counted per call, two runs bit-equal; and K8
+   (BiCGSTAB's six fused passes) through ``linalg.bicgstab`` on the heat
+   operator at 64², 1024² and 4096² (the benchmark cell's grid) in
+   float32 and float64, 10 iterations
+   against the masked loop (``_plain``) on the card, x within
+   ``K8_LIMIT``, six launches an iteration and no plain iteration, two
+   solves bit-equal;
 4. timing, with CUDA events, beside each kernel's bound, its plain
    version and one library call (each also with the profiler's device
    time per launch, ``device_ms``): K1 at the 4096×4096-grid SpMV in
@@ -110,11 +116,18 @@ and prints no result):
    torch's BSR ``@`` (or its refusal); K7 at the kron23 PageRank
    operator (8,388,608 rows, 258.7M entries, float32; its two kernels'
    device time), beside its bytes bound, the plain version and
-   ``torch.mv`` on the CSR tensor;
+   ``torch.mv`` on the CSR tensor; K8's six passes of one iteration at
+   the heat operator's 4096² grid in float64 on fixed products, beside
+   their bytes bound (20 vectors), each pass's device time, and the
+   masked loop's and K8's update work per iteration of a 50-iteration
+   solve (device time of every op but K1's) with device ops an
+   iteration;
 5. main paths, each with the launch counts set to 0 just before and read
    just after:
    a. BiCGSTAB and CG at 1024² float64 through ``prepare_spmv`` and K1
-      (3·iters+2 and iters+2 launches), then a profiler window;
+      (3·iters+2 and iters+2 launches; BiCGSTAB through K8, 6·iters
+      launches, no plain iteration), then a profiler window of 50
+      BiCGSTAB iterations through K8 and one through the masked loop;
    b. the block solvers through ``prepare_spmm`` and K2: heat diffusion
       from 256 point sources, ``expm_multiply`` on the 1024² grid
       Laplacian (float64), held against the same call over the plain
@@ -322,9 +335,11 @@ Run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -382,7 +397,7 @@ from sprs_tpu_torch.ops import (
     transform_mat_paq,
     vstack,
 )
-from sprs_tpu_torch.ops.cuda import build
+from sprs_tpu_torch.ops.cuda import build, krylov
 from sprs_tpu_torch.ops.cuda import bsr_spmm as k3
 from sprs_tpu_torch.ops.cuda import dia_spmm as k2
 from sprs_tpu_torch.ops.cuda.csr_spmv import TILE, csr_spmv_kernel, csr_spmv_plain
@@ -1304,30 +1319,44 @@ def phase_main_spmv():
     sync()
 
     dia_spmv_kernel.launches = 0
+    krylov.COUNTS.zero()
     t0 = time.perf_counter()
     res_b = bicgstab(lap, rhs, tol=SOLVE_TOL, max_iter=MAX_ITER)
     sync()
     wall_b = time.perf_counter() - t0
     launches_b = dia_spmv_kernel.launches
+    k8 = dataclasses.asdict(krylov.COUNTS)
     t0 = time.perf_counter()
     res_c = cg(spd, b, tol=SOLVE_TOL, max_iter=MAX_ITER)
     sync()
     wall_c = time.perf_counter() - t0
     launches = dia_spmv_kernel.launches
 
-    log(f"bicgstab {side}^2 float64: wall {wall_b!r} s (prepare_spmv included)")
+    log(f"bicgstab {side}^2 float64: wall {wall_b!r} s (prepare_spmv included); K8 {json.dumps(k8)}")
     check_solution("bicgstab", res_b, lap_dia, rhs, launches_b, 3 * res_b.iterations + 2)
+    if (k8["launches"], k8["fused_iterations"], k8["plain_iterations"]) != (
+            6 * res_b.iterations, res_b.iterations, 0):
+        raise AssertionError(f"bicgstab: K8 counts {k8} for {res_b.iterations} iterations")
     log(f"cg {side}^2 float64: wall {wall_c!r} s (prepare_spmv included)")
     check_solution("cg", res_c, spd_dia, b, launches - launches_b, res_c.iterations + 2)
     if launches == 0:
         raise AssertionError("the SpMV main path launched no K1 kernel")
-    return launches, lap, rhs
+    return launches, k8["launches"], lap, rhs
+
+
+def device_events(prof):
+    """The device ops of a profile, by name: its CUDA events without the
+    port's ``sprs.*`` ranges, which the profiler also lists on the device
+    with the time of the ops inside them."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("sprs.")]
 
 
 def profile_window(label, run, kernel_key):
     """Device busy share of ``run`` (set-up excluded): torch.profiler over
     one run, the same run timed untraced beside it."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def timed():
@@ -1340,7 +1369,7 @@ def profile_window(label, run, kernel_key):
     untraced_ms = timed()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = timed()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kernels = device_events(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     kernel_ms = sum(e.self_device_time_total for e in kernels if kernel_key in e.key) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
@@ -1357,10 +1386,18 @@ def profile_window(label, run, kernel_key):
 
 
 def phase_profile_bicgstab(lap, rhs):
+    """The 1024² loop, led by the host: through K8 (about 10 device ops an
+    iteration) and through the masked loop (about 80)."""
     fn, prepared = prepare_spmv(lap)
+    a = lambda v: fn(prepared, v)
     profile_window(
         f"bicgstab {SOLVE_SIDE}^2 float64, {PROFILE_ITERS} iterations",
-        lambda: bicgstab(lambda v: fn(prepared, v), rhs, tol=SOLVE_TOL, max_iter=PROFILE_ITERS),
+        lambda: bicgstab(a, rhs, tol=SOLVE_TOL, max_iter=PROFILE_ITERS),
+        "dia_spmv",
+    )
+    profile_window(
+        f"bicgstab {SOLVE_SIDE}^2 float64, {PROFILE_ITERS} iterations of the masked loop",
+        lambda: plain_bicgstab(a, rhs, SOLVE_TOL, PROFILE_ITERS),
         "dia_spmv",
     )
 
@@ -1376,6 +1413,7 @@ def reset_counts():
     for fn in (dia_spmv_plain, dia_spmm_plain, bsr_spmm_plain, ell_spmv_plain, sort_rows_plain,
                csr_spmv_plain):
         fn.calls = 0
+    krylov.COUNTS.zero()
 
 
 def check_expm(label, lap, B, y, launches):
@@ -2761,6 +2799,132 @@ def phase_k7():
                      library_error=lib_error, gather_l2_sector_bytes=nnz * 32)
     del big, x, first, second
     log(f"K7: {len(errs)} gates and the kron23 row in {time.perf_counter() - t0!r} s")
+    return max(errs), row
+
+
+K8_GATE_SIDES = (64, 1024, 4096)
+K8_GATE_ITERS = 10
+K8_SIDE = 4096
+K8_REPS = 50
+K8_SOLVE_ITERS = 50
+# x of K8 against the masked loop on the card after K8_GATE_ITERS
+# iterations, relative to max|x|: the two sum in other orders (K8 float32
+# sums in float64), which BiCGSTAB on the heat operator grows about 10^4.5
+# times in 10 iterations; measured 1e-15 (f64) and 2e-6 (f32)
+K8_LIMIT = {torch.float64: 1e-9, torch.float32: 1e-4}
+bicgstab_loops = importlib.import_module("sprs_tpu_torch.linalg.bicgstab")
+
+
+def plain_bicgstab(a, b, tol, iters):
+    """The masked loop from x = 0, as ``linalg.bicgstab`` runs it where K8
+    does not take the solve."""
+    x = torch.zeros_like(b)
+    return bicgstab_loops._plain(a, None, b, x, b - a(x), tol, iters, 1e-30)
+
+
+def heat_solve(side, dtype, seed):
+    """(matvec, b) of the heat operator at side² through ``prepare_spmv``
+    (K1), b uniform in [−1, 1) drawn in float64 from ``seed``."""
+    fn, prepared = prepare_spmv(grid_laplacian((side, side), dtype, device=DEVICE))
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    b = torch.rand(side * side, generator=g, device=DEVICE, dtype=torch.float64) * 2.0 - 1.0
+    return (lambda v: fn(prepared, v)), b.to(dtype)
+
+
+def gate_k8(side, dtype):
+    a, b = heat_solve(side, dtype, side)
+    krylov.COUNTS.zero()
+    fused = bicgstab(a, b, tol=0.0, max_iter=K8_GATE_ITERS)
+    counts = dataclasses.asdict(krylov.COUNTS)
+    again = bicgstab(a, b, tol=0.0, max_iter=K8_GATE_ITERS)
+    plain = plain_bicgstab(a, b, 0.0, K8_GATE_ITERS)
+    err = float((fused.x - plain.x).abs().max() / plain.x.abs().max())
+    log(f"gate K8 heat {side}^2 {dtype}: x against the masked loop {err!r} "
+        f"(limit {K8_LIMIT[dtype]!r}); counts {json.dumps(counts)}")
+    if counts["launches"] != 6 * K8_GATE_ITERS or counts["plain_iterations"] != 0:
+        raise AssertionError(f"K8 {side}^2 {dtype}: counts {counts}")
+    if not torch.equal(fused.x, again.x) or fused.residual_norm != again.residual_norm:
+        raise AssertionError(f"K8 {side}^2 {dtype}: two solves differ")
+    if not err <= K8_LIMIT[dtype]:
+        raise AssertionError(f"K8 {side}^2 {dtype}: x {err} from the masked loop")
+    return err
+
+
+def update_device(run, iters):
+    """Device ms per iteration of a BiCGSTAB solve's ops other than K1's,
+    K8's share of them, and device ops per iteration, from one traced
+    solve of ``iters`` iterations (the set-up's few ops included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        sync()
+    events = device_events(prof)
+    other = [e for e in events if "dia_spmv" not in e.key]
+    return (sum(e.self_device_time_total for e in other) / 1e3 / iters,
+            sum(e.self_device_time_total for e in other if "k8_" in e.key) / 1e3 / iters,
+            sum(e.count for e in events) / iters)
+
+
+def phase_k8():
+    """Phase 3's gates of K8 and its phase 4 row.  The row times the six
+    passes of one iteration at the 4096² grid in float64 on fixed
+    products (the state moves on; at tolerance 0 no restart fires),
+    by CUDA events and by the profiler, pass by pass, beside the bytes of
+    20 vectors; and the update work per iteration of a 50-iteration
+    solve, K8's and the masked loop's.  Returns (max error, timing row)."""
+    t0 = time.perf_counter()
+    errs = [gate_k8(side, dtype) for side in K8_GATE_SIDES for dtype in (torch.float64, torch.float32)]
+    a, b = heat_solve(K8_SIDE, torch.float64, 4096)
+    n = b.numel()
+    x = torch.zeros_like(b)
+    r = b - a(x)
+    rhat, p, s = r.clone(), r.clone(), torch.empty_like(r)
+    v, t, ax = a(p), a(r), a(b)
+    zero = b.new_zeros(())
+    w = krylov.workspace(b, torch.dot(r, r), zero, zero.bool(), 1e-30, zero)
+
+    def passes():
+        krylov.rhat_dot_v(rhat, v, w)
+        krylov.s_update(r, v, s, w)
+        krylov.t_sums(t, s, w)
+        krylov.xr_update(x, p, s, s, t, r, rhat, w)
+        krylov.true_residual(b, ax, w)
+        krylov.p_update(b, ax, r, rhat, p, v, w)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = time_ms(passes, K8_REPS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(K8_REPS):
+            passes()
+        sync()
+    per_pass = {re.search(r"k8_([a-z]+)", e.key).group(1): e.self_device_time_total / 1e3 / K8_REPS
+                for e in device_events(prof) if "k8_" in e.key}
+    if set(per_pass) != {"rv", "s", "tt", "xr", "true", "p"}:
+        raise AssertionError(f"K8: the profiler saw the passes {sorted(per_pass)}")
+    # bytes: r̂,v | r,v,s | t,s | x,x,p,s,t,r,r̂ | b,Ax | r,p,v,p
+    passes_bytes = {"rv": 2, "s": 3, "tt": 2, "xr": 7, "true": 2, "p": 4}
+    shares = {k: passes_bytes[k] * n * 8 / HBM_BYTES_PER_S * 1e3 / per_pass[k] for k in per_pass}
+    del x, r, rhat, p, s, v, t, ax, w
+    krylov.COUNTS.zero()
+    fused_ms, k8_ms, fused_ops = update_device(
+        lambda: bicgstab(a, b, tol=0.0, max_iter=K8_SOLVE_ITERS), K8_SOLVE_ITERS)
+    launches = krylov.COUNTS.launches / 2 / K8_SOLVE_ITERS
+    plain_ms, _, plain_ops = update_device(
+        lambda: plain_bicgstab(a, b, 0.0, K8_SOLVE_ITERS), K8_SOLVE_ITERS)
+    row = timing_row(f"BiCGSTAB iteration's updates, heat operator {K8_SIDE}^2 float64 (n {n})",
+                     ms, plain_ms, None, 20 * n * 8, 27 * n, PEAK_FLOPS[torch.float64],
+                     kernel="krylov", device_ms=sum(per_pass.values()), pass_device_ms=per_pass,
+                     pass_roofline_share=shares, solve_k8_ms_per_iter=k8_ms,
+                     solve_update_ms_per_iter=fused_ms, solve_device_ops_per_iter=fused_ops,
+                     plain_device_ops_per_iter=plain_ops, k8_launches_per_iter=launches,
+                     plain="the masked loop's update ops per iteration (device ms)")
+    if launches != 6:
+        raise AssertionError(f"K8: {launches} launches an iteration")
+    log(f"K8: {len(errs)} gates and the 4096^2 row in {time.perf_counter() - t0!r} s")
     return max(errs), row
 
 
@@ -4704,6 +4868,8 @@ KERNELS = {
     "sort_rows": ("sprs_tpu_torch/csrc/sort_rows.cu", "sprs_tpu/ops/pallas/sort.py:97"),
     "csr_spmv": ("sprs_tpu_torch/csrc/csr_spmv.cu",
                  "none: the JAX package's CSR product is XLA's segment_sum (sprs_tpu/ops/prod.py)"),
+    "krylov": ("sprs_tpu_torch/csrc/krylov.cu",
+               "none: the JAX BiCGSTAB is a lax.while_loop that XLA fuses (sprs_tpu/linalg/bicgstab.py)"),
 }
 
 
@@ -4733,6 +4899,7 @@ def main() -> int:
     phase_gate_k2_tma()
     phase_gate_k1()
     errs["csr_spmv"], timing["csr_spmv"] = phase_k7()
+    errs["krylov"], timing["krylov"] = phase_k8()
     phase_gate_k3_forms()
     form_rows = phase_timing_bf16(lap_spmv, random8)
     form_rows.update(phase_timing_forms(lap_spmv, random8))
@@ -4742,7 +4909,7 @@ def main() -> int:
     check_small_against_dense()
     check_small_mesh()
     launches = {}
-    launches["dia_spmv"], lap, rhs = phase_main_spmv()
+    launches["dia_spmv"], launches["krylov"], lap, rhs = phase_main_spmv()
     phase_profile_bicgstab(lap, rhs)
     del lap, rhs
     launches.update(phase_main_block())

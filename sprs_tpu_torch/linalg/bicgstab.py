@@ -10,12 +10,23 @@ safeguards, carried over arithmetic for arithmetic as masked updates:
   drifts from the true one, so every iteration recomputes b − A·x and
   stops only when the true residual passes the tolerance too.
 
-The JAX solver is one ``lax.while_loop``; here it is a Python loop over
-the same masked ``torch.where`` updates, with one host synchronisation
-per iteration to read ``done``.  Each iteration makes three matvecs
-(A·p̂, A·ŝ and the true residual), and the solve two more (the initial
-and the final residual): 3·iterations + 2 in all.  Each host read of a
-device value runs in a ``sprs.bicgstab.sync`` profiler span.
+The JAX solver is one ``lax.while_loop``; here it is a Python loop with
+one host synchronisation per iteration to read ``done``, in one of two
+forms chosen by ``ops/cuda/krylov.py::takes``:
+
+* :func:`_fused`, for a real float32 or float64 b on a CUDA device: the
+  iteration's updates, reductions and scalar logic run in the six passes
+  of kernel K8 (``ops/cuda/krylov.py``), with the scalars on the device;
+* :func:`_plain`, for everything else (CPU tensors, complex and 16-bit
+  types, and under grad mode a solve through which a gradient can flow):
+  the same masked ``torch.where`` updates op by op, which autograd
+  follows.
+
+Both do the same arithmetic in the same order and type.  Each iteration
+makes three matvecs (A·p̂, A·ŝ and the true residual), and the solve two
+more (the initial and the final residual): 3·iterations + 2 in all.
+Each host read of a device value runs in a ``sprs.bicgstab.sync``
+profiler span.
 
 :func:`bicgstab_sparse` keeps the iterates as ``CsVec``; its matvec is
 SpGEMM against the vector's column view.
@@ -32,6 +43,7 @@ from .._span import host, span
 from ..errors import CapacityError, ShapeError
 from ..formats.csmat import CsMat
 from ..formats.csvec import CsVec, empty_csvec
+from ..ops.cuda import krylov
 from ._dispatch import as_matvec, as_vector
 
 
@@ -74,11 +86,33 @@ def bicgstab(
     True
     """
     a_op, n = as_matvec(mat)
-    m_op = precond if precond is not None else (lambda v: v)
     b = as_vector(b, mat)
     if n is not None and b.shape != (n,):
         raise ShapeError(f"rhs shape {tuple(b.shape)}, expected ({n},)")
     x = torch.zeros_like(b) if x0 is None else as_vector(x0, b)
+    r = b - a_op(x)
+    loop = _fused if krylov.takes(b, _grads(mat, precond, x, r)) else _plain
+    return loop(a_op, precond, b, x, r, tol, max_iter, restart_eps)
+
+
+def _grads(mat, precond, x, r):
+    """The tensors besides b through which a gradient can reach the
+    solution, for K8's rule (``krylov.takes``), which reads them only
+    under grad mode on the card: x0, the first residual (which carries
+    the parameters a matvec closes over), a CsMat's values, and, with a
+    preconditioner, its result on r, applied once for this."""
+    yield x
+    yield r
+    if isinstance(mat, CsMat):
+        yield mat.data
+    if precond is not None:
+        yield precond(r)
+
+
+def _plain(a_op, precond, b, x, r, tol, max_iter, restart_eps) -> BiCgStabResult:
+    """The masked loop, op by op in torch, from x and its residual
+    r = b − A·x."""
+    m_op = precond if precond is not None else (lambda v: v)
     norm = torch.linalg.vector_norm
 
     b_norm = norm(b)
@@ -87,7 +121,6 @@ def bicgstab(
     tiny = b_norm.new_tensor(1e-300)
     threshold = tol * torch.maximum(b_norm, tiny)
 
-    r = b - a_op(x)
     rhat, p = r, r
     v = torch.zeros_like(b)
     rho = _dot(r, r)
@@ -138,6 +171,56 @@ def bicgstab(
         rho = torch.where(lied, _dot(true_r, true_r), rho_next)
         x = x_new
         it += 1
+        krylov.COUNTS.plain_iterations += 1
+
+    converged = host(span("sprs.bicgstab.sync"), bool, done)
+    return BiCgStabResult(
+        x=x,
+        converged=converged,
+        iterations=it,
+        residual_norm=host(span("sprs.bicgstab.sync"), float, norm(b - a_op(x))),
+    )
+
+
+def _fused(a_op, precond, b, x0, r0, tol, max_iter, restart_eps) -> BiCgStabResult:
+    """The loop through K8's passes (``ops/cuda/krylov.py``) from x0 and
+    its residual r0 = b − A·x0.  x, r, r̂, p and s are buffers of their
+    own, allocated once and updated in place by the passes; ``x0`` and
+    ``r0`` are copied, never written.  The set-up and the final residual are
+    :func:`_plain`'s; the scalars live in the workspace's ``sc``, of
+    which the host reads ``done`` once an iteration.  A matvec or
+    preconditioner result of another shape, type or device than b
+    raises."""
+    m_op = (lambda v: v) if precond is None else (
+        lambda v: krylov.vector(precond(v), b, "the preconditioner's result"))
+
+    def a_op_checked(v):
+        return krylov.vector(a_op(v), b, "the matvec's result")
+
+    norm = torch.linalg.vector_norm
+    x = krylov.vector(x0, b, "x0").clone()
+    b_norm = norm(b)
+    tiny = b_norm.new_tensor(1e-300)
+    threshold = tol * torch.maximum(b_norm, tiny)
+    r = krylov.vector(r0, b, "the first residual").clone()
+    rhat, p, s = r.clone(), r.clone(), torch.empty_like(r)
+    w = krylov.workspace(b, _dot(r, r), threshold, norm(r) <= threshold, restart_eps, tiny)
+    done = w.sc[krylov.DONE]
+    it = 0
+    while it < max_iter and not host(span("sprs.bicgstab.sync"), bool, done):
+        phat = m_op(p)
+        v = a_op_checked(phat)
+        krylov.rhat_dot_v(rhat, v, w)
+        krylov.s_update(r, v, s, w)
+        shat = m_op(s)
+        t = a_op_checked(shat)
+        krylov.t_sums(t, s, w)
+        krylov.xr_update(x, phat, shat, s, t, r, rhat, w)
+        ax = a_op_checked(x)
+        krylov.true_residual(b, ax, w)
+        krylov.p_update(b, ax, r, rhat, p, v, w)
+        it += 1
+        krylov.COUNTS.fused_iterations += 1
 
     converged = host(span("sprs.bicgstab.sync"), bool, done)
     return BiCgStabResult(
