@@ -397,7 +397,7 @@ from sprs_tpu_torch.ops import (
     transform_mat_paq,
     vstack,
 )
-from sprs_tpu_torch.ops.cuda import build, krylov
+from sprs_tpu_torch.ops.cuda import build, krylov, launch
 from sprs_tpu_torch.ops.cuda import bsr_spmm as k3
 from sprs_tpu_torch.ops.cuda import dia_spmm as k2
 from sprs_tpu_torch.ops.cuda.csr_spmv import TILE, csr_spmv_kernel, csr_spmv_plain
@@ -413,7 +413,7 @@ from sprs_tpu_torch.ops.cuda.dia_spmv import (
     dia_tile,
 )
 from sprs_tpu_torch.ops.cuda.ell_spmv import ell_spmv_kernel, ell_spmv_plain
-from sprs_tpu_torch.ops.cuda.forms import FORMS, zero_counts
+from sprs_tpu_torch.ops.cuda.forms import FORMS
 from sprs_tpu_torch.ops.cuda.sort import sort_rows_kernel, sort_rows_plain
 from sprs_tpu_torch.ops.spgemm import (
     _exact_prod_count,
@@ -1404,12 +1404,8 @@ def phase_profile_bicgstab(lap, rhs):
 
 def reset_counts():
     for fn in (dia_spmv_kernel, dia_spmm_kernel, ell_spmv_kernel, bsr_spmm_kernel,
-               bsr_spmm_grouped_kernel, csr_spmv_kernel):
-        zero_counts(fn)
-    sort_rows_kernel.launches = 0
-    dia_spmm_kernel.launches_tma = dia_spmm_kernel.launches_scalar = 0
-    for fn in (bsr_spmm_kernel, bsr_spmm_grouped_kernel):
-        fn.launches_tc = fn.launches_tf32x3 = 0
+               bsr_spmm_grouped_kernel, csr_spmv_kernel, sort_rows_kernel):
+        launch.zero(fn)
     for fn in (dia_spmv_plain, dia_spmm_plain, bsr_spmm_plain, ell_spmv_plain, sort_rows_plain,
                csr_spmv_plain):
         fn.calls = 0

@@ -12,8 +12,9 @@ about it.  This module holds what surrounds it:
   (``cap % group == 0``) it launches the same kernel on the repacked
   operand, under its own ``launches`` count; else it takes the per-block
   path, K3, as the JAX function does;
-* a ``torch.autograd.Function`` whose backward (:func:`bsr_vjp`) is the
-  plain torch form of the JAX package's ``_spmm_bwd``.
+* a ``torch.autograd.Function``, for products that need a gradient
+  (``launch.run``), whose backward (:func:`bsr_vjp`) is the plain torch
+  form of the JAX package's ``_spmm_bwd``.
 
 Every (blocks, X) pair of float16, bfloat16, float32 and float64 is a
 form (``forms.FORMS``).  As in the Pallas kernels, products and sums are
@@ -39,8 +40,6 @@ it.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import numpy as np
@@ -49,8 +48,9 @@ import torch
 from ...errors import ShapeError
 from ...formats.bsr import BsrMat, bsr_spmm_plain
 from ...formats.util import INDEX_DTYPE, index_sum_
-from . import build
-from .forms import FORMS, HALVES, count_launch, form_of, zero_counts
+from . import launch
+from .forms import FORMS, HALVES, form_of
+from .launch import I32, I64, PTR
 
 THREADS = 512  # 16 warps in the 3xTF32 kernel (csrc/bsr_spmm.cu: kTf32Threads)
 TILE_N = 128  # output columns per CTA of both kernels (kTf32TileN, kTcTileN)
@@ -102,16 +102,9 @@ def launch_config(n_block_rows: int, k: int, kind: str, bs: int) -> Tuple[Tuple[
     return grid, 128 * (bs // 64) + 32 if kind == "tc" else THREADS
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(name: str):
-    fn = getattr(build.load("bsr_spmm"), name)
-    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-    if name in _TC_ENTRY.values():
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, i, ll, i, i, vp]
-    else:
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, i, i, i, vp]
-    fn.restype = ctypes.c_int
-    return fn
+_HEAD = (PTR, PTR, PTR, PTR, PTR, PTR, I64, I64, I64, I32)
+_TF32_ARGS = _HEAD + (I32, I32, PTR)
+_TC_ARGS = _HEAD + (I64, I32, I32, PTR)
 
 
 def _launch(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, counter) -> torch.Tensor:
@@ -119,11 +112,7 @@ def _launch(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, counter) -> torc
         raise TypeError(
             f"bsr_spmm kernel reads bcols as {INDEX_DTYPE}, got {bsr.bcols.dtype}"
         )
-    if blocks.device.type != "cuda" or x.device != blocks.device:
-        raise ValueError(
-            f"bsr_spmm kernel needs blocks and X on one CUDA device, got "
-            f"{blocks.device} and {x.device}"
-        )
+    launch.one_card("bsr_spmm", "blocks and X", blocks, x)
     form = form_of("bsr_spmm", blocks, x)
     bs = bsr.block_size
     if bs % BLOCK_MULTIPLE or not BLOCK_MULTIPLE <= bs <= MAX_BLOCK:
@@ -152,18 +141,15 @@ def _launch(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, counter) -> torc
         k,
         bs,
     ]
-    stream = torch.cuda.current_stream(x.device).cuda_stream
+    stream = launch.stream(x.get_device())
     if kind == "tc":
-        err = _entry(_TC_ENTRY[x.dtype])(*args, bsr.cap, gx, gy, stream)
+        fn = launch.entry("bsr_spmm", _TC_ENTRY[x.dtype], _TC_ARGS)
+        err = fn(*args, bsr.cap, gx, gy, stream)
     else:
-        err = _entry(_ENTRY[(blocks.dtype, x.dtype)])(*args, gx, gy, stream)
-    if err != 0:
-        raise RuntimeError(f"bsr_spmm kernel ({kind}, {form}) launch failed: CUDA error {err}")
-    count_launch(counter, form)
-    if kind == "tc":
-        counter.launches_tc += 1
-    else:
-        counter.launches_tf32x3 += 1
+        fn = launch.entry("bsr_spmm", _ENTRY[(blocks.dtype, x.dtype)], _TF32_ARGS)
+        err = fn(*args, gx, gy, stream)
+    launch.check(err, f"bsr_spmm kernel ({kind}, {form})")
+    launch.count(counter, form, kind)
     return y
 
 
@@ -186,13 +172,18 @@ def bsr_vjp(bsr: BsrMat, blocks: torch.Tensor, x: torch.Tensor, g: torch.Tensor)
     return dblocks, dxb.reshape(nbc * bs, k)[: bsr.cols].to(x.dtype)
 
 
+def _plain(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
+    """The plain product, its float32 sums cast to promote(blocks, X)."""
+    return bsr_spmm_plain(bsr, x).to(torch.promote_types(bsr.blocks.dtype, x.dtype))
+
+
 class _BsrSpmm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, blocks, x, bsr, counter):
         ctx.save_for_backward(blocks, x)
         ctx.bsr = bsr
-        if blocks.device.type == "cpu" and x.device.type == "cpu":
-            return bsr_spmm_plain(bsr, x).to(torch.promote_types(blocks.dtype, x.dtype))
+        if launch.on_cpu(blocks, x):
+            return _plain(bsr, x)
         return _launch(bsr, blocks, x, counter)
 
     @staticmethod
@@ -203,9 +194,17 @@ class _BsrSpmm(torch.autograd.Function):
 
 
 def _apply(bsr: BsrMat, x: torch.Tensor, counter) -> torch.Tensor:
+    """K3's or K4's product (``counter`` is the wrapper that counts it),
+    run as ``launch.run`` says."""
     if x.ndim != 2 or x.shape[0] != bsr.cols:
         raise ShapeError(f"bsr_spmm: A is {bsr.shape}, X is {tuple(x.shape)}")
-    return _BsrSpmm.apply(bsr.blocks, x.contiguous(), bsr, counter)
+    x = x.contiguous()
+    return launch.run(
+        (bsr.blocks, x),
+        lambda: _plain(bsr, x),
+        lambda: _BsrSpmm.apply(bsr.blocks, x, bsr, counter),
+        lambda: _launch(bsr, bsr.blocks, x, counter),
+    )
 
 
 def bsr_spmm_kernel(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
@@ -214,9 +213,7 @@ def bsr_spmm_kernel(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
     return _apply(bsr, x, bsr_spmm_kernel)
 
 
-zero_counts(bsr_spmm_kernel)
-bsr_spmm_kernel.launches_tc = 0
-bsr_spmm_kernel.launches_tf32x3 = 0
+launch.zero(bsr_spmm_kernel, (*FORMS.values(), "tc", "tf32x3"))
 
 
 def bsr_spmv_kernel(bsr: BsrMat, x: torch.Tensor) -> torch.Tensor:
@@ -265,6 +262,4 @@ def bsr_spmm_grouped_kernel(bsr: BsrMat, x: torch.Tensor, group: int = 8) -> tor
     return _apply(bsr, x, bsr_spmm_grouped_kernel)
 
 
-zero_counts(bsr_spmm_grouped_kernel)
-bsr_spmm_grouped_kernel.launches_tc = 0
-bsr_spmm_grouped_kernel.launches_tf32x3 = 0
+launch.zero(bsr_spmm_grouped_kernel, (*FORMS.values(), "tc", "tf32x3"))

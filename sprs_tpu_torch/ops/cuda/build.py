@@ -1,19 +1,17 @@
-"""Build the package's CUDA sources into shared libraries and load them.
+"""Build the package's CUDA sources into shared libraries.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use with ``nvcc`` for ``sm_90a`` into ``sprs_tpu_torch/_build/``
 (listed in ``.gitignore``), under a name that carries a hash of the
 source and of the shared headers (``csrc/*.cuh``, on the include path),
 so an edited source or header is rebuilt and a stale library never
-loads.
-The library is bound with ``ctypes``.  Nothing here runs at import time.
+loads.  ``launch.py`` loads the libraries and binds their entries.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import re
@@ -94,12 +92,6 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, BuildInfo]:
         os.replace(tmp, path)
         out[name] = BuildInfo(name, path, seconds, log)
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def load(name: str) -> ctypes.CDLL:
-    """The built library ``name``, compiling it first if needed."""
-    return ctypes.CDLL(str(build([name])[name].path))
 
 
 def ptxas_report(log: str) -> List[Tuple[str, int, int, int]]:

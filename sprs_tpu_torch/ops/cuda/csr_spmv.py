@@ -14,22 +14,18 @@ design meets that bound.  This module holds what surrounds it, as
   reference on the card;
 * :func:`takes`, the one rule of which products K7 computes, which
   ``ops/prod.py::spmv`` asks and :func:`_check` enforces;
-* :func:`csr_spmv_kernel`, the wrapper: CPU tensors take the plain
-  version, CUDA tensors launch the kernel or raise — never both.  It
-  takes the type forms of ``forms.FORMS`` with int32 indices.  Where
-  neither ``data`` nor ``x`` needs a gradient it launches directly (one
+* :func:`csr_spmv_kernel`, the wrapper, which takes the type forms of
+  ``forms.FORMS`` with int32 indices and runs as ``launch.run`` says:
+  the plain version on CPU tensors, the direct launch on the card (one
   ctypes call, y from ``new_empty``, the tiles' carries from
-  ``torch.empty``); otherwise through a ``torch.autograd.Function`` whose
-  backward (:func:`csr_vjp`) is the plain product's gradient.  Its
-  ``launches`` attribute counts kernel launches, and ``launches_<form>``
-  those of each form.  The grid comes from sizes the host knows
-  (:func:`tiles`): no launch reads a device value back.
+  ``torch.empty``), and a ``torch.autograd.Function`` where a gradient
+  is needed, whose backward is :func:`csr_vjp`.  Its ``launches``
+  attribute counts kernel launches, and ``launches_<form>`` those of
+  each form.  The grid comes from sizes the host knows (:func:`tiles`):
+  no launch reads a device value back.
 """
 
 from __future__ import annotations
-
-import ctypes
-import functools
 
 import torch
 
@@ -37,8 +33,9 @@ from ..._span import span
 from ...errors import ShapeError
 from ...formats.csmat import CsMat
 from ...formats.util import INDEX_DTYPE, csr_spmv_plain, index_sum_, row_ids_from_indptr
-from . import build
-from .forms import FORMS, count_launch, form_of, widened, zero_counts
+from . import launch
+from .forms import FORMS, form_of, widened
+from .launch import I64, PTR
 
 TILE = 256 * 11  # csrc/csr_spmv.cu: kTile = kThreads * kItems, merge-path items a CTA
 # scratch a tile: its trailing and head partial sums (up to 8 bytes
@@ -77,13 +74,7 @@ def takes(mat: CsMat, x: torch.Tensor) -> bool:
     return mat.data.is_cuda and _refusal(mat, x) is None
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(form: str):
-    fn = getattr(build.load("csr_spmv"), f"sprs_csr_spmv_{form}")
-    ll, vp = ctypes.c_longlong, ctypes.c_void_p
-    fn.argtypes = [vp, vp, vp, vp, vp, vp, ll, ll, ll, ll, vp]
-    fn.restype = ctypes.c_int
-    return fn
+_ARGS = (PTR, PTR, PTR, PTR, PTR, PTR, I64, I64, I64, I64, PTR)
 
 
 def _check(mat: CsMat, x: torch.Tensor) -> str:
@@ -107,11 +98,7 @@ def _check(mat: CsMat, x: torch.Tensor) -> str:
 
 def _launch(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
     indptr, idx, data = mat.indptr, mat.indices, mat.data
-    dev = data.device
-    if dev.type != "cuda" or indptr.device != dev or idx.device != dev or x.device != dev:
-        raise ValueError(
-            f"csr_spmv kernel needs indptr, indices, data and x on one CUDA device, got "
-            f"{indptr.device}, {idx.device}, {dev} and {x.device}")
+    launch.one_card("csr_spmv", "indptr, indices, data and x", indptr, idx, data, x)
     form = _check(mat, x)
     y = data.new_empty(mat.rows, dtype=torch.promote_types(data.dtype, x.dtype))
     if mat.rows == 0:
@@ -119,14 +106,12 @@ def _launch(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
     if mat.cols == 0:
         return y.zero_()
     n = tiles(mat.rows, idx.shape[0])
-    work = torch.empty(n * CARRY_BYTES, dtype=torch.uint8, device=dev)
-    err = _entry(form)(
+    work = torch.empty(n * CARRY_BYTES, dtype=torch.uint8, device=data.device)
+    err = launch.entry("csr_spmv", f"sprs_csr_spmv_{form}", _ARGS)(
         indptr.data_ptr(), idx.data_ptr(), data.data_ptr(), x.data_ptr(), y.data_ptr(),
-        work.data_ptr(), mat.rows, mat.cols, idx.shape[0], n,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"csr_spmv kernel launch failed: CUDA error {err}")
-    count_launch(csr_spmv_kernel, form)
+        work.data_ptr(), mat.rows, mat.cols, idx.shape[0], n, launch.stream(data.get_device()))
+    launch.check(err, "csr_spmv kernel")
+    launch.count(csr_spmv_kernel, form)
     return y
 
 
@@ -157,10 +142,16 @@ def csr_vjp(mat: CsMat, x: torch.Tensor, g: torch.Tensor):
 
 class _CsrSpmv(torch.autograd.Function):
     @staticmethod
+    def of(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
+        return _CsrSpmv.apply(mat.indptr, mat.indices, mat.data, x, tuple(mat.shape))
+
+    @staticmethod
     def forward(ctx, indptr, indices, data, x, shape):
         mat = CsMat(indptr, indices, data, shape, "csr")
         ctx.save_for_backward(indptr, indices, data, x)
         ctx.shape = shape
+        if launch.on_cpu(indptr, indices, data, x):
+            return csr_spmv_plain(mat, x)
         return _launch(mat, x)
 
     @staticmethod
@@ -173,19 +164,16 @@ class _CsrSpmv(torch.autograd.Function):
 def csr_spmv_kernel(mat: CsMat, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x through K7 for a CSR matrix.
 
-    Tensors on the CPU take :func:`csr_spmv_plain`; tensors on a CUDA
-    device launch the kernel, which raises on what it cannot take.
-    Differentiable in ``mat.data`` and ``x``.  Runs in a ``sprs.k7``
-    profiler span.
+    Runs as ``launch.run`` says: tensors on the CPU take
+    :func:`csr_spmv_plain`; tensors on a CUDA device launch the kernel,
+    which raises on what it cannot take.  Differentiable in ``mat.data``
+    and ``x``.  Runs in a ``sprs.k7`` profiler span.
     """
     with span("sprs.k7"):
         if x.shape != (mat.cols,):
             raise ShapeError(f"csr_spmv: A is {mat.shape}, x is {tuple(x.shape)}")
-        if all(t.device.type == "cpu" for t in (mat.indptr, mat.indices, mat.data, x)):
-            return csr_spmv_plain(mat, x)
-        if torch.is_grad_enabled() and (mat.data.requires_grad or x.requires_grad):
-            return _CsrSpmv.apply(mat.indptr, mat.indices, mat.data, x, tuple(mat.shape))
-        return _launch(mat, x)
+        tensors = (mat.indptr, mat.indices, mat.data, x)
+        return launch.run(tensors, csr_spmv_plain, _CsrSpmv.of, _launch, mat, x)
 
 
-zero_counts(csr_spmv_kernel)
+launch.zero(csr_spmv_kernel, FORMS.values())

@@ -9,11 +9,12 @@ This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
   dia_spmm``, widened for 16-bit operands as ``forms.widened`` says), used for
   tensors on the CPU and as the kernel's reference on the card.  Its
   ``calls`` attribute counts calls;
-* :func:`dia_spmm_kernel`, the wrapper: CPU tensors take the plain
-  version, CUDA tensors launch the kernel or raise — never both.  It
-  takes the type forms of ``forms.FORMS``.  Its ``launches`` attribute
-  counts kernel launches, ``launches_tma`` and ``launches_scalar``
-  those of each variant, and ``launches_<form>`` those of each form.  Every RHS width takes
+* :func:`dia_spmm_kernel`, the wrapper: it runs as ``launch.run`` says
+  (CPU tensors take the plain version, CUDA tensors launch the kernel or
+  raise — never both).  It takes the type forms of ``forms.FORMS``.  Its
+  ``launches`` attribute counts kernel launches, ``launches_tma`` and
+  ``launches_scalar`` those of each variant, and ``launches_<form>``
+  those of each form.  Every RHS width takes
   the kernel: the JAX package's ``k >= 256`` cut (``ops/prod.py``) is a
   TPU measurement and has no counterpart here;
 * :func:`variant`, the rule that picks the kernel's variant: "tma" (X and
@@ -28,9 +29,9 @@ This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
 * the tma variant's shapes, which the C entry mirrors: :func:`tile_shape`
   (T rows by kc columns), :func:`slab_plan` (which diagonals share one
   load of X) and :func:`ring` (the stages of shared memory);
-* a ``torch.autograd.Function`` whose forward is the kernel and whose
-  backward is :func:`~.dia_spmv.dia_vjp`, the plain torch form of the JAX
-  package's ``_bwd``.
+* a ``torch.autograd.Function``, for products that need a gradient,
+  whose backward is :func:`~.dia_spmv.dia_vjp`, the plain torch form of
+  the JAX package's ``_bwd``.
 
 The prepared operand is K1's :class:`~.dia_spmv.DiaTiledMat`, whose
 ``spmm`` method calls this wrapper.
@@ -38,8 +39,6 @@ The prepared operand is K1's :class:`~.dia_spmv.DiaTiledMat`, whose
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import List, Tuple
 
 import torch
@@ -47,9 +46,10 @@ import torch
 from ...errors import ShapeError
 from ...formats.dia import DiaMat, dia_spmm
 from ...formats.util import round_up
-from . import build
+from . import launch
 from .dia_spmv import MAX_DIAGS, dia_vjp, widened_sum
-from .forms import count_launch, form_of, widened, zero_counts
+from .forms import FORMS, form_of, widened
+from .launch import I32, I64, PTR
 
 VECTOR_BYTES = 16
 # the scalar variant (csrc/dia_spmm.cu)
@@ -189,13 +189,7 @@ def dia_spmm_plain(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
 dia_spmm_plain.calls = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(form: str):
-    fn = getattr(build.load("dia_spmm"), f"sprs_dia_spmm_{form}")
-    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, ll, ll, ll, ll, vp, i, i, i, i, i, vp]
-    fn.restype = ctypes.c_int
-    return fn
+_ARGS = (PTR, PTR, PTR, I64, I64, I64, I64, PTR, I32, I32, I32, I32, I32, PTR)
 
 
 def _tma_data(dia: DiaMat) -> Tuple[torch.Tensor, int]:
@@ -213,11 +207,7 @@ def _tma_data(dia: DiaMat) -> Tuple[torch.Tensor, int]:
 
 def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     data = dia.data
-    if data.device.type != "cuda" or x.device != data.device:
-        raise ValueError(
-            f"dia_spmm kernel needs data and X on one CUDA device, got "
-            f"{data.device} and {x.device}"
-        )
+    launch.one_card("dia_spmm", "data and X", data, x)
     form = form_of("dia_spmm", data, x)
     n = dia.n_diags
     if n > MAX_DIAGS:
@@ -234,11 +224,11 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     rows_pad = dia.rows_pad
     if kind == "tma":
         data, rows_pad = _tma_data(dia)
-    n_sm = torch.cuda.get_device_properties(data.device).multi_processor_count
+    index = data.get_device()
     grid, _, tile_rows, tile_cols = launch_config(
-        dia.rows, k, n_sm, x.element_size(), kind, acc_itemsize(data.dtype, x.dtype)
+        dia.rows, k, launch.sm_count(index), x.element_size(), kind, acc_itemsize(data.dtype, x.dtype)
     )
-    err = _entry(form)(
+    err = launch.entry("dia_spmm", f"sprs_dia_spmm_{form}", _ARGS)(
         data.data_ptr(),
         x.data_ptr(),
         y.data_ptr(),
@@ -246,28 +236,30 @@ def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
         dia.cols,
         rows_pad,
         k,
-        (ctypes.c_int * n)(*dia.offsets),
+        (I32 * n)(*dia.offsets),
         n,
         int(kind == "tma"),
         tile_rows,
         tile_cols,
         grid,
-        torch.cuda.current_stream(data.device).cuda_stream,
+        launch.stream(index),
     )
-    if err != 0:
-        raise RuntimeError(f"dia_spmm kernel ({kind}) launch failed: CUDA error {err}")
-    count_launch(dia_spmm_kernel, form)
-    setattr(dia_spmm_kernel, f"launches_{kind}", getattr(dia_spmm_kernel, f"launches_{kind}") + 1)
+    launch.check(err, f"dia_spmm kernel ({kind})")
+    launch.count(dia_spmm_kernel, form, kind)
     return y
 
 
 class _DiaSpmm(torch.autograd.Function):
     @staticmethod
+    def of(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
+        return _DiaSpmm.apply(dia.data, x, tuple(dia.offsets), tuple(dia.shape))
+
+    @staticmethod
     def forward(ctx, data, x, offsets, shape):
         dia = DiaMat(data, offsets, shape)
         ctx.save_for_backward(data, x)
         ctx.offsets, ctx.shape = offsets, shape
-        if data.device.type == "cpu" and x.device.type == "cpu":
+        if launch.on_cpu(data, x):
             return dia_spmm_plain(dia, x)
         return _launch(dia, x)
 
@@ -281,19 +273,18 @@ class _DiaSpmm(torch.autograd.Function):
 def dia_spmm_kernel(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     """Y = A @ X through K2; the counterpart of ``dia_spmm_pallas``.
 
-    ``X`` is dense, (cols, k), at any width k.  Tensors on the CPU take
-    :func:`dia_spmm_plain`; tensors on a CUDA device launch the kernel,
-    which raises on what it cannot take (a complex operand among them).
-    Differentiable in ``dia.data`` and ``X``.
+    ``X`` is dense, (cols, k), at any width k.  Runs as ``launch.run``
+    says: tensors on the CPU take :func:`dia_spmm_plain`; tensors on a
+    CUDA device launch the kernel, which raises on what it cannot take (a
+    complex operand among them).  Differentiable in ``dia.data`` and
+    ``X``.
     """
     if x.ndim != 2 or x.shape[0] != dia.cols:
         raise ShapeError(f"dia_spmm: A is {dia.shape}, X is {tuple(x.shape)}")
     # The kernel reads X row-major; the solvers' blocks often come out of
     # torch.linalg in column-major order.
     x = x.contiguous()
-    return _DiaSpmm.apply(dia.data, x, tuple(dia.offsets), tuple(dia.shape))
+    return launch.run((dia.data, x), dia_spmm_plain, _DiaSpmm.of, _launch, dia, x)
 
 
-zero_counts(dia_spmm_kernel)
-dia_spmm_kernel.launches_tma = 0
-dia_spmm_kernel.launches_scalar = 0
+launch.zero(dia_spmm_kernel, (*FORMS.values(), "tma", "scalar"))

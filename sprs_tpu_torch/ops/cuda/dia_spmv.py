@@ -15,13 +15,13 @@ meets that bound.  This module holds what surrounds it:
   it checks only what may differ per call (x's device, type, shape and
   contiguity), allocates y and launches on the current stream, with no
   host sync;
-* :func:`dia_spmv_kernel`, the wrapper: CPU tensors take the plain
-  version, CUDA tensors launch the kernel or raise — never both.  It
-  takes the type forms of ``forms.FORMS``.  A prepared operand whose
-  product needs no gradient takes its plan's direct launch; otherwise
-  the product goes through a ``torch.autograd.Function`` whose forward
-  is the kernel and whose backward (:func:`dia_vjp`, shared with K2) is
-  the plain torch form of the JAX package's ``_bwd``.  Its ``launches``
+* :func:`dia_spmv_kernel`, the wrapper, which takes the type forms of
+  ``forms.FORMS`` and runs, as every product wrapper does, as
+  ``launch.run`` says: the plain version on CPU tensors, the direct
+  launch on the card (the operand's plan, or one built for the call on
+  a bare ``DiaMat``), and a ``torch.autograd.Function`` where a gradient
+  is needed, whose backward (:func:`dia_vjp`, shared with K2) is the
+  plain torch form of the JAX package's ``_bwd``.  Its ``launches``
   attribute counts kernel launches, and ``launches_<form>`` those of
   each form;
 * :class:`DiaTiledMat` and :func:`dia_tile`, the prepare-once operand of
@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import weakref
 from typing import Tuple
 
@@ -42,8 +41,9 @@ import torch
 from ..._span import span
 from ...errors import ShapeError
 from ...formats.dia import DiaMat, _padded_x, dia_spmv
-from . import build
-from .forms import FORMS, form_of, widened, zero_counts
+from . import launch
+from .forms import FORMS, form_of, widened
+from .launch import I32, I64, PTR
 
 # Offsets travel to the kernel by value in a fixed struct of this many
 # ints (csrc/dia_spmv.cu: kMaxDiags), prepare_spmv's ceiling.
@@ -95,48 +95,13 @@ def dia_spmv_plain(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
 dia_spmv_plain.calls = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """(library, run): the plan entries, and ``sprs_dia_spmv_run`` bound
-    through ``ctypes.PyDLL``, whose calls keep the interpreter lock (a
-    launch takes microseconds; releasing and taking the lock again would
-    add to them)."""
-    lib = build.load("dia_spmv")
-    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-    for form in FORMS.values():
-        fn = getattr(lib, f"sprs_dia_spmv_plan_{form}")
-        fn.argtypes = [vp, ll, ll, ll, vp, i, i, ctypes.POINTER(i)]
-        fn.restype = vp
-    lib.sprs_dia_spmv_plan_free.argtypes = [vp]
-    lib.sprs_dia_spmv_plan_free.restype = None
-    run = ctypes.PyDLL(lib._name).sprs_dia_spmv_run
-    run.argtypes = [vp, vp, vp, vp]
-    run.restype = i
-    return lib, run
-
-
-def _raw_stream():
-    """index -> the current stream's handle on that device, as an int."""
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    return raw if raw is not None else (lambda index: torch.cuda.current_stream(index).cuda_stream)
-
-
-class _FormPlan:
-    """The C plan of one operand for one form, released with this object."""
-
-    def __init__(self, handle: int, out: torch.dtype, form: str):
-        self.handle, self.out, self.form = handle, out, form
-        self.form_count = f"launches_{form}"
-        lib, self.run = _lib()
-        weakref.finalize(self, lib.sprs_dia_spmv_plan_free, handle)
-
-
 class K1Plan:
     """K1's launch plan for one operand on the card: the checks the
     operand must pass (raising as the kernel would), its offsets in a
     persistent host array, its grid (:func:`launch_config`), and per x
-    type used the C plan (:class:`_FormPlan`, built at the first product
-    in that type).  Calling it with x launches K1 directly (no autograd).
+    type used the C plan (built at the first product in that type,
+    released with this object).  Calling it with x launches K1 directly
+    (no autograd).
     """
 
     def __init__(self, dia: DiaMat):
@@ -156,31 +121,33 @@ class K1Plan:
         self.offsets = tuple(dia.offsets)
         self.rows, self.cols, self.rows_pad = dia.rows, dia.cols, dia.rows_pad
         self.device = data.device
-        self.index = data.device.index if data.device.index is not None else torch.cuda.current_device()
+        self.index = data.get_device()
         self.x_shape = (dia.cols,)
-        n_sm = torch.cuda.get_device_properties(self.device).multi_processor_count
-        self.grid = launch_config(dia.rows, n_sm)[0]
-        self.c_offsets = (ctypes.c_int * k)(*self.offsets)
+        self.grid = launch_config(dia.rows, launch.sm_count(self.index))[0]
+        self.c_offsets = (I32 * k)(*self.offsets)
         self.forms = {}
-        self.stream = _raw_stream()
 
-    def form_plan(self, x_dtype: torch.dtype) -> _FormPlan:
-        """The C plan for x of ``x_dtype`` (TypeError for a pair that is
-        no form), built on first use."""
+    def form_plan(self, x_dtype: torch.dtype) -> Tuple[int, torch.dtype, str]:
+        """(handle, y's type, form) of the C plan for x of ``x_dtype``
+        (TypeError for a pair that is no form), built on first use."""
         plan = self.forms.get(x_dtype)
         if plan is not None:
             return plan
         data = self.data
         form = form_of("dia_spmv", data, torch.empty(0, dtype=x_dtype))
-        err = ctypes.c_int(0)
-        handle = getattr(_lib()[0], f"sprs_dia_spmv_plan_{form}")(
+        err = I32(0)
+        create = launch.entry("dia_spmv", f"sprs_dia_spmv_plan_{form}",
+                              (PTR, I64, I64, I64, PTR, I32, I32, ctypes.POINTER(I32)), PTR)
+        handle = create(
             data.data_ptr(), self.rows, self.cols, self.rows_pad, self.c_offsets, len(self.offsets),
             self.grid, ctypes.byref(err),
         )
         if not handle:
             raise RuntimeError(f"dia_spmv kernel plan failed: CUDA error {err.value}")
-        plan = _FormPlan(handle, torch.promote_types(data.dtype, x_dtype), form)
-        self.forms[x_dtype] = plan
+        free = launch.entry("dia_spmv", "sprs_dia_spmv_plan_free", (PTR,), None)
+        weakref.finalize(self, free, handle)
+        self.run = launch.entry("dia_spmv", "sprs_dia_spmv_run", (PTR, PTR, PTR, PTR))
+        plan = self.forms[x_dtype] = (handle, torch.promote_types(data.dtype, x_dtype), form)
         return plan
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -190,28 +157,25 @@ class K1Plan:
             if x.shape != self.x_shape:
                 raise ShapeError(f"dia_spmv: A is {(self.rows, self.cols)}, x is {tuple(x.shape)}")
             if x.get_device() != self.index:
-                raise ValueError(
-                    f"dia_spmv kernel needs data and x on one CUDA device, got {self.device} and {x.device}"
-                )
+                launch.one_card("dia_spmv", "data and x", self.data, x)
             if not x.is_contiguous():
                 raise ValueError("dia_spmv kernel needs contiguous data and x")
             if self.rows == 0:
                 form_of("dia_spmv", self.data, x)
                 return torch.empty(0, dtype=torch.promote_types(self.data.dtype, x.dtype), device=self.device)
-            plan = self.forms.get(x.dtype) or self.form_plan(x.dtype)
-            y = x.new_empty(self.rows, dtype=plan.out)
-            err = plan.run(plan.handle, x.data_ptr(), y.data_ptr(), self.stream(self.index))
-            if err != 0:
-                raise RuntimeError(f"dia_spmv kernel launch failed: CUDA error {err}")
-            wrapper = dia_spmv_kernel
-            wrapper.launches += 1
-            setattr(wrapper, plan.form_count, getattr(wrapper, plan.form_count) + 1)
+            handle, out, form = self.forms.get(x.dtype) or self.form_plan(x.dtype)
+            y = x.new_empty(self.rows, dtype=out)
+            launch.check(self.run(handle, x.data_ptr(), y.data_ptr(), launch.stream(self.index)),
+                         "dia_spmv kernel")
+            launch.count(dia_spmv_kernel, form)
             return y
 
 
 def _launch(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
-    """K1 on an operand prepared for this call alone (a bare DiaMat)."""
-    return K1Plan(dia)(x)
+    """K1's direct launch: the operand's plan, or on a bare DiaMat one
+    built for this call alone."""
+    plan = getattr(dia, "plan", None)
+    return (K1Plan(dia) if plan is None else plan)(x)
 
 
 def dia_vjp(dia: DiaMat, x: torch.Tensor, g: torch.Tensor):
@@ -243,11 +207,16 @@ def dia_vjp(dia: DiaMat, x: torch.Tensor, g: torch.Tensor):
 
 class _DiaSpmv(torch.autograd.Function):
     @staticmethod
+    def of(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
+        plan = getattr(dia, "plan", None)
+        return _DiaSpmv.apply(dia.data, x, tuple(dia.offsets), tuple(dia.shape), plan)
+
+    @staticmethod
     def forward(ctx, data, x, offsets, shape, plan):
         dia = DiaMat(data, offsets, shape)
         ctx.save_for_backward(data, x)
         ctx.offsets, ctx.shape = offsets, shape
-        if data.device.type == "cpu" and x.device.type == "cpu":
+        if launch.on_cpu(data, x):
             return dia_spmv_plain(dia, x)
         return plan(x) if plan is not None else _launch(dia, x)
 
@@ -261,22 +230,20 @@ class _DiaSpmv(torch.autograd.Function):
 def dia_spmv_kernel(dia: DiaMat, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x through K1; the counterpart of ``dia_spmv_pallas``.
 
-    Tensors on the CPU take :func:`dia_spmv_plain`; tensors on a CUDA
-    device launch the kernel, which raises on what it cannot take.
-    Differentiable in ``dia.data`` and ``x``: a product that needs a
-    gradient goes through ``torch.autograd.Function``; one that needs none
-    on a prepared operand (:class:`DiaTiledMat`) takes its plan's direct
-    launch.
+    Runs as ``launch.run`` says: tensors on the CPU take
+    :func:`dia_spmv_plain`; tensors on a CUDA device launch the kernel,
+    which raises on what it cannot take.  Differentiable in ``dia.data``
+    and ``x``.  An operand that carries a plan (a :class:`DiaTiledMat` on
+    the card) launches its plan wherever no gradient is needed.
     """
     plan = getattr(dia, "plan", None)
-    if plan is not None and not (torch.is_grad_enabled() and (x.requires_grad or dia.data.requires_grad)):
-        return plan(x)
-    if x.shape != (dia.cols,):
+    if plan is None and x.shape != (dia.cols,):  # a plan checks x itself
         raise ShapeError(f"dia_spmv: A is {dia.shape}, x is {tuple(x.shape)}")
-    return _DiaSpmv.apply(dia.data, x, tuple(dia.offsets), tuple(dia.shape), plan)
+    plain = dia_spmv_plain if plan is None else _launch  # a plan launches wherever no gradient is needed
+    return launch.run((dia.data, x), plain, _DiaSpmv.of, _launch, dia, x)
 
 
-zero_counts(dia_spmv_kernel)
+launch.zero(dia_spmv_kernel, FORMS.values())
 
 
 @dataclasses.dataclass(frozen=True, repr=False)

@@ -11,22 +11,19 @@ This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
   order in ``promote(out, float32)`` with one rounding, as
   ``forms.widened`` says), used for tensors on the CPU and as the
   kernel's reference on the card.  Its ``calls`` attribute counts calls;
-* :func:`ell_spmv_kernel`, the wrapper: CPU tensors take the plain
-  version, CUDA tensors launch the kernel or raise — never both.  It
-  takes the type forms of ``forms.FORMS``.  Its ``launches`` attribute
-  counts kernel launches, and ``launches_<form>`` those of each form.
-  Every x takes the kernel: the JAX package's escapes to XLA (x above
-  48 MB of VMEM, a backend that cannot lower the gather) are TPU limits
-  with no counterpart here;
-* a ``torch.autograd.Function`` whose forward is the kernel and whose
-  backward (:func:`ell_vjp`) is the plain torch form of the JAX package's
-  ``_bwd``.
+* :func:`ell_spmv_kernel`, the wrapper, which takes the type forms of
+  ``forms.FORMS`` and runs as ``launch.run`` says: the plain version on
+  CPU tensors, the kernel's direct launch on the card, and a
+  ``torch.autograd.Function`` where a gradient is needed, whose backward
+  (:func:`ell_vjp`) is the plain torch form of the JAX package's
+  ``_bwd``.  Its ``launches`` attribute counts kernel launches, and
+  ``launches_<form>`` those of each form.  Every x takes the kernel: the
+  JAX package's escapes to XLA (x above 48 MB of VMEM, a backend that
+  cannot lower the gather) are TPU limits with no counterpart here.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import torch
@@ -35,8 +32,9 @@ from ..._span import span
 from ...errors import ShapeError
 from ...formats.ell import EllMat, ell_spmv
 from ...formats.util import index_sum_
-from . import build
-from .forms import count_launch, form_of, widened, zero_counts
+from . import launch
+from .forms import FORMS, form_of, widened
+from .launch import I32, I64, PTR
 
 BLOCK = 256  # csrc/ell_spmv.cu: kThreads
 # Resident 256-thread blocks per SM at full occupancy (2048 threads).
@@ -84,13 +82,7 @@ def ell_spmv_plain(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
 ell_spmv_plain.calls = 0
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(form: str):
-    fn = getattr(build.load("ell_spmv"), f"sprs_ell_spmv_{form}")
-    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, ll, ll, i, i, i, i, vp]
-    fn.restype = ctypes.c_int
-    return fn
+_ARGS = (PTR, PTR, PTR, PTR, I64, I64, I32, I32, I32, I32, PTR)
 
 
 def _check(ell: EllMat, x: torch.Tensor) -> str:
@@ -112,20 +104,16 @@ def _check(ell: EllMat, x: torch.Tensor) -> str:
 
 def _launch(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
     idx, data = ell.indices, ell.data
-    if data.device.type != "cuda" or idx.device != data.device or x.device != data.device:
-        raise ValueError(
-            f"ell_spmv kernel needs indices, data and x on one CUDA device, got "
-            f"{idx.device}, {data.device} and {x.device}"
-        )
+    launch.one_card("ell_spmv", "indices, data and x", idx, data, x)
     form = _check(ell, x)
     y = torch.empty(ell.rows, dtype=torch.promote_types(data.dtype, x.dtype), device=data.device)
     if ell.rows == 0:
         return y
     if ell.cols == 0:
         return y.zero_()
-    n_sm = torch.cuda.get_device_properties(data.device).multi_processor_count
-    grid, block = launch_config(ell.rows, ell.width, n_sm)
-    err = _entry(form)(
+    index = data.get_device()
+    grid, block = launch_config(ell.rows, ell.width, launch.sm_count(index))
+    err = launch.entry("ell_spmv", f"sprs_ell_spmv_{form}", _ARGS)(
         idx.data_ptr(),
         data.data_ptr(),
         x.data_ptr(),
@@ -136,11 +124,10 @@ def _launch(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
         group_lanes(ell.width),
         grid,
         block,
-        torch.cuda.current_stream(data.device).cuda_stream,
+        launch.stream(index),
     )
-    if err != 0:
-        raise RuntimeError(f"ell_spmv kernel launch failed: CUDA error {err}")
-    count_launch(ell_spmv_kernel, form)
+    launch.check(err, "ell_spmv kernel")
+    launch.count(ell_spmv_kernel, form)
     return y
 
 
@@ -168,11 +155,15 @@ def ell_vjp(ell: EllMat, x: torch.Tensor, g: torch.Tensor):
 
 class _EllSpmv(torch.autograd.Function):
     @staticmethod
+    def of(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
+        return _EllSpmv.apply(ell.indices, ell.data, x, tuple(ell.shape))
+
+    @staticmethod
     def forward(ctx, indices, data, x, shape):
         ell = EllMat(indices, data, shape)
         ctx.save_for_backward(indices, data, x)
         ctx.shape = shape
-        if all(t.device.type == "cpu" for t in (indices, data, x)):
+        if launch.on_cpu(indices, data, x):
             return ell_spmv_plain(ell, x)
         return _launch(ell, x)
 
@@ -186,15 +177,15 @@ class _EllSpmv(torch.autograd.Function):
 def ell_spmv_kernel(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x through K5; the counterpart of ``ell_spmv_pallas``.
 
-    Tensors on the CPU take :func:`ell_spmv_plain`; tensors on a CUDA
-    device launch the kernel, which raises on what it cannot take.
-    Differentiable in ``ell.data`` and ``x``.  Runs in a ``sprs.k5``
-    profiler span.
+    Runs as ``launch.run`` says: tensors on the CPU take
+    :func:`ell_spmv_plain`; tensors on a CUDA device launch the kernel,
+    which raises on what it cannot take.  Differentiable in ``ell.data``
+    and ``x``.  Runs in a ``sprs.k5`` profiler span.
     """
     with span("sprs.k5"):
         if x.shape != (ell.cols,):
             raise ShapeError(f"ell_spmv: A is {ell.shape}, x is {tuple(x.shape)}")
-        return _EllSpmv.apply(ell.indices, ell.data, x, tuple(ell.shape))
+        return launch.run((ell.indices, ell.data, x), ell_spmv_plain, _EllSpmv.of, _launch, ell, x)
 
 
-zero_counts(ell_spmv_kernel)
+launch.zero(ell_spmv_kernel, FORMS.values())

@@ -1,7 +1,10 @@
 """The operand types that the real products K1 (``dia_spmv``), K2
-(``dia_spmm``), K3/K4 (``bsr_spmm``) and K5 (``ell_spmv``) take on the
-card, and the rule K1's, K2's and K5's plain versions follow for 16-bit
-operands (K3's sums are float32 in every form: ``bsr_spmm.py``).
+(``dia_spmm``), K3/K4 (``bsr_spmm``), K5 (``ell_spmv``) and K7
+(``csr_spmv``) take on the card, and the rule that K1's, K2's and K5's
+plain versions, and the VJPs of K1, K2, K5 and K7, follow for 16-bit
+operands (K3's sums are float32 in every form: ``bsr_spmm.py``).  K8
+(``krylov.py``) takes two of these types, float32 and float64, named by
+:data:`SHORT`.
 
 Every (data, x) pair of float16, bfloat16, float32 and float64 is a form.
 As in the Pallas kernels, the output type is ``promote(data, x)``; K1's,
@@ -12,7 +15,8 @@ do.  Each form
 is one C entry point of the kernel's source, named by its suffix here
 (``<data>_<x>``, or ``<t>`` where both are ``t``); any other pair (a
 complex or an integer operand) raises ``TypeError`` on the card.  Each
-wrapper counts its launches by form in ``launches_<suffix>``.
+wrapper counts its launches by form in ``launches_<suffix>``
+(``launch.count``).
 """
 
 from __future__ import annotations
@@ -40,19 +44,6 @@ def form_of(kernel: str, data: torch.Tensor, x: torch.Tensor) -> str:
             f"{kernel} kernel takes data and x of the types {names}, got {data.dtype} and {x.dtype}"
         )
     return form
-
-
-def count_launch(wrapper, form: str) -> None:
-    wrapper.launches += 1
-    name = f"launches_{form}"
-    setattr(wrapper, name, getattr(wrapper, name) + 1)
-
-
-def zero_counts(wrapper) -> None:
-    """Set ``wrapper.launches`` and each form's count to 0."""
-    wrapper.launches = 0
-    for form in FORMS.values():
-        setattr(wrapper, f"launches_{form}", 0)
 
 
 def widened(

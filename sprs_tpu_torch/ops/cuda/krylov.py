@@ -29,15 +29,13 @@ fused or in the plain loop.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import functools
 
 import torch
 
 from ...errors import ShapeError
-from . import build
-from .dia_spmv import _raw_stream
+from . import forms, launch
+from .launch import I32, I64, PTR
 
 THREADS = 256  # csrc/krylov.cu: kThreads
 UNROLL = 4  # csrc/krylov.cu: kUnroll
@@ -47,7 +45,9 @@ SLOTS = ("rho", "alpha", "omega", "beta", "threshold", "eps", "tiny", "safe", "s
 (RHO, ALPHA, OMEGA, BETA, THRESH, EPS, TINY, SAFE, SOFT, REC, RHO_NEXT, LIED,
  DONE) = range(len(SLOTS))
 WORK_BYTES = 3 * MAX_GRID * 8 + 8  # partial sums, then the last block's counter
-SHORT = {torch.float32: "f32", torch.float64: "f64"}
+SHORT = {t: forms.SHORT[t] for t in (torch.float32, torch.float64)}
+# a pass's argument types by its pointer count: vectors, sc and the scratch
+_ARGS = {n: (PTR,) * n + (I64, I32, PTR) for n in range(4, 10)}
 
 
 @dataclasses.dataclass
@@ -106,7 +106,6 @@ class Work:
     n: int
     grid: int
     form: str
-    stream: int
 
 
 def workspace(b: torch.Tensor, rho, threshold, done, restart_eps: float, tiny) -> Work:
@@ -120,8 +119,7 @@ def workspace(b: torch.Tensor, rho, threshold, done, restart_eps: float, tiny) -
     vals[DONE] = done
     sc = torch.stack([v.to(b.dtype) for v in vals])
     part = torch.zeros(WORK_BYTES, dtype=torch.uint8, device=b.device)
-    stream = _raw_stream()(b.get_device()) if b.is_cuda else 0
-    return Work(sc, part, b.shape[0], grid(b.shape[0]), SHORT[b.dtype], stream)
+    return Work(sc, part, b.shape[0], grid(b.shape[0]), SHORT[b.dtype])
 
 
 def vector(y, like: torch.Tensor, what: str) -> torch.Tensor:
@@ -139,24 +137,13 @@ def vector(y, like: torch.Tensor, what: str) -> torch.Tensor:
     return y.contiguous()
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(name: str, form: str, pointers: int):
-    fn = getattr(build.load("krylov"), f"sprs_k8_{name}_{form}")
-    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _launch(name: str, w: Work, vectors, reduces: bool) -> None:
     """One pass on ``vectors`` (then ``sc``, and the scratch where the
     pass reduces)."""
     ptrs = [v.data_ptr() for v in vectors] + [w.sc.data_ptr()] + ([w.part.data_ptr()] if reduces else [])
-    err = _entry(name, w.form, len(ptrs))(*ptrs, w.n, w.grid, w.stream)
-    if err != 0:
-        raise RuntimeError(f"K8 {name} launch failed: CUDA error {err}")
-    COUNTS.launches += 1
-    by_form = f"launches_{w.form}"
-    setattr(COUNTS, by_form, getattr(COUNTS, by_form) + 1)
+    fn = launch.entry("krylov", f"sprs_k8_{name}_{w.form}", _ARGS[len(ptrs)])
+    launch.check(fn(*ptrs, w.n, w.grid, launch.stream(w.sc.get_device())), "K8 " + name)
+    launch.count(COUNTS, w.form)
 
 
 def rhat_dot_v(rhat, v, w: Work) -> None:

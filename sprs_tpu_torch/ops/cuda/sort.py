@@ -11,7 +11,8 @@ holds what surrounds it:
   same k / j loop), used for tensors on the CPU and as the kernel's
   reference on the card.  Its ``calls`` attribute counts calls;
 * :func:`sort_rows_kernel`, the counterpart of ``sort_rows_pallas``: CPU
-  tensors take the plain version, CUDA tensors launch the kernel or raise.
+  tensors take the plain version, CUDA tensors launch the kernel or raise
+  (``launch.on_cpu``; K6 has no gradient, so no ``torch.autograd.Function``).
   Its ``launches`` attribute counts kernel launches.
 
 Both run the same 28 compare-exchange stages with the JAX package's rule,
@@ -31,14 +32,13 @@ key sorts by its bits as well: after +inf with the sign bit clear, before
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Tuple
 
 import torch
 
 from ...formats.util import round_up
-from . import build
+from . import launch
+from .launch import I32, I64, PTR
 
 LANES = 128
 PER_LANE = 8  # csrc/sort_rows.cu: kPerLane, elements of a row per lane
@@ -48,6 +48,7 @@ BLOCK = 256  # kThreads: 8 warps, 16 rows
 BLOCKS_PER_SM = 4
 
 _ENTRY = {torch.int32: "sprs_sort_rows_i32", torch.float32: "sprs_sort_rows_f32"}
+_ARGS = (PTR, PTR, PTR, PTR, I64, I32, I32, PTR)
 
 
 def launch_config(n_rows: int, n_sm: int) -> Tuple[int, int]:
@@ -131,15 +132,6 @@ def _check_width(keys, vals):
         )
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(dtype: torch.dtype):
-    fn = getattr(build.load("sort_rows"), _ENTRY[dtype])
-    ll, vp, i = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [vp, vp, vp, vp, ll, i, i, vp]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def _check(keys: torch.Tensor, vals: torch.Tensor) -> None:
     """Refuse, before any launch, the types and layouts that the kernel
     does not take (the device is checked by :func:`_launch`)."""
@@ -154,19 +146,15 @@ def _check(keys: torch.Tensor, vals: torch.Tensor) -> None:
 
 
 def _launch(keys: torch.Tensor, vals: torch.Tensor):
-    if keys.device.type != "cuda" or vals.device != keys.device:
-        raise ValueError(
-            f"sort_rows kernel needs keys and vals on one CUDA device, got "
-            f"{keys.device} and {vals.device}"
-        )
+    launch.one_card("sort_rows", "keys and vals", keys, vals)
     _check(keys, vals)
     ks, vs = torch.empty_like(keys), torch.empty_like(vals)
     n_rows = keys.shape[0]
     if n_rows == 0:
         return ks, vs
-    n_sm = torch.cuda.get_device_properties(keys.device).multi_processor_count
-    grid, block = launch_config(n_rows, n_sm)
-    err = _entry(keys.dtype)(
+    index = keys.get_device()
+    grid, block = launch_config(n_rows, launch.sm_count(index))
+    err = launch.entry("sort_rows", _ENTRY[keys.dtype], _ARGS)(
         keys.data_ptr(),
         vals.data_ptr(),
         ks.data_ptr(),
@@ -174,11 +162,10 @@ def _launch(keys: torch.Tensor, vals: torch.Tensor):
         n_rows,
         grid,
         block,
-        torch.cuda.current_stream(keys.device).cuda_stream,
+        launch.stream(index),
     )
-    if err != 0:
-        raise RuntimeError(f"sort_rows kernel launch failed: CUDA error {err}")
-    sort_rows_kernel.launches += 1
+    launch.check(err, "sort_rows kernel")
+    launch.count(sort_rows_kernel)
     return ks, vs
 
 
@@ -195,9 +182,9 @@ def sort_rows_kernel(keys: torch.Tensor, vals: torch.Tensor, *, rows_blk: int = 
     a CUDA device ``rows_blk`` changes nothing.
     """
     _check_width(keys, vals)
-    if keys.device.type == "cpu" and vals.device.type == "cpu":
+    if launch.on_cpu(keys, vals):
         return sort_rows_plain(keys, vals, rows_blk=rows_blk)
     return _launch(keys, vals)
 
 
-sort_rows_kernel.launches = 0
+launch.zero(sort_rows_kernel)

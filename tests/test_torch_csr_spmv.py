@@ -143,6 +143,32 @@ def test_vjp_matches_torch_autograd_of_plain(dtype):
     assert torch.all(ddata[int(mat.indptr[-1]):] == 0)
 
 
+@pytest.mark.parametrize("data_dtype, x_dtype", [
+    (torch.float64, torch.float64), (torch.float32, torch.float32), (torch.float64, torch.float32),
+])
+def test_cpu_product_needing_a_gradient_runs_the_function(data_dtype, x_dtype):
+    """On CPU tensors that need a gradient the wrapper runs ``_CsrSpmv``, as
+    on the card: its output is the plain product's bit for bit, and its
+    gradients (``csr_vjp``) match torch's autograd through the plain
+    product."""
+    mat = csmat_of(csr_arrays(lengths_power_law(200, 14, hub=300, tile=64), 150, 15, pad=9),
+                   (200, 150), dtype=data_dtype)
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.standard_normal(150)).to(x_dtype)
+    g = torch.from_numpy(rng.standard_normal(200)).to(torch.promote_types(data_dtype, x_dtype))
+    data, xr = mat.data.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    y = csr_spmv_kernel(mat.with_data(data), xr)
+    assert type(y.grad_fn).__name__ == "_CsrSpmvBackward"
+    assert torch.equal(y.detach(), csr_spmv_plain(mat, x))
+    y.backward(g)
+    want_data, want_x = mat.data.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    csr_spmv_plain(mat.with_data(want_data), want_x).backward(g)
+    wide = data_dtype == x_dtype == torch.float64
+    tol = {"rtol": 1e-12, "atol": 1e-12} if wide else {"rtol": 1e-5, "atol": 1e-5}
+    torch.testing.assert_close(data.grad, want_data.grad, **tol)
+    torch.testing.assert_close(xr.grad, want_x.grad, **tol)
+
+
 # ---------------------------------------------------------------------------
 # the grid and the source's constants
 # ---------------------------------------------------------------------------
