@@ -629,12 +629,15 @@ def k5_call(lib, ell, x, layout, blocks_per_sm):
     fn = entry(lib, "ell_spmv", ell.data, x)
     g = k5.group_lanes(ell.width) if layout == "group" else 1
     lanes = [] if layout == "baseline" else [g]
-    fn.argtypes = [VP, VP, VP, VP, LL, LL, I] + [I] * len(lanes) + [I, I, VP]
+    # the committed source (layout "group") takes a renumbered operand's
+    # order after y: null here, the operand as given
+    order = [None] if layout == "group" else []
+    fn.argtypes = [VP] * (4 + len(order)) + [LL, LL, I] + [I] * len(lanes) + [I, I, VP]
     y = torch.empty(ell.rows, dtype=out_dtype(ell.data, x), device=x.device)
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     grid = min(-(-ell.rows // (256 // g)), n_sm * blocks_per_sm)
-    err = fn(ell.indices.data_ptr(), ell.data.data_ptr(), x.data_ptr(), y.data_ptr(), ell.rows,
-             ell.cols, ell.width, *lanes, grid, 256, torch.cuda.current_stream().cuda_stream)
+    err = fn(ell.indices.data_ptr(), ell.data.data_ptr(), x.data_ptr(), y.data_ptr(), *order,
+             ell.rows, ell.cols, ell.width, *lanes, grid, 256, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"launch failed: {err}")
     return y

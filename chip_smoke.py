@@ -103,7 +103,11 @@ and prints no result):
    at the first of those; K5
    at the 1024² mesh step (float64, its main path) and "random8"
    (n = 2,097,152, 8 uniform slots per row, float32), with the L2 sectors
-   its gathers read; K6 at 43,750 × 128 (int32 and float32 keys); SpGEMM
+   its gathers read, and on HPCG's 27-point stencil at 128³ (float64)
+   under a random numbering, as given and renumbered by the Cuthill–McKee
+   levels of ``ops/renumber.py`` (its gather pass and scattering store;
+   y bit-equal, one launch counted a product, the renumbered one in
+   ``launches_renumbered``); K6 at 43,750 × 128 (int32 and float32 keys); SpGEMM
    (not a kernel) at the JAX bench's three points; the bfloat16 forms of
    K1 at the 4096² grid, K2 at the 2048×1024 grid with 128 RHS and K5 at
    random8, each beside its bytes bound and ``torch.mv`` / ``torch.sparse.mm``
@@ -142,9 +146,17 @@ and prints no result):
       vertex triangle mesh with permuted labels, assembled on the card
       (``tri_mesh_graph_laplacian``, ``eye``, ``+``, ``*``) and held
       against scipy, routed by ``prepare_spmv`` to ELL, solved by CG
-      through K5 (iters+2 launches, the plain version's calls 0), held
-      against the same CG over the plain version, then a profiler
-      window;
+      through K5 (iters+2 launches, the plain version's calls 0; x of
+      8 MB sits in the L2, so ``prepare_spmv`` does not renumber it and
+      no product takes the renumbered path), held against the same CG
+      over the plain version, then a profiler window; then the ELL arm's
+      renumbering through ``prepare_spmv`` where x outgrows the L2
+      (float64): HPCG's 27-point stencil at 224³ under a random numbering
+      comes back renumbered, K5 on it bit-equal to K5 on the operand as
+      given and within 1e-12 of max|y| of the plain version (launches /
+      renumbered / plain calls (2, 1, 0)), and a random graph of 8 slots
+      a row at 2**24 rows is ordered and the ordering dropped; both with
+      ``prepare_spmv``'s time beside ``ell_from_csmat``'s;
    e. K6 through its own entry point on 43,750 rows of 128;
    f. the SpGEMM path: L = kron(I, T) + kron(T, I) at side 1024 (equal to
       ``dirichlet_laplacian``), the biharmonic step A = I + L @ L through
@@ -336,6 +348,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
+import itertools
 import json
 import math
 import os
@@ -415,6 +428,7 @@ from sprs_tpu_torch.ops.cuda.dia_spmv import (
 from sprs_tpu_torch.ops.cuda.ell_spmv import ell_spmv_kernel, ell_spmv_plain
 from sprs_tpu_torch.ops.cuda.forms import FORMS
 from sprs_tpu_torch.ops.cuda.sort import sort_rows_kernel, sort_rows_plain
+from sprs_tpu_torch.ops.renumber import cuthill_mckee_levels, inverse, mean_gather
 from sprs_tpu_torch.ops.spgemm import (
     _exact_prod_count,
     _expand_products,
@@ -496,6 +510,17 @@ MESH_SMALL_SIDE = 16
 # 8 uniform column draws per row, duplicates summed.
 RANDOM8_N = 2**21
 RANDOM8_SLOTS = 8
+# K5 on a renumbered operand: HPCG's 27-point stencil on a side³ grid
+# under a random numbering (x of 16.8 MB in f64).
+RENUMBER_SIDE = 128
+# The ELL arm's rule through prepare_spmv on the card, float64: the
+# randomly numbered stencil at this side³ (x of 90 MB; its mean gather of
+# about n/3 entries, doubled, is 60 MB, past the 50 MiB L2, so the rule
+# orders it; at 192³ it would be 38 MB and the rule would not), and a
+# random graph of 8 slots a row at 2**24 rows, which the rule orders and
+# drops.
+RENUMBER_MAIN_SIDE = 224
+RANDOM_FAR_N = 2**24
 # The row count of the JAX sort kernel's TPU measurement (5.6M elements).
 SORT_ROWS = 43750
 # SpGEMM at the JAX bench's points (benches/spgemm_bench.py), on its own
@@ -1894,6 +1919,121 @@ def phase_timing_unstructured(mesh_a, random8):
     return rows
 
 
+def stencil27_random(side, seed):
+    """HPCG's 27-point operator (26 on the diagonal, -1 per in-grid
+    neighbour) on a side³ grid as CSR on the card, its unknowns numbered
+    in the order ``default_rng(seed)`` draws."""
+    n = side**3
+    idx = torch.arange(n, device=DEVICE)
+    ix, iy, iz = idx % side, (idx // side) % side, idx // (side * side)
+    rows, cols = [], []
+    for dz, dy, dx in itertools.product((-1, 0, 1), repeat=3):
+        ok = ((ix + dx >= 0) & (ix + dx < side) & (iy + dy >= 0) & (iy + dy < side)
+              & (iz + dz >= 0) & (iz + dz < side))
+        rows.append(idx[ok])
+        cols.append(idx[ok] + (dz * side + dy) * side + dx)
+    rows, cols = torch.cat(rows), torch.cat(cols)
+    vals = torch.where(rows == cols, 26.0, -1.0).to(torch.float64)
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(n)).to(DEVICE)
+    return coo_to_csmat(perm[rows].to(torch.int32), perm[cols].to(torch.int32), vals, (n, n),
+                        device=DEVICE)
+
+
+def phase_renumbered():
+    """K5 on a renumbered operand: the randomly numbered 27-point stencil
+    at RENUMBER_SIDE³ as given and renumbered by its Cuthill–McKee levels
+    (built here, whatever the L2 rule of ``prepare_spmv`` says at this
+    size).  Gates y bit-equal, the launches (one a product,
+    ``launches_renumbered`` one) and the plain version's calls (0), and
+    returns the two timing rows, the renumbered one's ``device_ms``
+    holding the gather pass and K5."""
+    side = RENUMBER_SIDE
+    mat = stencil27_random(side, 98)
+    sync()
+    t0 = time.perf_counter()
+    order = cuthill_mckee_levels(mat)
+    sync()
+    order_s = time.perf_counter() - t0
+    plain, ren = ell_from_csmat(mat), ell_from_csmat(mat, order=order.to(torch.int32))
+    gather = [mean_gather(mat) * 8, mean_gather(mat, inverse(order)) * 8]
+    x = rhs_block(mat.cols, 1, torch.float64, 99)[:, 0].contiguous()
+    reset_counts()
+    y, y_ren = ell_spmv_kernel(plain, x), ell_spmv_kernel(ren, x)
+    sync()
+    counts = (ell_spmv_kernel.launches, ell_spmv_kernel.launches_renumbered, ell_spmv_plain.calls)
+    equal = bits_equal(y, y_ren)
+    log(f"K5 renumbered {side}^3 stencil float64: ordering {order_s!r} s, mean gather bytes "
+        f"{gather[0]!r} -> {gather[1]!r}, y bit-equal {equal}, launches / renumbered / plain calls "
+        f"{counts} (expected (2, 1, 0))")
+    if not equal or counts != (2, 1, 0):
+        raise AssertionError(f"K5 renumbered: bit-equal {equal}, counts {counts}")
+    label = f"{side}^3 27-point stencil float64, random numbering"
+    rows = [timing_ell(label, mat, plain, x, reps=50),
+            timing_ell(f"{label}, renumbered", mat, ren, x, reps=50)]
+    gather_ms = device_ms(lambda: ell_spmv_kernel(ren, x), "ell_gather", 50)
+    rows[1]["gather_device_ms"] = gather_ms
+    rows[1]["device_ms"] += gather_ms
+    log(f"timing K5 renumbered: gather pass {gather_ms!r} ms, K5 and gather {rows[1]['device_ms']!r} "
+        f"ms [device] against {rows[0]['device_ms']!r} as given")
+    return rows
+
+
+def phase_main_renumbered():
+    """The ELL arm's renumbering through ``prepare_spmv`` where x outgrows
+    the L2.  The randomly numbered stencil at RENUMBER_MAIN_SIDE³ comes
+    back renumbered, its K5 product bit-equal to K5 on the operand as
+    given and within 1e-12 of max|y| of the plain version, with one launch
+    a product, the renumbered one counted, no plain call.  The random
+    graph at RANDOM_FAR_N rows, whose ordering cannot bring its gathers
+    near, comes back as given.  Returns the set-up times of both, against
+    ``ell_from_csmat`` alone."""
+    out = {}
+    rng = np.random.default_rng(100)
+    rows = torch.arange(RANDOM_FAR_N, device=DEVICE).repeat_interleave(RANDOM8_SLOTS)
+    cols = torch.from_numpy(rng.integers(0, RANDOM_FAR_N, rows.numel())).to(DEVICE)
+    vals = torch.from_numpy(rng.random(rows.numel())).to(DEVICE)
+    cases = (("stencil", stencil27_random(RENUMBER_MAIN_SIDE, 101), True),
+             ("random8", coo_to_csmat(rows.to(torch.int32), cols.to(torch.int32), vals,
+                                      (RANDOM_FAR_N,) * 2, device=DEVICE), False))
+    del rows, cols, vals
+    for label, mat, renumbers in cases:
+        sync()
+        t0 = time.perf_counter()
+        fn, prepared = prepare_spmv(mat)
+        sync()
+        prepare_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = ell_from_csmat(mat)
+        sync()
+        ell_s = time.perf_counter() - t0
+        gather = mean_gather(mat.to_csr()) * 8
+        if prepared.renumbered:
+            gather = [gather, mean_gather(mat.to_csr(), inverse(prepared.order)) * 8]
+        out[label] = {"n": mat.rows, "nnz": mat.nnz, "renumbered": prepared.renumbered,
+                      "prepare_spmv_s": prepare_s, "ell_from_csmat_s": ell_s, "mean_gather_bytes": gather}
+        log(f"prepare_spmv {label} n={mat.rows} float64: renumbered {prepared.renumbered}, "
+            f"{prepare_s!r} s against ell_from_csmat {ell_s!r} s, mean gather bytes {gather}")
+        if ROUTE_OF[type(prepared).__name__] != "ell" or prepared.renumbered != renumbers:
+            raise AssertionError(f"prepare_spmv {label}: route {type(prepared).__name__}, "
+                                 f"renumbered {getattr(prepared, 'renumbered', None)}, expected {renumbers}")
+        if not renumbers:
+            continue
+        x = rhs_block(mat.cols, 1, torch.float64, 102)[:, 0].contiguous()
+        reset_counts()
+        y_ren, y = fn(prepared, x), ell_spmv_kernel(plain, x)
+        sync()
+        counts = (ell_spmv_kernel.launches, ell_spmv_kernel.launches_renumbered, ell_spmv_plain.calls)
+        ref = ell_spmv_plain(plain, x)
+        err = float((y_ren - ref).abs().max()) / float(ref.abs().max())
+        equal = bits_equal(y_ren, y)
+        out[label].update(bit_equal=equal, plain_rel_err=err, counts=counts)
+        log(f"K5 via prepare_spmv {label}: bit-equal to K5 as given {equal}, against the plain version "
+            f"{err!r} of max|y|, launches / renumbered / plain calls {counts} (expected (2, 1, 0))")
+        if not equal or err > 1e-12 or counts != (2, 1, 0):
+            raise AssertionError(f"K5 via prepare_spmv {label}: bit-equal {equal}, err {err}, counts {counts}")
+    return out
+
+
 ROUTE_OF = {"DiaTiledMat": "dia", "EllMat": "ell", "CsMat": "csr"}
 
 
@@ -1913,8 +2053,10 @@ def phase_main_mesh():
     setup["prepare_spmv_s"] = time.perf_counter() - t0
     route = ROUTE_OF[type(prepared).__name__]
     log(f"mesh {MESH_SIDE}^2 set-up {json.dumps(setup)}: route {route}, width {getattr(prepared, 'width', None)}")
-    if route != "ell" or prepared.width != 7:
-        raise AssertionError(f"mesh step routed to {route}, expected ell of width 7")
+    if route != "ell" or prepared.width != 7 or prepared.renumbered:
+        raise AssertionError(f"mesh step routed to {route}, width {getattr(prepared, 'width', None)}, "
+                             f"renumbered {getattr(prepared, 'renumbered', None)}: expected ell of width 7 "
+                             "in the caller's order")
     b = torch.zeros(n, dtype=torch.float64, device=DEVICE)
     b[centre] = 1.0
 
@@ -1924,6 +2066,8 @@ def phase_main_mesh():
     sync()
     wall = time.perf_counter() - t0
     launches, plain_calls = ell_spmv_kernel.launches, ell_spmv_plain.calls
+    if ell_spmv_kernel.launches_renumbered:
+        raise AssertionError(f"cg mesh: {ell_spmv_kernel.launches_renumbered} renumbered K5 products")
 
     true_res = float(torch.linalg.vector_norm(b - ell_spmv_plain(prepared, res.x)))
     ref = cg(lambda v: ell_spmv_plain(prepared, v), b, tol=SOLVE_TOL, max_iter=MAX_ITER)
@@ -3647,6 +3791,8 @@ def phase_main_biharmonic():
     route = ROUTE_OF[type(prepared).__name__]
     if route != "ell" or prepared.width != 13:
         raise AssertionError(f"biharmonic P·A·Pᵀ routed to {route}, width {getattr(prepared, 'width', None)}")
+    log(f"biharmonic P·A·Pᵀ: prepare_spmv renumbered {prepared.renumbered}, mean gather bytes "
+        f"{mean_gather(ap.to_csr()) * ap.dtype.itemsize!r}")
     if ROUTE_OF[type(prepare_spmv(a)[1]).__name__] != "dia":
         raise AssertionError("biharmonic A does not route to dia")
     sync()
@@ -3661,6 +3807,9 @@ def phase_main_biharmonic():
         sync()
         wall = time.perf_counter() - t0
         launches, plain_calls = kernel.launches, plain.calls
+        renumbered = ell_spmv_kernel.launches_renumbered
+        if renumbered != (launches if kernel is ell_spmv_kernel and prepared.renumbered else 0):
+            raise AssertionError(f"gmres biharmonic {label}: {renumbered} renumbered K5 products")
         # the same solve over an operator prepared beforehand: the loop's
         # own time, without the host routing that gmres(mat) runs first
         mv, op = prepare_spmv(mat)
@@ -4890,6 +5039,7 @@ def main() -> int:
     log(f"setup: {MESH_SIDE}^2 mesh step and random8 in {time.perf_counter() - t0:.3f} s")
     errs.update(phase_gate_unstructured(mesh_a, random8))
     timing.update(phase_timing_unstructured(mesh_a, random8))
+    timing["ell_spmv"]["other_shapes"] += phase_renumbered()
     phase_gate_bf16(lap_spmv, mesh_a, random8)
     phase_gate_forms(random8)
     phase_gate_k2_tma()
@@ -4911,6 +5061,7 @@ def main() -> int:
     launches.update(phase_main_block())
     launches.update(phase_main_bsr())
     launches["ell_spmv"], mesh = phase_main_mesh()
+    renumbered_row = phase_main_renumbered()
     launches["sort_rows"] = phase_main_sort()
     form_launches, bf16_row = phase_main_bf16(mesh, lap_spmv, random8)
     bf16_row["card"] = smi
@@ -5000,7 +5151,8 @@ def main() -> int:
         if "other_shapes" in row:
             kernels[-1]["other_shapes"] = [
                 {key: other[key] for key in ("shape", "ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
-                                             "host_ms", "per_call_ms", "per_call_device_ms") if key in other}
+                                             "host_ms", "per_call_ms", "per_call_device_ms",
+                                             "gather_device_ms") if key in other}
                 for other in row["other_shapes"]
             ]
         for key in ("host_ms", "per_call_ms", "per_call_device_ms", "per_call_host_ms"):
@@ -5025,6 +5177,7 @@ def main() -> int:
     print(json.dumps({"forms_solvers": forms_row}))
     print(json.dumps({"bsr_forms": bsr_forms_row}))
     print(json.dumps({"determinism": determinism, "card": smi}))
+    print(json.dumps({"renumbered": renumbered_row, "card": smi}))
     for bench, record in bench_records.items():
         print(json.dumps({"bench": bench, "record": record, "card": smi}))
     print(json.dumps({"benches": benches_row, "card": smi}))

@@ -47,6 +47,25 @@
 //   width as a template parameter, measured no faster
 //   (benches/torch_kernel_variants.py).
 // Index math is 64-bit: rows * width overflows int32 above 2^31 slots.
+//
+// A renumbered operand (order non-null: ops/renumber.py, EllMat.order) is
+// a square operator whose gathers of x outgrew the L2, stored by
+// Cuthill-McKee levels: stored row r is the caller's row order[r], its
+// slots in their order.  A product is two passes: ell_gather_kernel
+// copies x' = x[order], then K5 runs over the stored rows and x', its
+// store writing y[order[r]].  Each row sums as before, so y is bit-equal
+// to K5 on the operator as given.  The rows in flight now read x' from a
+// window of about three levels, so a gather is an L2 hit where it was a
+// random sector from device memory.  HPCG's 27-point stencil at 256^3 in
+// f64 under a random numbering (mean gather distance 43.1 MB of x, 0.62
+// MB renumbered), on an H100 80GB HBM3 at 700 W: K5 15.72 ms as given;
+// renumbered, the gather 0.53 ms and K5 3.91 ms, 4.45 ms a product
+// against the 1.710 ms bound of its 5.73 GB (38 %).  What bounds it now:
+// the 5.4 GB of indices and data streamed (1.61 ms at 3.35 TB/s), the L2
+// sectors of x' (one 32-byte sector a slot) and the scattered store (K5 with
+// its store in stored order: 3.43 ms).  Rows given to blocks or groups in
+// contiguous chunks, and x' loaded past L1 (__ldcg), were no faster with
+// the scattered store (4.26-4.29 and 3.95 ms).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -57,6 +76,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kGatherUnroll = 4;
 
 // A stored type to and from its accumulator; bf16 and f16 by the
 // intrinsics, whose rounding (to nearest even) is that of torch's and
@@ -92,8 +112,9 @@ __device__ __forceinline__ Acc mul(Acc a, Acc b) {
 template <typename TD, typename TX, typename TY, typename Acc, int G>
 __global__ void __launch_bounds__(kThreads)
 ell_spmv_kernel(const int* __restrict__ indices, const TD* __restrict__ data,
-                const TX* __restrict__ x, TY* __restrict__ y, long long rows,
-                long long cols, int width) {
+                const TX* __restrict__ x, TY* __restrict__ y,
+                const int* __restrict__ order, long long rows, long long cols,
+                int width) {
   const int lane = threadIdx.x & 31;
   const int g = lane & (G - 1);
   // the lanes of this group: every shuffle below stays inside it, and all
@@ -117,29 +138,77 @@ ell_spmv_kernel(const int* __restrict__ indices, const TD* __restrict__ data,
 #pragma unroll
     for (int off = G / 2; off > 0; off >>= 1)
       acc += __shfl_xor_sync(mask, acc, off);
-    if (g == 0) y[r] = Cvt<TY>::out(acc);
+    if (g == 0) {
+      // a renumbered operand: stored row r is the caller's row order[r]
+      long long out = r;
+      if (order != nullptr) {
+        out = __ldg(&order[r]);
+        out = out < 0 ? 0 : (out >= rows ? rows - 1 : out);
+      }
+      y[out] = Cvt<TY>::out(acc);
+    }
+  }
+}
+
+// The gather pass of a renumbered operand: xs[i] = x[order[i]], a copy of
+// W-byte words (x's type moved bit for bit).  Each thread keeps
+// kGatherUnroll reads of x in flight; order's reads and xs's writes are
+// coalesced, x's are the scattered ones.  An order entry outside [0, n)
+// is clamped into range, as K5 clamps its indices.
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+ell_gather_kernel(const int* __restrict__ order, const W* __restrict__ x,
+                  W* __restrict__ xs, long long n) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i0 = (long long)blockIdx.x * blockDim.x + threadIdx.x; i0 < n;
+       i0 += kGatherUnroll * stride) {
+    long long c[kGatherUnroll];
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u) {
+      const long long i = i0 + u * stride;
+      long long v = i < n ? __ldg(&order[i]) : 0;
+      c[u] = v < 0 ? 0 : (v >= n ? n - 1 : v);
+    }
+    W w[kGatherUnroll];
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u)
+      if (i0 + u * stride < n) w[u] = __ldg(&x[c[u]]);
+#pragma unroll
+    for (int u = 0; u < kGatherUnroll; ++u)
+      if (i0 + u * stride < n) xs[i0 + u * stride] = w[u];
   }
 }
 
 template <typename TD, typename TX, typename TY, typename Acc>
 int launch(const void* indices, const void* data, const void* x, void* y,
-           long long rows, long long cols, int width, int lanes, int grid,
-           int block, void* stream) {
-  if (width < 0 || cols < 1 || block != kThreads) return (int)cudaErrorInvalidValue;
+           const void* order, long long rows, long long cols, int width,
+           int lanes, int grid, int block, void* stream) {
+  if (width < 0 || cols < 1 || block != kThreads || (order != nullptr && rows != cols))
+    return (int)cudaErrorInvalidValue;
   auto* s = (cudaStream_t)stream;
   const int* i = (const int*)indices;
   const TD* d = (const TD*)data;
   const TX* v = (const TX*)x;
   TY* out = (TY*)y;
+  const int* o = (const int*)order;
 #define ELL_CASE(G)                                                                       \
   case G:                                                                                 \
-    ell_spmv_kernel<TD, TX, TY, Acc, G><<<grid, block, 0, s>>>(i, d, v, out, rows, cols, width); \
+    ell_spmv_kernel<TD, TX, TY, Acc, G><<<grid, block, 0, s>>>(i, d, v, out, o, rows, cols, width); \
     break;
   switch (lanes) {
     ELL_CASE(1) ELL_CASE(2) ELL_CASE(4) ELL_CASE(8) ELL_CASE(16) ELL_CASE(32)
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ELL_CASE
+  return (int)cudaGetLastError();
+}
+
+template <typename W>
+int gather(const void* order, const void* x, void* xs, long long n, int grid, int block,
+           void* stream) {
+  if (n < 0 || block != kThreads) return (int)cudaErrorInvalidValue;
+  ell_gather_kernel<W><<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const int*)order, (const W*)x, (W*)xs, n);
   return (int)cudaGetLastError();
 }
 
@@ -150,14 +219,30 @@ int launch(const void* indices, const void* data, const void* x, void* y,
 // (ops/cuda/forms.py::FORMS).  `lanes` is G, a power of two up to 32,
 // which the wrapper chooses (ops/cuda/ell_spmv.py::group_lanes) and sizes
 // the grid by; any such G computes the product.  `block` must be 256
-// (kThreads).  Returns cudaGetLastError() after the launch (0 on success).
+// (kThreads).  `order` is null, or a renumbered square operand's int32
+// order: row r's sum is then stored at y[order[r]].  Returns
+// cudaGetLastError() after the launch (0 on success).
 #define SPRS_ELL_SPMV_ENTRY(NAME, TD, TX, TY, ACC)                              \
   extern "C" int NAME(const void* indices, const void* data, const void* x,     \
-                      void* y, long long rows, long long cols, int width,       \
-                      int lanes, int grid, int block, void* stream) {           \
-    return launch<TD, TX, TY, ACC>(indices, data, x, y, rows, cols, width,      \
-                                   lanes, grid, block, stream);                 \
+                      void* y, const void* order, long long rows,               \
+                      long long cols, int width, int lanes, int grid,           \
+                      int block, void* stream) {                                \
+    return launch<TD, TX, TY, ACC>(indices, data, x, y, order, rows, cols,      \
+                                   width, lanes, grid, block, stream);          \
   }
+
+// The gather pass, one entry per width of x's type in bytes:
+// sprs_ell_gather_b2 (f16, bf16), _b4 (f32), _b8 (f64).  `block` must be
+// 256; the wrapper sizes the grid (ops/cuda/ell_spmv.py::gather_config).
+#define SPRS_ELL_GATHER_ENTRY(NAME, W)                                          \
+  extern "C" int NAME(const void* order, const void* x, void* xs, long long n,  \
+                      int grid, int block, void* stream) {                      \
+    return gather<W>(order, x, xs, n, grid, block, stream);                     \
+  }
+
+SPRS_ELL_GATHER_ENTRY(sprs_ell_gather_b2, unsigned short)
+SPRS_ELL_GATHER_ENTRY(sprs_ell_gather_b4, unsigned int)
+SPRS_ELL_GATHER_ENTRY(sprs_ell_gather_b8, unsigned long long)
 
 #define F16 __half
 #define BF16 __nv_bfloat16

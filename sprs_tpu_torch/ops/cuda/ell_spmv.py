@@ -20,6 +20,13 @@ This module holds what surrounds it, as ``dia_spmv.py`` does for K1:
   ``launches_<form>`` those of each form.  Every x takes the kernel: the
   JAX package's escapes to XLA (x above 48 MB of VMEM, a backend that
   cannot lower the gather) are TPU limits with no counterpart here.
+
+A renumbered operand (``EllMat.order``: ``ops/renumber.py``) runs two
+hand-written passes inside one product: the gather x' = x[order] into
+scratch, then K5 over the stored rows and x', whose store writes
+y[order[r]].  Each row sums as it does unrenumbered, so y is bit-equal
+to K5's on the operator as given.  ``launches`` still counts one per
+product; ``launches_renumbered`` counts the products that took this path.
 """
 
 from __future__ import annotations
@@ -30,13 +37,14 @@ import torch
 
 from ..._span import span
 from ...errors import ShapeError
-from ...formats.ell import EllMat, ell_spmv
+from ...formats.ell import EllMat, ell_spmv, in_stored_order
 from ...formats.util import index_sum_
 from . import launch
 from .forms import FORMS, form_of, widened
 from .launch import I32, I64, PTR
 
 BLOCK = 256  # csrc/ell_spmv.cu: kThreads
+GATHER_UNROLL = 4  # csrc/ell_spmv.cu: kGatherUnroll
 # Resident 256-thread blocks per SM at full occupancy (2048 threads).
 BLOCKS_PER_SM = 8
 
@@ -64,7 +72,8 @@ def ell_spmv_plain(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
     """The plain torch K5: one gather and a row sum, pad slots included
     (``formats/ell.py::ell_spmv``); where an operand is 16-bit, each
     product taken in ``prod`` and the slots added in slot order in
-    ``promote(out, float32)``, rounded once (``forms.widened``)."""
+    ``promote(out, float32)``, rounded once (``forms.widened``).  On a
+    renumbered operand y[order] = plain(A', x[order]), as K5 computes it."""
     ell_spmv_plain.calls += 1
     wide = widened(ell.data, x)
     if wide is None:
@@ -72,24 +81,38 @@ def ell_spmv_plain(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
     if x.shape != (ell.cols,):
         raise ShapeError(f"ell_spmv: A is {ell.shape}, x is {tuple(x.shape)}")
     out, acc, prod = wide
-    data, xs, idx = ell.data.to(prod), x.to(prod), ell.indices.to(torch.int64)
-    y = torch.zeros(ell.rows_pad, dtype=acc, device=x.device)
-    for s in range(ell.width):
-        y = y + (data[:, s] * xs[idx[:, s]]).to(acc)
-    return y[: ell.rows].to(out)
+    data, idx = ell.data.to(prod), ell.indices.to(torch.int64)
+
+    def rows(v):
+        v = v.to(prod)
+        y = torch.zeros(ell.rows_pad, dtype=acc, device=x.device)
+        for s in range(ell.width):
+            y = y + (data[:, s] * v[idx[:, s]]).to(acc)
+        return y[: ell.rows].to(out)
+
+    return in_stored_order(ell, x, rows)
 
 
 ell_spmv_plain.calls = 0
 
 
-_ARGS = (PTR, PTR, PTR, PTR, I64, I64, I32, I32, I32, I32, PTR)
+def gather_config(n: int, n_sm: int) -> Tuple[int, int]:
+    """(grid, block) of the gather pass over ``n`` entries: GATHER_UNROLL
+    entries a thread in flight, at most one full wave of resident
+    blocks; its grid-stride loop covers the rest."""
+    blocks = -(-n // (BLOCK * GATHER_UNROLL))
+    return max(1, min(blocks, n_sm * BLOCKS_PER_SM)), BLOCK
+
+
+_ARGS = (PTR, PTR, PTR, PTR, PTR, I64, I64, I32, I32, I32, I32, PTR)
+_GATHER_ARGS = (PTR, PTR, PTR, I64, I32, I32, PTR)
 
 
 def _check(ell: EllMat, x: torch.Tensor) -> str:
     """Refuse, before any launch, the types, shapes and layouts that the
     kernel does not take (the device is checked by :func:`_launch`);
     return the type form."""
-    idx, data = ell.indices, ell.data
+    idx, data, order = ell.indices, ell.data, ell.order
     form = form_of("ell_spmv", data, x)
     if idx.dtype != torch.int32:
         raise TypeError(f"ell_spmv kernel takes int32 indices, got {idx.dtype}")
@@ -99,12 +122,19 @@ def _check(ell: EllMat, x: torch.Tensor) -> str:
         )
     if not (idx.is_contiguous() and data.is_contiguous() and x.is_contiguous()):
         raise ValueError("ell_spmv kernel needs contiguous indices, data and x")
+    if order is not None:
+        if order.dtype != torch.int32 or not order.is_contiguous():
+            raise TypeError(f"ell_spmv kernel takes a contiguous int32 order, got {order.dtype}")
+        if ell.rows != ell.cols or tuple(order.shape) != (ell.rows,):
+            raise ShapeError(f"ell_spmv: order of {tuple(order.shape)} for {ell.shape}")
     return form
 
 
 def _launch(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
-    idx, data = ell.indices, ell.data
+    idx, data, order = ell.indices, ell.data, ell.order
     launch.one_card("ell_spmv", "indices, data and x", idx, data, x)
+    if order is not None:
+        launch.one_card("ell_spmv", "the order and x", order, x)
     form = _check(ell, x)
     y = torch.empty(ell.rows, dtype=torch.promote_types(data.dtype, x.dtype), device=data.device)
     if ell.rows == 0:
@@ -112,22 +142,35 @@ def _launch(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
     if ell.cols == 0:
         return y.zero_()
     index = data.get_device()
-    grid, block = launch_config(ell.rows, ell.width, launch.sm_count(index))
+    n_sm, stream = launch.sm_count(index), launch.stream(index)
+    if order is not None:
+        xs = torch.empty_like(x)
+        err = launch.entry("ell_spmv", f"sprs_ell_gather_b{x.element_size()}", _GATHER_ARGS)(
+            order.data_ptr(), x.data_ptr(), xs.data_ptr(), ell.cols,
+            *gather_config(ell.cols, n_sm), stream,
+        )
+        launch.check(err, "ell_spmv gather")
+        x = xs
+    grid, block = launch_config(ell.rows, ell.width, n_sm)
     err = launch.entry("ell_spmv", f"sprs_ell_spmv_{form}", _ARGS)(
         idx.data_ptr(),
         data.data_ptr(),
         x.data_ptr(),
         y.data_ptr(),
+        None if order is None else order.data_ptr(),
         ell.rows,
         ell.cols,
         ell.width,
         group_lanes(ell.width),
         grid,
         block,
-        launch.stream(index),
+        stream,
     )
     launch.check(err, "ell_spmv kernel")
-    launch.count(ell_spmv_kernel, form)
+    if order is None:
+        launch.count(ell_spmv_kernel, form)
+    else:
+        launch.count(ell_spmv_kernel, form, "renumbered")
     return y
 
 
@@ -137,7 +180,15 @@ def ell_vjp(ell: EllMat, x: torch.Tensor, g: torch.Tensor):
     data[r, j]·g[r] (the transpose product in scatter form), pad rows
     taking g = 0, each in its input's type.  The plain torch form of the
     JAX package's ``_bwd``; where an operand is 16-bit it takes products
-    and sums as the forward does (``forms.widened``) and rounds once."""
+    and sums as the forward does (``forms.widened``) and rounds once.  On
+    a renumbered operand ddata is in the stored layout, dx in the
+    caller's order."""
+    if ell.renumbered:
+        order = ell.order.long()
+        ddata, dxs = ell_vjp(EllMat(ell.indices, ell.data, ell.shape), x[order], g[order])
+        dx = torch.empty_like(dxs)
+        dx[order] = dxs
+        return ddata, dx
     wide = widened(ell.data, x)
     if wide is None:
         acc = prod = torch.promote_types(ell.dtype, g.dtype)
@@ -156,12 +207,12 @@ def ell_vjp(ell: EllMat, x: torch.Tensor, g: torch.Tensor):
 class _EllSpmv(torch.autograd.Function):
     @staticmethod
     def of(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
-        return _EllSpmv.apply(ell.indices, ell.data, x, tuple(ell.shape))
+        return _EllSpmv.apply(ell.indices, ell.data, x, tuple(ell.shape), ell.order)
 
     @staticmethod
-    def forward(ctx, indices, data, x, shape):
-        ell = EllMat(indices, data, shape)
-        ctx.save_for_backward(indices, data, x)
+    def forward(ctx, indices, data, x, shape, order):
+        ell = EllMat(indices, data, shape, order)
+        ctx.save_for_backward(indices, data, x, order)
         ctx.shape = shape
         if launch.on_cpu(indices, data, x):
             return ell_spmv_plain(ell, x)
@@ -169,9 +220,9 @@ class _EllSpmv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        indices, data, x = ctx.saved_tensors
-        ddata, dx = ell_vjp(EllMat(indices, data, ctx.shape), x, g)
-        return None, ddata, dx, None
+        indices, data, x, order = ctx.saved_tensors
+        ddata, dx = ell_vjp(EllMat(indices, data, ctx.shape, order), x, g)
+        return None, ddata, dx, None, None
 
 
 def ell_spmv_kernel(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
@@ -188,4 +239,4 @@ def ell_spmv_kernel(ell: EllMat, x: torch.Tensor) -> torch.Tensor:
         return launch.run((ell.indices, ell.data, x), ell_spmv_plain, _EllSpmv.of, _launch, ell, x)
 
 
-launch.zero(ell_spmv_kernel, FORMS.values())
+launch.zero(ell_spmv_kernel, [*FORMS.values(), "renumbered"])

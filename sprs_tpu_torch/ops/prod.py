@@ -100,7 +100,10 @@ def prepare_spmv(mat: CsMat) -> Tuple[Callable, object]:
       (every band width: the kernel has no window to outgrow),
     * modest ELL padding overhead → ELL through kernel K5 (every x: the
       JAX package's VMEM limit on x has no counterpart; its own ELL arm
-      runs the plain XLA product, since the TPU could not compile K5),
+      runs the plain XLA product, since the TPU could not compile K5);
+      on the card a square operator whose gathers of x miss the L2 is
+      stored renumbered by Cuthill–McKee levels where that brings them
+      near (``ops/renumber.py::locality_order``, ``EllMat.order``),
     * otherwise → the CSR matrix itself, whose product :func:`spmv` runs
       through K7 on the card.
 
@@ -116,8 +119,11 @@ def prepare_spmv(mat: CsMat) -> Tuple[Callable, object]:
         if route == "ell":
             from ..formats.ell import ell_from_csmat
             from .cuda.ell_spmv import ell_spmv_kernel
+            from .renumber import l2_bytes, locality_order
 
-            return ell_spmv_kernel, ell_from_csmat(mat)
+            csr = mat.to_csr()
+            return ell_spmv_kernel, ell_from_csmat(
+                csr, order=locality_order(csr, l2_bytes(csr.device)))
         return spmv, mat
 
 
